@@ -1,0 +1,53 @@
+"""Carry weights and caches across from the JAX package through numpy.
+
+The caller turns each leaf of a ``repro`` tree into a numpy array
+(``np.asarray``); these functions turn such a tree into the port's
+tensors, so the port itself never sees JAX. bf16 leaves (numpy dtype
+name ``bfloat16``) go through ``uint16`` views, bit for bit, as the KV
+pager packs pages (``repro/serve/kv_paging.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.layers import ParamDef
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _convert(tree, defs, device, path=""):
+    if isinstance(defs, ParamDef):
+        t = _tensor_from_numpy(tree, device)
+        if tuple(t.shape) != tuple(defs.shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != "
+                             f"{tuple(defs.shape)}")
+        return t
+    if set(tree) != set(defs):
+        raise ValueError(f"{path or 'tree'}: keys {sorted(tree)} != "
+                         f"{sorted(defs)}")
+    return {k: _convert(tree[k], defs[k], device, f"{path}/{k}")
+            for k in defs}
+
+
+def params_from_numpy(cfg, tree: dict, *, device="cuda") -> dict:
+    """A ``repro.models.lm.init_params`` tree with numpy leaves -> the
+    port's params (same keys and shapes, checked against param_defs)."""
+    return _convert(tree, lm.param_defs(cfg), resolve_device(device))
+
+
+def cache_from_numpy(cfg, tree: dict, *, device="cuda") -> dict:
+    """A ``repro.models.lm`` decode cache with numpy leaves -> the port's
+    cache (keys "k", "v": (L, B, Smax, KH, hd) bf16)."""
+    k = np.asarray(tree["k"])
+    defs = lm.cache_spec_defs(cfg, k.shape[2], k.shape[1])
+    return _convert(tree, defs, resolve_device(device))

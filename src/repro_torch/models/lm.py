@@ -1,0 +1,357 @@
+"""Model assembly, dense family (``mesh=None`` path of ``repro.models.lm``).
+
+``param_defs(cfg)`` declares the parameter tree with the JAX package's
+shapes (layers stacked on a leading axis); ``forward`` / ``prefill_cache``
+/ ``decode_step`` consume it as a plain dict of tensors. Where JAX runs
+``lax.scan`` over the stacked layers, the port loops in Python over views
+of the stacked tensors. ``LM`` is an ``nn.Module`` that holds such a tree.
+
+Prefill attention goes through ``attention.flash_attention`` (the CUDA
+flash kernel on the card). Decode attention goes through the paged decode
+op (the CUDA paged kernel on the card): each layer's dense cache
+``(B, Smax, KH, hd)`` is viewed, without a copy, as a page pool
+``(B·Smax/P, P, KH, hd)`` with an identity page table.
+
+Families other than ``dense`` raise ``NotImplementedError``: they come in
+later slices of the port (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.kernels.paged_attn import ops as _paged_ops
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (ParamDef, apply_rope, materialize,
+                                       mlp_apply, mlp_defs, padded_vocab,
+                                       rms_norm, rope_cos_sin, tree_map_defs)
+
+PAGE_SIZE = 16          # tokens per page of the decode op's pool view
+
+_LATER = {
+    "ssm": "ROADMAP.md Queue 1, item 1 (the ssm/hybrid slice)",
+    "hybrid": "ROADMAP.md Queue 1, item 1 (the ssm/hybrid slice)",
+    "moe": "ROADMAP.md Queue 1, item 3 (MoE/MLA/vlm/audio)",
+    "vlm": "ROADMAP.md Queue 1, item 3 (MoE/MLA/vlm/audio)",
+    "audio": "ROADMAP.md Queue 1, item 3 (MoE/MLA/vlm/audio)",
+}
+
+
+def _require_dense(cfg):
+    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet; "
+            f"see {_LATER.get(cfg.family, 'ROADMAP.md Queue 1')}")
+
+
+# ---------------------------------------------------------------------------
+# Parameter declaration
+# ---------------------------------------------------------------------------
+
+def _attn_defs(cfg, ll=()) -> dict:
+    d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Lax = tuple("layers" for _ in ll)
+    return {
+        "wq": ParamDef(ll + (d, H * hd), Lax + ("embed", "heads")),
+        "wk": ParamDef(ll + (d, KH * hd), Lax + ("embed", "kv_heads")),
+        "wv": ParamDef(ll + (d, KH * hd), Lax + ("embed", "kv_heads")),
+        "wo": ParamDef(ll + (H * hd, d), Lax + ("heads", "embed")),
+    }
+
+
+def _block_defs(cfg, ll=()) -> dict:
+    d = cfg.d_model
+    Lax = tuple("layers" for _ in ll)
+    return {
+        "ln1": ParamDef(ll + (d,), Lax + ("embed",), init="ones"),
+        "ln2": ParamDef(ll + (d,), Lax + ("embed",), init="ones"),
+        "attn": _attn_defs(cfg, ll),
+        "mlp": mlp_defs(cfg, cfg.d_ff, ll=ll),
+    }
+
+
+def param_defs(cfg) -> dict:
+    _require_dense(cfg)
+    d = cfg.d_model
+    V = padded_vocab(cfg.vocab_size)
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((V, d), ("vocab", "embed")),
+        "final_norm": ParamDef((d,), ("embed",), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((d, V), ("embed", "vocab"))
+    defs["layers"] = _block_defs(cfg, (cfg.n_layers,))
+    return defs
+
+
+def _apply_param_dtype(cfg, defs):
+    """Honor cfg.param_dtype (fp32 leaves take it)."""
+    if cfg.param_dtype == "float32":
+        return defs
+    return tree_map_defs(
+        lambda pd: dataclasses.replace(pd, dtype=cfg.param_dtype)
+        if pd.dtype == "float32" else pd, defs)
+
+
+def init_params(cfg, generator: torch.Generator, *, device="cuda") -> dict:
+    """Random parameters from ``generator`` (which lives on ``device``)."""
+    dev = resolve_device(device)
+    return materialize(_apply_param_dtype(cfg, param_defs(cfg)), generator,
+                       device=dev)
+
+
+_NORMS = ("ln1", "ln2", "final_norm")
+
+
+def cast_params(cfg, params: dict, dtype) -> dict:
+    """The tree with every matrix cast to ``dtype`` once. Each use casts
+    these leaves to the compute dtype anyway (``w.to(dtype)``), so the
+    values seen by the model are identical; the norm scales, which
+    ``rms_norm`` reads in fp32, are left as they are. Serving uses this so
+    a decode step does not re-read and re-cast every fp32 weight."""
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict)
+                    else v if k in _NORMS else v.to(dtype))
+                for k, v in tree.items()}
+    return walk(params)
+
+
+class LM(nn.Module):
+    """Holds a ``param_defs(cfg)`` tree as (frozen) parameters, nested as
+    submodules with the tree's keys; ``param_tree()`` gives the dict back."""
+
+    def __init__(self, cfg, params: dict):
+        super().__init__()
+        _require_dense(cfg)
+        self.cfg = cfg
+        self._tree = _to_module(params)
+
+    def param_tree(self) -> dict:
+        return _from_module(self._tree)
+
+    def forward(self, tokens, *, collect_cache: bool = False):
+        return forward(self.cfg, self.param_tree(), {"tokens": tokens},
+                       collect_cache=collect_cache)
+
+
+def _to_module(tree: dict) -> nn.Module:
+    mod = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            mod.add_module(k, _to_module(v))
+        else:
+            mod.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return mod
+
+
+def _from_module(mod: nn.Module) -> dict:
+    out = {k: p for k, p in mod.named_parameters(recurse=False)}
+    out.update({k: _from_module(m) for k, m in mod.named_children()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg, params, tokens, dtype):
+    # gather first, then cast: the same values as casting the whole table
+    return params["embed"][tokens.long()].to(dtype)
+
+
+def lm_head(cfg, params, x, dtype):
+    w = params["embed"].to(dtype).t() if cfg.tie_embeddings \
+        else params["head"].to(dtype)
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Transformer block (prefill)
+# ---------------------------------------------------------------------------
+
+def _layer(stacked: dict, i: int, cast=None) -> dict:
+    """Views of layer ``i`` of the stacked tree (JAX: one scan step). With
+    ``cast``, fp32 leaves are cast to it (``cfg.bf16_stacked_params``)."""
+    def pick(a):
+        a = a[i]
+        return a.to(cast) if cast is not None and a.dtype == torch.float32 \
+            else a
+    return {k: (_layer(v, i, cast) if isinstance(v, dict) else pick(v))
+            for k, v in stacked.items()}
+
+
+def _transformer_block(cfg, p, x, cos, sin, dtype, *,
+                       collect_cache: bool = False):
+    B, S, D = x.shape
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    pa = p["attn"]
+    q = (h @ pa["wq"].to(dtype)).reshape(B, S, H, hd)
+    k = (h @ pa["wk"].to(dtype)).reshape(B, S, KH, hd)
+    v = (h @ pa["wv"].to(dtype)).reshape(B, S, KH, hd)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache = (k, v) if collect_cache else None
+    o = attn.flash_attention(q, k, v, causal=True, window=cfg.swa_window,
+                             q_chunk=cfg.attn_q_chunk,
+                             scale=1.0 / math.sqrt(hd),
+                             schedule=cfg.attn_schedule)
+    y = o.reshape(B, S, H * hd) @ pa["wo"].to(dtype)
+    x = x + y
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_apply(cfg, p["mlp"], h2, dtype), 0.0, cache
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill; also returns the KV cache)
+# ---------------------------------------------------------------------------
+
+def forward(cfg, params, batch, *, collect_cache: bool = False):
+    """batch: dict with 'tokens' (B, S).
+
+    Returns (logits (B, S, V_padded), aux_loss, cache_or_None), the cache
+    being {"kv": (k, v)} with k, v of shape (L, B, S, KH, hd)."""
+    _require_dense(cfg)
+    dtype = cfg.compute_dt()
+    tokens = batch["tokens"]
+    B, S = tokens.shape[:2]
+    x = embed_tokens(cfg, params, tokens, dtype)
+    cos, sin = rope_cos_sin(torch.arange(S, device=x.device), cfg.hd,
+                            cfg.rope_theta)
+    stacked_cast = dtype if cfg.bf16_stacked_params else None
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["layers"], i, stacked_cast)
+        x, _, kv = _transformer_block(cfg, p_l, x, cos, sin, dtype,
+                                      collect_cache=collect_cache)
+        if collect_cache:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_head(cfg, params, x, dtype)
+    caches = {"kv": (torch.stack(ks), torch.stack(vs))} if collect_cache \
+        else None
+    return logits, 0.0, caches
+
+
+def prefill_cache(cfg, caches, S: int) -> dict:
+    """Reformat forward(collect_cache=True) output into the decode cache
+    layout (same keys/shapes as cache_spec_defs). SWA archs keep the last
+    ``window`` positions — with window | S these land in ring order."""
+    _require_dense(cfg)
+    win = cfg.swa_window
+
+    def ring(t):                       # t: (L,B,S,KH,hd)
+        if win and t.shape[2] > win:
+            t = t[:, :, -win:]
+        return t.to(torch.bfloat16)
+
+    k, v = caches["kv"]
+    return {"k": ring(k), "v": ring(v)}
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step): one token against the KV cache
+# ---------------------------------------------------------------------------
+
+def cache_spec_defs(cfg, max_len: int, batch: int) -> dict:
+    _require_dense(cfg)
+    L, KH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    win = cfg.swa_window
+    S = min(max_len, win) if win else max_len
+    ax = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": ParamDef((L, batch, S, KH, hd), ax, dtype="bfloat16"),
+            "v": ParamDef((L, batch, S, KH, hd), ax, dtype="bfloat16")}
+
+
+def init_cache(cfg, max_len, batch, *, device="cuda") -> dict:
+    """Zero bf16 cache; its sequence length must be a whole number of
+    decode pages (``PAGE_SIZE``)."""
+    dev = resolve_device(device)
+    defs = cache_spec_defs(cfg, max_len, batch)
+    Smax = defs["k"].shape[2]
+    if Smax % PAGE_SIZE:
+        raise ValueError(f"cache length {Smax} is not a multiple of the "
+                         f"decode page size {PAGE_SIZE}")
+    return {n: torch.zeros(pd.shape, dtype=getattr(torch, pd.dtype),
+                           device=dev) for n, pd in defs.items()}
+
+
+def identity_pages(B, Smax, pos, window, device):
+    """Page table and lengths that make the paged op read a dense cache:
+    row b is pages b·(Smax/P) + j for the pages holding positions <= pos
+    (ring order for a window cache), lengths = pos + 1 (<= Smax)."""
+    per_seq = Smax // PAGE_SIZE
+    length = min(pos + 1, Smax) if window else pos + 1
+    nblk = -(-length // PAGE_SIZE)
+    table = (torch.arange(B, device=device, dtype=torch.int32)[:, None]
+             * per_seq
+             + torch.arange(nblk, device=device, dtype=torch.int32)[None])
+    lengths = torch.full((B,), length, dtype=torch.int32, device=device)
+    return table, lengths
+
+
+def _decode_attn_block(cfg, p, x, kc, vc, pos, cos, sin, dtype, pages):
+    """x: (B,1,D); kc/vc: (B,S,KH,hd) views of one layer of the cache,
+    updated in place (JAX donates the cache to the step instead)."""
+    B = x.shape[0]
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Smax = kc.shape[1]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    pa = p["attn"]
+    q = (h @ pa["wq"].to(dtype)).reshape(B, 1, H, hd)
+    k = (h @ pa["wk"].to(dtype)).reshape(B, 1, KH, hd)
+    v = (h @ pa["wv"].to(dtype)).reshape(B, 1, KH, hd)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    idx = pos % Smax if cfg.swa_window else pos
+    kc[:, idx] = k[:, 0].to(kc.dtype)
+    vc[:, idx] = v[:, 0].to(vc.dtype)
+    # JAX (lm.py:507): decode_attention(q, kc.astype(dtype), ...). Here the
+    # same cache, cast to the compute dtype (a no-op for bf16), is viewed
+    # as a page pool and read by the paged op through an identity table.
+    n_pages = B * Smax // PAGE_SIZE
+    pool_k = kc.to(dtype).view(n_pages, PAGE_SIZE, KH, hd)
+    pool_v = vc.to(dtype).view(n_pages, PAGE_SIZE, KH, hd)
+    table, lengths = pages
+    o = _paged_ops.paged_attention(q[:, 0], pool_k, pool_v, table, lengths,
+                                   scale=1.0 / math.sqrt(hd))
+    y = o.reshape(B, H * hd) @ pa["wo"].to(dtype)
+    return x + y[:, None]
+
+
+def _decode_ffn(cfg, p, x, dtype):
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_apply(cfg, p["mlp"], h2, dtype)
+
+
+def decode_step(cfg, params, cache, tokens, pos: int):
+    """One decode step. tokens: (B,1) int; pos: the new token's position.
+    Writes the token's K/V into ``cache`` in place and returns
+    (logits (B, V_padded), cache)."""
+    _require_dense(cfg)
+    dtype = cfg.compute_dt()
+    pos = int(pos)
+    B = tokens.shape[0]
+    x = embed_tokens(cfg, params, tokens, dtype)           # (B,1,D)
+    dev = x.device
+    cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), cfg.hd,
+                            cfg.rope_theta)
+    Smax = cache["k"].shape[2]
+    if not cfg.swa_window and not 0 <= pos < Smax:
+        raise ValueError(f"position {pos} is outside the cache ({Smax})")
+    pages = identity_pages(B, Smax, pos, cfg.swa_window, dev)
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["layers"], i)
+        x = _decode_attn_block(cfg, p_l, x, cache["k"][i], cache["v"][i],
+                               pos, cos, sin, dtype, pages)
+        x = _decode_ffn(cfg, p_l, x, dtype)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_head(cfg, params, x, dtype)                # (B,1,V)
+    return logits[:, 0], cache

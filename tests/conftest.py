@@ -8,3 +8,8 @@ assert "xla_force_host_platform_device_count" not in \
     "dry-run XLA_FLAGS leaked into the test environment"
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; such a test skips without one")

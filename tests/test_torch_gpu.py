@@ -1,0 +1,149 @@
+"""The port's CUDA kernels on a card, each held against its plain PyTorch
+version, and the smoke serving path on the card against the CPU. Every
+test here carries the ``gpu`` marker and skips without a card; the file
+imports no JAX, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.paged_attn import kernel as paged_kernel
+from repro_torch.kernels.paged_attn import ops as paged_ops
+from repro_torch.models import attention as attn
+from repro_torch.models import lm
+from repro_torch.serve import ServeLoop
+
+pytestmark = pytest.mark.gpu
+
+TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}    # tests/test_kernels.py
+FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
+                (2, 128, 8, 8, 32, 64), (1, 256, 2, 2, 64, 128),
+                (2, 200, 4, 2, 64, 48)]                # ragged, windowed
+PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
+                (1, 4, 4, 128, 64, 2)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)) \
+        .to(dev, dtype)
+
+
+def _paged_inputs(dev, dtype, B, H, KH, hd, page, nblk, seed=3):
+    rng = np.random.default_rng(seed)
+    npool = nblk * B + 4
+    q = _rand(rng, (B, H, hd), dtype, dev)
+    kp = _rand(rng, (npool, page, KH, hd), dtype, dev)
+    vp = _rand(rng, (npool, page, KH, hd), dtype, dev)
+    table = torch.from_numpy(rng.permutation(npool)[:B * nblk]
+                             .reshape(B, nblk).astype(np.int32)).to(dev)
+    lens = torch.from_numpy(rng.integers(0, nblk * page + 1, B)
+                            .astype(np.int32)).to(dev)
+    return q, kp, vp, table, lens
+
+
+def _assert_close(out, ref, tol):
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,win", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, KH, hd, win):
+    rng = np.random.default_rng(0)
+    q = _rand(rng, (B, S, H, hd), dtype, cuda)
+    k = _rand(rng, (B, S, KH, hd), dtype, cuda)
+    v = _rand(rng, (B, S, KH, hd), dtype, cuda)
+    before = flash_kernel.flash_attention_fwd.launches
+    out = flash_ops.flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_close(out, attn.reference_attention(q, k, v, window=win),
+                  TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype,pad", [(torch.float32, 4),
+                                       (torch.bfloat16, 8)])
+def test_flash_kernel_reads_strided_inputs(cuda, dtype, pad):
+    """q/k/v that are views into wider rows are read through their strides
+    (bf16 rows must stay 16-byte aligned; fp32 takes any row stride)."""
+    rng = np.random.default_rng(1)
+    B, S, H, KH, hd = 2, 96, 4, 2, 64
+    q = _rand(rng, (B, S, H, hd + pad), dtype, cuda)[..., :hd]
+    k = _rand(rng, (B, S, KH, hd + pad), dtype, cuda)[..., :hd]
+    v = _rand(rng, (B, S, KH, hd + pad), dtype, cuda)[..., :hd]
+    out = flash_kernel.flash_attention_fwd(q, k, v)
+    _assert_close(out, attn.reference_attention(q, k, v), TOLS[dtype])
+
+
+def test_flash_kernel_refuses_misaligned_bf16_rows(cuda):
+    q = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16,
+                    device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_kernel.flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,hd,page,nblk", PAGED_SHAPES)
+def test_paged_kernel_matches_plain(cuda, dtype, B, H, KH, hd, page, nblk):
+    args = _paged_inputs(cuda, dtype, B, H, KH, hd, page, nblk)
+    before = paged_kernel.paged_attention.launches
+    out = paged_ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_kernel.paged_attention.launches == before + 1
+    ref = paged_ops.paged_attention(*[a.cpu() for a in args])
+    _assert_close(out.cpu(), ref, 3e-5 if dtype == torch.float32
+                  else TOLS[dtype])
+
+
+def test_paged_kernel_permuted_table_is_bit_identical(cuda):
+    """The same pages under a permuted table give the same bits: the
+    reduction order depends on logical position only."""
+    q, kp, vp, table, _ = _paged_inputs(cuda, torch.float32, 2, 4, 2, 16,
+                                        8, 4, seed=5)
+    lens = torch.tensor([32, 27], dtype=torch.int32, device=cuda)
+    perm = torch.randperm(kp.shape[0], generator=torch.Generator()
+                          .manual_seed(6)).to(cuda)
+    inv = torch.argsort(perm).to(torch.int32)
+    out = paged_kernel.paged_attention(q, kp, vp, table, lens)
+    out_p = paged_kernel.paged_attention(q, kp[perm], vp[perm],
+                                         inv[table.long()], lens)
+    assert torch.equal(out, out_p)
+
+
+def test_smoke_serve_on_card_matches_cpu(cuda):
+    """The smoke config (head_dim widened to a kernel-supported 32) served
+    on the card through both kernels gives the CPU's tokens in fp32."""
+    cfg = get_smoke_config("stablelm-1.6b").replace(
+        head_dim=32, compute_dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    cpu = ServeLoop(cfg, params, max_len=32, device="cpu").generate(prompt, 6)
+    f0 = flash_kernel.flash_attention_fwd.launches
+    p0 = paged_kernel.paged_attention.launches
+    gpu_params = _to(params, cuda)
+    out = ServeLoop(cfg, gpu_params, max_len=32, device=cuda) \
+        .generate(prompt, 6)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_fwd.launches - f0 == cfg.n_layers
+    assert paged_kernel.paged_attention.launches - p0 == cfg.n_layers * 5
+    assert torch.equal(out.cpu(), cpu)
+
+
+def _to(tree, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}
