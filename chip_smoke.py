@@ -7,24 +7,34 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``:
 
 Phases (any failure raises, and the script exits nonzero):
 
-1. the card's name, count and power limit; build both CUDA kernels from
-   ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel) and
-   print the compiler's register / shared-memory / spill report;
+1. the card's name, count and power limit; build the three CUDA kernels
+   (flash attention, paged attention, the Mamba2 SSD chunk step) from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel) and print
+   the compiler's register / shared-memory / spill report;
 2. each kernel against its plain PyTorch version on CUDA tensors: the
    shape sweeps of ``tests/test_kernels.py``, a zero-length decode row, a
-   permuted page table (bit-identical output) and the serving shapes;
-3. the main path: ``stablelm-1.6b`` at full width (24 layers, d_model
-   2048, vocab 100352; random weights from a seeded CUDA generator, bf16
-   compute) serves 4 prompts of 512 tokens for 32 new tokens through
-   ``ServeLoop.generate``; the launch counters show that prefill ran the
-   flash kernel in every layer and each decode step the paged kernel in
-   every layer; the first decode step's logits are held against a full
-   forward over prompt + token;
-4. times (CUDA events, after warm-up) of each kernel, its plain version
-   and, for flash, ``scaled_dot_product_attention`` as a yardstick the
-   port never calls, at the serving shapes; prefill and decode times;
+   permuted page table (bit-identical output), flash at head_dim 80, the
+   SSD chunk kernel piece by piece (an initial state, a chunk of one
+   token, a padded S) and the full SSD against the plain chunked SSD, and
+   every kernel at the shapes of the serving runs;
+3. the main paths, each through ``ServeLoop.generate`` at full width with
+   random weights from a seeded CUDA generator and bf16 compute, 4 prompts
+   of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
+   prefill, paged at decode), ``zamba2-2.7b`` (hybrid: the SSD kernel in
+   each of its 54 Mamba2 layers at prefill and at every decode step, flash
+   and paged in the 9 applications of its tied attention block) and
+   ``mamba2-130m`` (ssm: the SSD kernel in its 24 layers). The launch
+   counters, set to 0 just before each run and read just after, must
+   equal what that path launches; each model's first decode step is held
+   against a full forward over prompt + token;
+4. device times (CUDA events over launches queued behind a held stream,
+   after warm-up) of each kernel, its plain version, its bound and, where
+   one PyTorch call computes the same function, that call as a yardstick
+   the port never calls, at the serving shapes (the SSD kernel also at a
+   decode step's chunk of one token); each model's prefill and decode
+   times;
 5. where the time goes: ``torch.profiler`` over one prefill and eight
-   decode steps, device busy share and kernel time by kind.
+   decode steps of each model, device busy share and kernel time by kind.
 
 The last lines are a JSON object with one entry per kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -33,6 +43,7 @@ Without a CUDA device the script prints no result and exits 2.
 
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -53,6 +64,9 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as flash_ops        # noqa
 from repro_torch.kernels.paged_attn import kernel as paged_kernel       # noqa
 from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel           # noqa
+from repro_torch.kernels.ssd_scan import ops as ssd_ops                 # noqa
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_ref     # noqa
 from repro_torch.models import attention as attn               # noqa: E402
 from repro_torch.models import lm                              # noqa: E402
 from repro_torch.serve import ServeLoop                        # noqa: E402
@@ -63,17 +77,30 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py
 PAGED_TOL_F32 = 3e-5
+SSD_ATOL, SSD_RTOL = 2e-5, 2e-4                        # tests/test_kernels.py
 FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
                 (2, 128, 8, 8, 32, 64), (1, 256, 2, 2, 64, 128)]
 PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
                 (1, 4, 4, 128, 64, 2)]
+SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
+              (2, 64, 2, 64, 64, 64)]                  # B, S, nh, hp, ns, cl
+KERNELS = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
+           "paged_attention": paged_kernel.paged_attention,
+           "ssd_chunk_call": ssd_kernel.ssd_chunk_call}
 
-# the serving run: stablelm-1.6b, 4 prompts x 512 tokens, 32 new tokens
-ARCH, BATCH, PROMPT, NEW, MAX_LEN = "stablelm-1.6b", 4, 512, 32, 544
-# first decode step vs a full forward, both bf16 compute through 24
-# layers (different GEMM shapes, flash vs paged attention): logits agree
-# to within bf16 rounding carried through the layers
-LOGIT_ATOL, LOGIT_RTOL = 0.15, 0.05
+# the serving runs: 4 prompts x 512 tokens, 32 new tokens, one per model
+ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m")
+BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
+# first decode step vs a full forward, both bf16 compute through every
+# layer (different GEMM shapes, flash vs paged attention): logits agree to
+# within bf16 rounding carried through the layers, (atol, rtol) per family.
+# mamba2-130m's decode step repeats the forward's arithmetic for that token
+# (a one-token chunk runs the same kernel sums) and has matched it bit for
+# bit; zamba2-2.7b's 54 Mamba2 layers carry the rounding of 9 attention
+# blocks further than stablelm's 24 layers: 0.256 at |logit| <= 4.3 on the
+# H100 against stablelm's 0.078 at <= 5.0
+LOGIT_TOLS = {"dense": (0.15, 0.05), "hybrid": (0.4, 0.05),
+              "ssm": (0.15, 0.05)}
 
 
 def log(*a):
@@ -99,14 +126,40 @@ def check_close(what, out, ref, atol, rtol):
     return max_err
 
 
+_CYCLES_PER_MS = []
+
+
+def hold_stream(ms):
+    """Keep the current stream busy for about ``ms`` with a spin kernel
+    (``torch.cuda._sleep``, calibrated once by CUDA events)."""
+    if not _CYCLES_PER_MS:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(10 ** 7)
+        e1.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS.append(10 ** 7 / e0.elapsed_time(e1))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
 def cuda_ms(fn, n_sets, reps, warmup=3):
-    """Mean ms per call over ``reps`` calls, rotating over ``n_sets`` input
-    sets (so a set is cold in L2 when its turn comes), by CUDA events."""
+    """Mean device ms per call over ``reps`` back-to-back calls, rotating
+    over ``n_sets`` input sets (so a set is cold in L2 when its turn
+    comes), by CUDA events. The stream is held while the host queues the
+    calls (for twice the host's least time per call in warm-up, at most a
+    second), so a call that costs the host more than the card (a one-token
+    SSD chunk, a decode attention) is timed on the card, not on the host;
+    a call that synchronises inside is timed on the host all the same."""
+    host_ms = []
     for i in range(warmup):
+        t0 = time.perf_counter()
         fn(i % n_sets)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    hold_stream(min(2 * min(host_ms) * reps + 5, 1000))
     e0.record()
     for i in range(reps):
         fn(i % n_sets)
@@ -120,6 +173,12 @@ def bound(bytes_moved, flops, dtype):
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -151,31 +210,77 @@ def phase_card_and_build():
 # phase 2: kernels vs their plain versions
 # ---------------------------------------------------------------------------
 
+def check_flash(rng, dev, B, S, H, KH, hd, dt, Sk=None, win=0):
+    Sk = Sk or S
+    q = rand(rng, (B, S, H, hd), dt, dev)
+    k = rand(rng, (B, Sk, KH, hd), dt, dev)
+    v = rand(rng, (B, Sk, KH, hd), dt, dev)
+    what = f"flash  B={B} S={S} Sk={Sk} H={H} KH={KH} hd={hd} win={win} " \
+        f"{str(dt)[6:]}"
+    e = check_close(what, flash_ops.flash_attention(q, k, v, window=win),
+                    attn.reference_attention(q, k, v, window=win), TOLS[dt],
+                    TOLS[dt])
+    log(f"{what}: max abs err {e:.3e} (tol {TOLS[dt]})")
+    return e
+
+
+def ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype):
+    """tests/test_kernels.py's SSD distributions; x/B/C in ``dtype``."""
+    x = rand(rng, (B, S, nh, hp), dtype, dev, 0.5)
+    dt = F.softplus(rand(rng, (B, S, nh), torch.float32, dev))
+    A_log = rand(rng, (nh,), torch.float32, dev, 0.3)
+    Bm = rand(rng, (B, S, ns), dtype, dev, 0.5)
+    Cm = rand(rng, (B, S, ns), dtype, dev, 0.5)
+    return x, dt, A_log, Bm, Cm
+
+
+def check_ssd_chunk(rng, dev, B, S, nh, hp, ns, cl, dtype=torch.float32):
+    args = ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype)
+    out = ssd_kernel.ssd_chunk_call(*args, chunk=cl)
+    ref = ssd_chunk_ref(*args, chunk=cl)
+    errs = [check_close(f"ssd chunk {(B, S, nh, hp, ns, cl)} {name}", o, r,
+                        SSD_ATOL, SSD_RTOL)
+            for name, o, r in zip(("y_diag", "states", "exp_cs", "exp_tot"),
+                                  out, ref)]
+    log(f"ssd    B={B} S={S} nh={nh} hp={hp} ns={ns} cl={cl} "
+        f"{str(dtype)[6:]}: max abs err y {errs[0]:.3e} states "
+        f"{errs[1]:.3e} exp_cs {errs[2]:.3e} exp_tot {errs[3]:.3e} "
+        f"(atol {SSD_ATOL} rtol {SSD_RTOL})")
+    return max(errs)
+
+
+def check_ssd_full(rng, dev, B, S, nh, hp, ns, cl, dtype=torch.float32,
+                   state=False):
+    x, dt, A_log, Bm, Cm = ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype)
+    D = torch.ones(nh, device=dev)
+    st0 = rand(rng, (B, nh, hp, ns), torch.float32, dev, 0.2) if state \
+        else None
+    y, st = ssd_ops.ssd(x, dt, A_log, Bm, Cm, D, chunk=cl, state=st0)
+    yr, sr = ssd_ref(x, dt, A_log, Bm, Cm, D, cl, state=st0)
+    what = f"ssd    full B={B} S={S} nh={nh} hp={hp} ns={ns} cl={cl} " \
+        f"{str(dtype)[6:]}{' +state' if state else ''}"
+    # y comes back in x's dtype: a bf16 y is held at one bf16 rounding
+    tol = (SSD_ATOL, SSD_RTOL) if dtype == torch.float32 else (TOLS[dtype],
+                                                               TOLS[dtype])
+    ey = check_close(what + " y", y, yr, *tol)
+    es = check_close(what + " state", st, sr, SSD_ATOL, SSD_RTOL)
+    log(f"{what} vs the plain chunked SSD: max abs err y {ey:.3e} (tol "
+        f"{tol[0]}/{tol[1]}), state {es:.3e}")
+
+
 def phase_kernels_vs_plain(dev):
     rng = np.random.default_rng(0)
     for B, S, H, KH, hd, win in FLASH_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
-            q = rand(rng, (B, S, H, hd), dt, dev)
-            k = rand(rng, (B, S, KH, hd), dt, dev)
-            v = rand(rng, (B, S, KH, hd), dt, dev)
-            out = flash_ops.flash_attention(q, k, v, window=win)
-            ref = attn.reference_attention(q, k, v, window=win)
-            e = check_close(f"flash {B, S, H, KH, hd, win} {dt}", out, ref,
-                            TOLS[dt], TOLS[dt])
-            log(f"flash  B={B} S={S} H={H} KH={KH} hd={hd} win={win} "
-                f"{str(dt)[6:]}: max abs err {e:.3e} (tol {TOLS[dt]})")
+            check_flash(rng, dev, B, S, H, KH, hd, dt, win=win)
     # ragged edges (S not a multiple of the 64-row tile), cross-attention
     # lengths and a sliding window
     for S, Sk, win in ((513, 513, 0), (100, 160, 0), (200, 200, 48)):
-        q = rand(rng, (2, S, 4, 64), torch.bfloat16, dev)
-        k = rand(rng, (2, Sk, 2, 64), torch.bfloat16, dev)
-        v = rand(rng, (2, Sk, 2, 64), torch.bfloat16, dev)
-        e = check_close(f"flash ragged S={S} Sk={Sk} win={win}",
-                        flash_ops.flash_attention(q, k, v, window=win),
-                        attn.reference_attention(q, k, v, window=win),
-                        TOLS[torch.bfloat16], TOLS[torch.bfloat16])
-        log(f"flash  ragged S={S} Sk={Sk} win={win} bf16: max abs err "
-            f"{e:.3e}")
+        check_flash(rng, dev, 2, S, 4, 2, 64, torch.bfloat16, Sk=Sk, win=win)
+    # head_dim 80 (zamba2-2.7b's shared attention block)
+    for dt in (torch.float32, torch.bfloat16):
+        check_flash(rng, dev, 2, 256, 4, 2, 80, dt)
+        check_flash(rng, dev, 1, 200, 4, 4, 80, dt)            # ragged S
 
     for B, H, KH, hd, page, nblk in PAGED_SHAPES:
         for dt, tol in ((torch.float32, PAGED_TOL_F32),
@@ -216,80 +321,121 @@ def phase_kernels_vs_plain(dev):
         raise AssertionError("paged kernel: permuted table changed the bits")
     log("paged  permuted page table: bit-identical")
 
+    # the SSD chunk kernel: the sweep of tests/test_kernels.py, a chunk of
+    # one token (each decode step), a ragged 64-row tile, bf16 inputs
+    for shape in SSD_SHAPES:
+        check_ssd_chunk(rng, dev, *shape)
+    check_ssd_chunk(rng, dev, 2, 6, 4, 16, 8, 1)
+    check_ssd_chunk(rng, dev, 1, 200, 4, 32, 16, 100, torch.bfloat16)
+    # the full SSD (padding, initial state, inter-chunk recurrence)
+    for shape in SSD_SHAPES:
+        check_ssd_full(rng, dev, *shape)
+    check_ssd_full(rng, dev, 1, 64, 2, 16, 8, 32, state=True)
+    check_ssd_full(rng, dev, 2, 100, 4, 32, 16, 32)            # padded S
+    check_ssd_full(rng, dev, 2, 5, 4, 16, 8, 1, state=True)    # cl = 1
+
     # the serving shapes
+    errs = {}
     Bm, Hm, hdm = BATCH, 32, 64
     q = rand(rng, (Bm, PROMPT, Hm, hdm), torch.bfloat16, dev)
     k = rand(rng, (Bm, PROMPT, Hm, hdm), torch.bfloat16, dev)
     v = rand(rng, (Bm, PROMPT, Hm, hdm), torch.bfloat16, dev)
-    err_flash = check_close(
+    errs["flash_attention_fwd"] = check_close(
         "flash serving shape", flash_ops.flash_attention(q, k, v),
         attn.reference_attention(q, k, v), TOLS[torch.bfloat16],
         TOLS[torch.bfloat16])
-    per_seq = MAX_LEN // lm.PAGE_SIZE
-    qd = rand(rng, (Bm, Hm, hdm), torch.bfloat16, dev)
-    pool_k = rand(rng, (Bm * per_seq, lm.PAGE_SIZE, Hm, hdm),
-                  torch.bfloat16, dev)
-    pool_v = rand(rng, (Bm * per_seq, lm.PAGE_SIZE, Hm, hdm),
-                  torch.bfloat16, dev)
-    table, lens = lm.identity_pages(Bm, MAX_LEN, MAX_LEN - 2, 0, dev)
-    err_paged = check_close(
-        "paged serving shape",
-        paged_ops.paged_attention(qd, pool_k, pool_v, table, lens),
-        paged_ops.paged_attention(qd.cpu(), pool_k.cpu(), pool_v.cpu(),
-                                  table.cpu(), lens.cpu()).to(dev),
-        TOLS[torch.bfloat16], TOLS[torch.bfloat16])
     log(f"flash  serving shape q/k/v {tuple(q.shape)} bf16 causal: max abs "
-        f"err {err_flash:.3e}")
-    log(f"paged  serving shape q {tuple(qd.shape)} pool "
-        f"{tuple(pool_k.shape)} bf16, {table.shape[1]} pages, length "
-        f"{int(lens[0])}: max abs err {err_paged:.3e}")
+        f"err {errs['flash_attention_fwd']:.3e}")
+    check_flash(rng, dev, BATCH, PROMPT, 32, 32, 80, torch.bfloat16)
+    per_seq = MAX_LEN // lm.PAGE_SIZE
+    for hd in (hdm, 80):
+        qd = rand(rng, (Bm, Hm, hd), torch.bfloat16, dev)
+        pool_k = rand(rng, (Bm * per_seq, lm.PAGE_SIZE, Hm, hd),
+                      torch.bfloat16, dev)
+        pool_v = rand(rng, (Bm * per_seq, lm.PAGE_SIZE, Hm, hd),
+                      torch.bfloat16, dev)
+        table, lens = lm.identity_pages(Bm, MAX_LEN, MAX_LEN - 2, 0, dev)
+        e = check_close(
+            "paged serving shape",
+            paged_ops.paged_attention(qd, pool_k, pool_v, table, lens),
+            paged_ops.paged_attention(qd.cpu(), pool_k.cpu(), pool_v.cpu(),
+                                      table.cpu(), lens.cpu()).to(dev),
+            TOLS[torch.bfloat16], TOLS[torch.bfloat16])
+        errs.setdefault("paged_attention", e)
+        log(f"paged  serving shape q {tuple(qd.shape)} pool "
+            f"{tuple(pool_k.shape)} bf16, {table.shape[1]} pages, length "
+            f"{int(lens[0])}: max abs err {e:.3e}")
+    # zamba2-2.7b (nh 80, ns 64) and mamba2-130m (nh 24, ns 128): prefill
+    # (cl 256) and a decode step (cl 1), bf16 x/B/C as the model makes them
+    errs["ssd_chunk_call"] = check_ssd_chunk(rng, dev, BATCH, PROMPT, 80, 64,
+                                             64, 256, torch.bfloat16)
+    check_ssd_chunk(rng, dev, BATCH, PROMPT, 24, 64, 128, 256, torch.bfloat16)
+    check_ssd_chunk(rng, dev, BATCH, 1, 80, 64, 64, 1, torch.bfloat16)
+    check_ssd_chunk(rng, dev, BATCH, 1, 24, 64, 128, 1, torch.bfloat16)
+    check_ssd_full(rng, dev, BATCH, PROMPT, 80, 64, 64, 256)
+    check_ssd_full(rng, dev, BATCH, PROMPT, 24, 64, 128, 256)
     torch.cuda.synchronize()
-    return err_flash, err_paged
+    return errs
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the main paths
 # ---------------------------------------------------------------------------
 
-def phase_main_path(dev):
-    cfg = get_config(ARCH)
+def expected_launches(cfg):
+    L, steps = cfg.n_layers, NEW - 1
+    if cfg.family == "dense":
+        return {"flash_attention_fwd": L, "paged_attention": L * steps,
+                "ssd_chunk_call": 0}
+    G = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    return {"flash_attention_fwd": G, "paged_attention": G * steps,
+            "ssd_chunk_call": L * (1 + steps)}
+
+
+def phase_main_path(dev, arch):
+    cfg = get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, device=dev)
     serve = ServeLoop(cfg, params, max_len=MAX_LEN, device=dev)
     del params
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    free_card()
     n_par = sum(t.numel() for t in _leaves(serve.params))
-    log(f"main: {ARCH} {cfg.n_layers}L d_model={cfg.d_model} H={cfg.n_heads} "
-        f"KH={cfg.n_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab_size}: {n_par / 1e9:.3f} B params, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    shape = (f"H={cfg.n_heads} KH={cfg.n_kv_heads} hd={cfg.hd} "
+             f"d_ff={cfg.d_ff} " if cfg.family != "ssm" else "")
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        shape += (f"ssm heads={s.n_heads(cfg.d_model)} headdim={s.headdim} "
+                  f"d_state={s.d_state} chunk={s.chunk} ")
+    if cfg.family == "hybrid":
+        shape += f"attn_every={cfg.attn_every} "
+    log(f"main[{arch}]: {cfg.family} {cfg.n_layers}L d_model={cfg.d_model} "
+        f"{shape}vocab={cfg.vocab_size}: {n_par / 1e9:.3f} B params, built "
+        f"in {time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
 
     torch.cuda.synchronize()
-    flash_kernel.flash_attention_fwd.launches = 0
-    paged_kernel.paged_attention.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
     toks = serve.generate(prompts, NEW)
     torch.cuda.synchronize()
-    launches = {"flash_attention_fwd": flash_kernel.flash_attention_fwd.launches,
-                "paged_attention": paged_kernel.paged_attention.launches}
-    log(f"main: generate -> tokens {tuple(toks.shape)}; launches {launches}")
-    want = {"flash_attention_fwd": cfg.n_layers,
-            "paged_attention": cfg.n_layers * (NEW - 1)}
+    gen_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    log(f"main[{arch}]: generate -> tokens {tuple(toks.shape)} in "
+        f"{gen_s:.2f} s; launches {launches}")
+    want = expected_launches(cfg)
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"{arch}: launch counts {launches} != {want}")
     if tuple(toks.shape) != (BATCH, NEW) or \
             not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError("generated tokens out of range")
+        raise AssertionError(f"{arch}: generated tokens out of range")
 
     with torch.inference_mode():
         tokens = torch.from_numpy(prompts).to(dev)
         logits0, cache = serve.prefill(serve.params, {"tokens": tokens})
-        full = lm.init_cache(cfg, MAX_LEN, BATCH, device=dev)
-        for n in full:
-            full[n][:, :, :PROMPT] = cache[n]
+        full = lm.grow_cache(cfg, cache, MAX_LEN)
         first = logits0[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
         step_logits, _ = lm.decode_step(cfg, serve.params, full, first, PROMPT)
         seq = torch.cat([tokens, first], dim=1)
@@ -298,17 +444,19 @@ def phase_main_path(dev):
         for what, t in (("prefill", logits0), ("decode", step_logits),
                         ("forward", ref)):
             if not bool(torch.isfinite(t.float()).all()):
-                raise AssertionError(f"{what} logits are not finite")
+                raise AssertionError(f"{arch}: {what} logits are not finite")
         V = cfg.vocab_size
-        err = check_close("first decode step vs forward", step_logits[:, :V],
-                          ref[:, :V], LOGIT_ATOL, LOGIT_RTOL)
+        atol, rtol = LOGIT_TOLS[cfg.family]
+        err = check_close(f"{arch}: first decode step vs forward",
+                          step_logits[:, :V], ref[:, :V], atol, rtol)
         agree = (step_logits[:, :V].argmax(-1) == ref[:, :V].argmax(-1))
         same_first = bool(torch.equal(first[:, 0], toks[:, 0]))
         same_second = (step_logits[:, :V].argmax(-1).to(torch.int32)
                        == toks[:, 1])
-    log(f"main: first decode step vs forward over prompt+token: max abs err "
-        f"{err:.3e} (|ref| max {ref.float().abs().max().item():.3f}; atol "
-        f"{LOGIT_ATOL} rtol {LOGIT_RTOL}); greedy agreement "
+        del fwd_logits, full, cache
+    log(f"main[{arch}]: first decode step vs forward over prompt+token: max "
+        f"abs err {err:.3e} (|ref| max {ref.float().abs().max().item():.3f}; "
+        f"atol {atol} rtol {rtol}); greedy agreement "
         f"{int(agree.sum())}/{BATCH}; generate's token 0 reproduced: "
         f"{same_first}, token 1: {int(same_second.sum())}/{BATCH}")
     return cfg, serve, prompts, launches
@@ -326,50 +474,117 @@ def _leaves(tree):
 # phase 4: times
 # ---------------------------------------------------------------------------
 
-def phase_times(dev, cfg, serve, prompts):
-    rng = np.random.default_rng(1)
+def ssd_work(B, S, nh, hp, ns, cl, esz):
+    """(bytes, flops) of one ssd_chunk_call: each input read once, each
+    output written once; C B^T once per chunk and the products only on the
+    lower triangle (FMA = 2), plus the elementwise x·dt, L (sub, exp, mul)
+    and decay weights."""
+    nc = S // cl
+    tri = cl * (cl + 1) // 2
+    byt = (B * S * nh * hp * esz + B * S * nh * 4 + nh * 4
+           + 2 * B * S * ns * esz                       # x, dt, A_log, B, C
+           + B * S * nh * hp * 4 + B * nc * nh * hp * ns * 4
+           + B * S * nh * 4 + B * nc * nh * 4)          # y, states, exps
+    flops = (2 * B * nc * tri * ns + 2 * B * nc * nh * tri * hp
+             + 3 * B * nc * nh * tri + 2 * B * S * nh * hp * ns
+             + 2 * B * S * nh * hp + 2 * B * S * nh)
+    return byt, flops
+
+
+def time_flash(rng, dev, H, KH, hd):
     dt = torch.bfloat16
-    B, S, H, KH, hd = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S = BATCH, PROMPT
     sets = [tuple(rand(rng, (B, S, n, hd), dt, dev) for n in (H, KH, KH))
             for _ in range(4)]                       # 4 x 33.5 MB > L2
-    flash_ms = cuda_ms(lambda i: flash_kernel.flash_attention_fwd(*sets[i]),
-                       4, 50)
-    flash_plain_ms = cuda_ms(
-        lambda i: attn.reference_attention(*sets[i]), 4, 10)
+    ms = cuda_ms(lambda i: flash_kernel.flash_attention_fwd(*sets[i]), 4, 50)
+    plain_ms = cuda_ms(lambda i: attn.reference_attention(*sets[i]), 4, 10)
     t_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
-    flash_lib_ms = cuda_ms(
+    lib_ms = cuda_ms(
         lambda i: F.scaled_dot_product_attention(*t_sets[i], is_causal=True),
         4, 50)
-    esz = 2
     pairs = S * (S + 1) // 2
-    flash_bound = bound(2 * B * S * H * hd * esz + 2 * B * S * KH * hd * esz,
-                        4 * B * H * hd * pairs, dt)
-    del sets, t_sets
+    bnd = bound(2 * B * S * H * hd * 2 + 2 * B * S * KH * hd * 2,
+                4 * B * H * hd * pairs, dt)
+    log(f"  flash  q/k/v {(B, S, H, hd)} bf16 causal: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bnd[0]:.4f} "
+        f"ms ({bnd[1]})")
+    return ms, plain_ms, lib_ms, bnd
 
+
+def time_paged(rng, dev, H, KH, hd):
+    dt = torch.bfloat16
+    B = BATCH
     per_seq = MAX_LEN // lm.PAGE_SIZE
     length = MAX_LEN - 1                             # the last decode step
     table, lens = lm.identity_pages(B, MAX_LEN, length - 1, 0, dev)
     q = rand(rng, (B, H, hd), dt, dev)
     pools = [tuple(rand(rng, (B * per_seq, lm.PAGE_SIZE, KH, hd), dt, dev)
                    for _ in range(2)) for _ in range(8)]   # 8 x 17.8 MB
-    paged_ms = cuda_ms(lambda i: paged_kernel.paged_attention(
+    ms = cuda_ms(lambda i: paged_kernel.paged_attention(
         q, *pools[i], table, lens), 8, 200)
-    paged_plain_ms = cuda_ms(lambda i: paged_ops.paged_attention_ref(
+    plain_ms = cuda_ms(lambda i: paged_ops.paged_attention_ref(
         q, *pools[i], table, lens), 8, 20)
-    paged_bound = bound(2 * B * length * KH * hd * esz + 2 * B * H * hd * esz
-                        + table.numel() * 4 + lens.numel() * 4,
-                        4 * B * H * hd * length, dt)
-    del pools
-    log(f"times at the serving shapes (CUDA events, mean of many launches):")
-    log(f"  flash  q/k/v {(B, S, H, hd)} bf16 causal: kernel {flash_ms:.4f} "
-        f"ms, plain {flash_plain_ms:.4f} ms, sdpa {flash_lib_ms:.4f} ms, "
-        f"bound {flash_bound[0]:.4f} ms ({flash_bound[1]})")
+    # one PyTorch call for the same function: the identity table reads a
+    # dense cache, so the single query over that cache, (B,H,1,hd) x
+    # (B,KH,L,hd) in the layout SDPA takes (laid out beforehand)
+    dense = [tuple(p.view(B, per_seq * lm.PAGE_SIZE, KH, hd)[:, :length]
+                   .transpose(1, 2).contiguous() for p in ps) for ps in pools]
+    q4 = q[:, :, None, :]
+    gqa = dict(enable_gqa=True) if KH != H else {}
+    ref = paged_kernel.paged_attention(q, *pools[0], table, lens)
+    lib = F.scaled_dot_product_attention(q4, *dense[0], **gqa)[:, :, 0]
+    check_close("sdpa vs paged kernel", lib, ref, TOLS[dt], TOLS[dt])
+    lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q4, *dense[i], **gqa), 8, 200)
+    bnd = bound(2 * B * length * KH * hd * 2 + 2 * B * H * hd * 2
+                + table.numel() * 4 + lens.numel() * 4,
+                4 * B * H * hd * length, dt)
     log(f"  paged  q {(B, H, hd)} over {table.shape[1]} pages x "
-        f"{lm.PAGE_SIZE}, length {length}: kernel {paged_ms:.4f} ms, plain "
-        f"{paged_plain_ms:.4f} ms, bound {paged_bound[0]:.4f} ms "
-        f"({paged_bound[1]})")
+        f"{lm.PAGE_SIZE}, length {length}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa over the dense cache {lib_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return ms, plain_ms, lib_ms, bnd
 
-    # serving: prefill and decode on the full model
+
+def time_ssd(rng, dev, nh, hp, ns, S, cl, what):
+    dt = torch.bfloat16
+    B = BATCH
+    n_sets = 4
+    sets = [ssd_inputs(rng, dev, B, S, nh, hp, ns, dt) for _ in range(n_sets)]
+    reps = 50 if S > 1 else 500
+    ms = cuda_ms(lambda i: ssd_kernel.ssd_chunk_call(*sets[i], chunk=cl),
+                 n_sets, reps)
+    plain_ms = cuda_ms(lambda i: ssd_chunk_ref(*sets[i], chunk=cl), n_sets,
+                       max(5, reps // 10))
+    byt, flops = ssd_work(B, S, nh, hp, ns, cl, 2)
+    bnd = bound(byt, flops, torch.float32)
+    log(f"  ssd    {what}: x {(B, S, nh, hp)} ns {ns} cl {cl} bf16: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}; {flops / 1e9:.3f} GFLOP fp32, "
+        f"{byt / 1e6:.1f} MB)")
+    return ms, plain_ms, None, bnd
+
+
+def phase_kernel_times(dev):
+    rng = np.random.default_rng(1)
+    log("kernel times at the serving shapes (device ms a call: CUDA events "
+        "over back-to-back calls queued behind a held stream):")
+    out = {"flash_attention_fwd": time_flash(rng, dev, 32, 32, 64)}
+    time_flash(rng, dev, 32, 32, 80)                  # zamba2-2.7b
+    free_card()
+    out["paged_attention"] = time_paged(rng, dev, 32, 32, 64)
+    time_paged(rng, dev, 32, 32, 80)                  # zamba2-2.7b
+    free_card()
+    out["ssd_chunk_call"] = time_ssd(rng, dev, 80, 64, 64, PROMPT, 256,
+                                     "zamba2-2.7b prefill")
+    time_ssd(rng, dev, 24, 64, 128, PROMPT, 256, "mamba2-130m prefill")
+    time_ssd(rng, dev, 80, 64, 64, 1, 1, "zamba2-2.7b decode step")
+    time_ssd(rng, dev, 24, 64, 128, 1, 1, "mamba2-130m decode step")
+    free_card()
+    return out
+
+
+def phase_serve_times(dev, arch, cfg, serve, prompts):
     with torch.inference_mode():
         tokens = torch.from_numpy(prompts).to(dev)
         batch = {"tokens": tokens}
@@ -381,9 +596,8 @@ def phase_times(dev, cfg, serve, prompts):
             logits0, cache = serve.prefill(serve.params, batch)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3 / reps
-        full = lm.init_cache(cfg, MAX_LEN, B, device=dev)
-        for n in full:
-            full[n][:, :, :PROMPT] = cache[n]
+        full = lm.grow_cache(cfg, cache, MAX_LEN)
+        del cache
         nxt = logits0[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
         serve.step(serve.params, full, nxt, PROMPT)       # warm-up
         torch.cuda.synchronize()
@@ -398,15 +612,14 @@ def phase_times(dev, cfg, serve, prompts):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
         decode_ms = e0.elapsed_time(e1) / (NEW - 1)
+        del full
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  prefill {B}x{S}: {prefill_ms:.3f} ms (host clock, synchronized, "
-        f"mean of {reps})")
-    log(f"  decode: {decode_ms:.3f} ms/step by CUDA events ({host_ms:.3f} ms "
-        f"host), {B * 1e3 / decode_ms:.1f} tokens/s at batch {B}; peak "
+    log(f"serve[{arch}]: prefill {BATCH}x{PROMPT}: {prefill_ms:.3f} ms (host "
+        f"clock, synchronized, mean of {reps}); decode: {decode_ms:.3f} "
+        f"ms/step by CUDA events ({host_ms:.3f} ms host), "
+        f"{BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {BATCH}; peak "
         f"memory {peak_gb:.2f} GB")
-    return {"flash": (flash_ms, flash_plain_ms, flash_lib_ms, flash_bound),
-            "paged": (paged_ms, paged_plain_ms, None, paged_bound),
-            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -415,6 +628,7 @@ def phase_times(dev, cfg, serve, prompts):
 
 KINDS = (("flash kernel", ("flash_fwd_",)),
          ("paged kernel", ("paged_attn_kernel",)),
+         ("ssd kernel", ("ssd_chunk_kernel",)),
          ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
          ("copy/cast", ("copy", "convert", "to_copy")))
 
@@ -428,7 +642,8 @@ def _kind(name):
 
 
 def _profile(fn):
-    """Host wall ms of ``fn`` and its device kernels (name -> (us, n))."""
+    """Host wall ms of ``fn``, its device kernels (name -> (us, n)) and the
+    host operators by self CPU time (name -> (us, n))."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -444,10 +659,13 @@ def _profile(fn):
             kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     if not kernels:
         raise AssertionError("torch.profiler recorded no device kernels")
-    return wall_ms, kernels
+    host = {e.key: (e.self_cpu_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return wall_ms, kernels, host
 
 
-def _report(what, wall_ms, kernels, steps=1):
+def _report(what, wall_ms, kernels, host, steps=1):
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
     by_kind = {}
     for name, (us, n) in kernels.items():
@@ -462,9 +680,13 @@ def _report(what, wall_ms, kernels, steps=1):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     for name, (us, n) in top:
         log(f"    {us / 1e3 / steps:8.3f} ms  x{n // steps:<4d} {name[:110]}")
+    host_ms = sum(us for us, _ in host.values()) / 1e3
+    log(f"    host operators, self CPU {host_ms / steps:.3f} ms; top:")
+    for name, (us, n) in sorted(host.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"    {us / 1e3 / steps:8.3f} ms  x{n // steps:<4d} {name[:60]}")
 
 
-def phase_profile(dev, cfg, serve, prompts):
+def phase_profile(dev, arch, cfg, serve, prompts):
     steps = 8
     with torch.inference_mode():
         batch = {"tokens": torch.from_numpy(prompts).to(dev)}
@@ -472,21 +694,20 @@ def phase_profile(dev, cfg, serve, prompts):
 
         def prefill():
             box["out"] = serve.prefill(serve.params, batch)
-        wall, kern = _profile(prefill)
-        log("where the time goes (torch.profiler, per call):")
-        _report(f"prefill {tuple(prompts.shape)}", wall, kern)
-        logits0, cache = box["out"]
-        full = lm.init_cache(cfg, MAX_LEN, BATCH, device=dev)
-        for n in full:
-            full[n][:, :, :PROMPT] = cache[n]
+        wall, kern, host = _profile(prefill)
+        log(f"where the time goes [{arch}] (torch.profiler, per call):")
+        _report(f"prefill {tuple(prompts.shape)}", wall, kern, host)
+        logits0, cache = box.pop("out")
+        full = lm.grow_cache(cfg, cache, MAX_LEN)
+        del cache
         nxt = logits0[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
 
         def decode():
             t = nxt
             for pos in range(PROMPT, PROMPT + steps):
                 t, _ = serve.step(serve.params, full, t, pos)
-        wall, kern = _profile(decode)
-        _report(f"decode step (mean of {steps})", wall, kern, steps)
+        wall, kern, host = _profile(decode)
+        _report(f"decode step (mean of {steps})", wall, kern, host, steps)
 
 
 def main() -> int:
@@ -498,25 +719,35 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     name, count, smi_line = phase_card_and_build()
-    err_flash, err_paged = phase_kernels_vs_plain(dev)
-    cfg, serve, prompts, launches = phase_main_path(dev)
-    times = phase_times(dev, cfg, serve, prompts)
-    phase_profile(dev, cfg, serve, prompts)
+    errs = phase_kernels_vs_plain(dev)
+    free_card()
+    launches, serve_times = {}, {}
+    for arch in ARCHS:
+        cfg, serve, prompts, launches[arch] = phase_main_path(dev, arch)
+        serve_times[arch] = phase_serve_times(dev, arch, cfg, serve, prompts)
+        phase_profile(dev, arch, cfg, serve, prompts)
+        del serve
+        free_card()
+    times = phase_kernel_times(dev)
     kernels = []
-    for key, kname, src, replaces, err in (
-            ("flash", "flash_attention_fwd", "src/repro_torch/csrc/flash_fwd.cu",
-             "src/repro/kernels/flash_attention/kernel.py:71", err_flash),
-            ("paged", "paged_attention", "src/repro_torch/csrc/paged_attn.cu",
-             "src/repro/kernels/paged_attn/kernel.py:70", err_paged)):
-        ms, plain_ms, lib_ms, (bound_ms, bound_by) = times[key]
+    for kname, src, replaces in (
+            ("flash_attention_fwd", "src/repro_torch/csrc/flash_fwd.cu",
+             "src/repro/kernels/flash_attention/kernel.py:71"),
+            ("paged_attention", "src/repro_torch/csrc/paged_attn.cu",
+             "src/repro/kernels/paged_attn/kernel.py:70"),
+            ("ssd_chunk_call", "src/repro_torch/csrc/ssd_chunk.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:73")):
+        ms, plain_ms, lib_ms, (bound_ms, bound_by) = times[kname]
+        by_path = {a: launches[a][kname] for a in ARCHS}
         kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[kname],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": lib_ms})
+                        "replaces": replaces,
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
+                        "max_abs_err": errs[kname], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms})
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "prefill_ms": times["prefill_ms"],
-                      "decode_ms_per_step": times["decode_ms"]}))
+    print(json.dumps({"kernels": kernels, "serve": serve_times}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

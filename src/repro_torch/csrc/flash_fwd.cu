@@ -30,7 +30,11 @@
 //     visits every tile;
 //   * ragged edges are masked in the kernel: q rows >= S are not stored,
 //     keys >= Sk are treated as masked (score -1e30, V row zero);
-//   * heavy (late) causal q tiles are launched first to shorten the tail.
+//   * heavy (late) causal q tiles are launched first to shorten the tail;
+//   * head dims 32, 64, 80 (zamba2-2.7b) and 128. At hd 80 the bf16 kernel
+//     has 5 16-wide chunks of hd and 10 8-wide output tiles (5 ldmatrix.x4
+//     pairs); its shared rows of 88 elements (176 B) keep ldmatrix rows
+//     16-byte aligned and conflict-free. The fp32 tiles take ~79 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -488,6 +492,10 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
       return launch<decltype(&flash_fwd_bf16_kernel<64>), __nv_bfloat16>(
           flash_fwd_bf16_kernel<64>, MMA_THREADS, bf16_smem_bytes<64>(), q, k,
           v, o, B, a, st);
+    case 80:
+      return launch<decltype(&flash_fwd_bf16_kernel<80>), __nv_bfloat16>(
+          flash_fwd_bf16_kernel<80>, MMA_THREADS, bf16_smem_bytes<80>(), q, k,
+          v, o, B, a, st);
     case 128:
       return launch<decltype(&flash_fwd_bf16_kernel<128>), __nv_bfloat16>(
           flash_fwd_bf16_kernel<128>, MMA_THREADS, bf16_smem_bytes<128>(), q,
@@ -517,6 +525,10 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<decltype(&flash_fwd_f32_kernel<64>), float>(
           flash_fwd_f32_kernel<64>, F32_THREADS, f32_smem_bytes<64>(), q, k,
+          v, o, B, a, st);
+    case 80:
+      return launch<decltype(&flash_fwd_f32_kernel<80>), float>(
+          flash_fwd_f32_kernel<80>, F32_THREADS, f32_smem_bytes<80>(), q, k,
           v, o, B, a, st);
     case 128:
       return launch<decltype(&flash_fwd_f32_kernel<128>), float>(

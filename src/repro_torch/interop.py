@@ -47,7 +47,13 @@ def params_from_numpy(cfg, tree: dict, *, device="cuda") -> dict:
 
 def cache_from_numpy(cfg, tree: dict, *, device="cuda") -> dict:
     """A ``repro.models.lm`` decode cache with numpy leaves -> the port's
-    cache (keys "k", "v": (L, B, Smax, KH, hd) bf16)."""
-    k = np.asarray(tree["k"])
-    defs = lm.cache_spec_defs(cfg, k.shape[2], k.shape[1])
+    cache (the keys of ``lm.cache_spec_defs``: "k"/"v" (G, B, Smax, KH, hd)
+    bf16 where the family attends, "ssm" and "conv_x/b/c" where it has
+    Mamba2 layers). Batch and length are read from the leaves present."""
+    if "k" in tree:
+        k = np.asarray(tree["k"])
+        batch, length = k.shape[1], k.shape[2]
+    else:                      # attention-free: no sequence axis
+        batch, length = np.asarray(tree["ssm"]).shape[1], 0
+    defs = lm.cache_spec_defs(cfg, length, batch)
     return _convert(tree, defs, resolve_device(device))

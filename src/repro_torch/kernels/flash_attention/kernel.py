@@ -22,7 +22,7 @@ _SYMBOLS = {torch.bfloat16: "flash_fwd_bf16", torch.float32: "flash_fwd_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_int64] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,

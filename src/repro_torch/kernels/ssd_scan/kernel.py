@@ -1,0 +1,80 @@
+"""Mamba2 SSD intra-chunk step — the hand-written CUDA kernel's wrapper.
+
+The kernel is ``csrc/ssd_chunk.cu`` (it replaces the Pallas TPU kernel
+``repro/kernels/ssd_scan/kernel.py:ssd_chunk_call``); its header says what
+bounds it and how it is laid out. This wrapper checks its inputs,
+allocates the four fp32 outputs, launches on the current stream and counts
+launches in ``ssd_chunk_call.launches``. It takes CUDA tensors only; the
+plain version is ``ref.ssd_chunk_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = "ssd_chunk"
+_SYMBOLS = {torch.bfloat16: "ssd_chunk_bf16", torch.float32: "ssd_chunk_f32"}
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+MAX_HP, MAX_NS = 128, 256     # y accumulators a thread; shared-memory tiles
+
+
+def ssd_chunk_call(x, dt, A_log, B_, C_, *, chunk: int):
+    """x: (B, S, nh, hp); dt: (B, S, nh) fp32; A_log: (nh,) fp32;
+    B_/C_: (B, S, ns); x, B_, C_ of one dtype (bf16 or fp32); all
+    contiguous CUDA tensors, S a multiple of cl = min(chunk, S).
+
+    Returns the per-chunk pieces, fp32:
+      y_diag  (B, nc, cl, nh, hp)
+      states  (B, nc, nh, hp, ns)
+      exp_cs  (B, nc, cl, nh)
+      exp_tot (B, nc, nh)
+    """
+    B, S, nh, hp = x.shape
+    ns = B_.shape[-1]
+    for t in (x, dt, A_log, B_, C_):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError("ssd_chunk_call launches a CUDA kernel: every "
+                             "input must be on one CUDA device, got "
+                             + str(t.device))
+        if not t.is_contiguous():
+            raise ValueError("ssd_chunk_call needs contiguous inputs")
+    if x.dtype not in _SYMBOLS or B_.dtype != x.dtype or C_.dtype != x.dtype:
+        raise TypeError(f"SSD kernel takes bf16 or fp32 x/B/C of one dtype, "
+                        f"got {x.dtype}/{B_.dtype}/{C_.dtype}")
+    if dt.dtype != torch.float32 or A_log.dtype != torch.float32:
+        raise TypeError(f"SSD kernel takes fp32 dt and A_log, got "
+                        f"{dt.dtype}/{A_log.dtype}")
+    if tuple(dt.shape) != (B, S, nh) or tuple(A_log.shape) != (nh,) \
+            or tuple(B_.shape) != (B, S, ns) or C_.shape != B_.shape:
+        raise ValueError(f"bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
+                         f"A_log{tuple(A_log.shape)} B{tuple(B_.shape)} "
+                         f"C{tuple(C_.shape)}")
+    if hp % 4 or hp > MAX_HP or ns > MAX_NS:
+        raise ValueError(f"SSD kernel takes hp <= {MAX_HP} (a multiple of 4) "
+                         f"and ns <= {MAX_NS}, got hp={hp} ns={ns}")
+    cl = min(chunk, S)
+    if S % cl:
+        raise ValueError(f"S={S} is not a multiple of the chunk {cl}: pad "
+                         f"first (ops.ssd does)")
+    nc = S // cl
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((B, nc, cl, nh, hp), **f32)
+    st = torch.empty((B, nc, nh, hp, ns), **f32)
+    ecs = torch.empty((B, nc, cl, nh), **f32)
+    etot = torch.empty((B, nc, nh), **f32)
+    symbol = _SYMBOLS[x.dtype]
+    fn = _build.bind(SOURCE, symbol, _ARGTYPES)
+    err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B_.data_ptr(),
+             C_.data_ptr(), y.data_ptr(), st.data_ptr(), ecs.data_ptr(),
+             etot.data_ptr(), B, S, nh, hp, ns, cl,
+             _build.stream_handle(x.device))
+    _build.check(SOURCE, symbol, err)
+    ssd_chunk_call.launches += 1
+    return y, st, ecs, etot
+
+
+ssd_chunk_call.launches = 0

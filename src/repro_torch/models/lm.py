@@ -1,4 +1,5 @@
-"""Model assembly, dense family (``mesh=None`` path of ``repro.models.lm``).
+"""Model assembly, dense / ssm / hybrid families (``mesh=None`` path of
+``repro.models.lm``).
 
 ``param_defs(cfg)`` declares the parameter tree with the JAX package's
 shapes (layers stacked on a leading axis); ``forward`` / ``prefill_cache``
@@ -10,10 +11,13 @@ Prefill attention goes through ``attention.flash_attention`` (the CUDA
 flash kernel on the card). Decode attention goes through the paged decode
 op (the CUDA paged kernel on the card): each layer's dense cache
 ``(B, Smax, KH, hd)`` is viewed, without a copy, as a page pool
-``(B·Smax/P, P, KH, hd)`` with an identity page table.
+``(B·Smax/P, P, KH, hd)`` with an identity page table. Every Mamba2 layer
+(``ssm``: mamba2-130m; ``hybrid``: zamba2-2.7b, whose one tied attention
+block follows every ``attn_every`` Mamba2 layers) runs its SSD through the
+CUDA SSD chunk kernel on the card, at prefill and at decode.
 
-Families other than ``dense`` raise ``NotImplementedError``: they come in
-later slices of the port (ROADMAP.md, Queue 1).
+The moe, vlm and audio families raise ``NotImplementedError``: they come
+in later slices of the port (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -28,26 +32,23 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.kernels.paged_attn import ops as _paged_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models.layers import (ParamDef, apply_rope, materialize,
                                        mlp_apply, mlp_defs, padded_vocab,
                                        rms_norm, rope_cos_sin, tree_map_defs)
 
 PAGE_SIZE = 16          # tokens per page of the decode op's pool view
+_CONV = ("conv_x", "conv_b", "conv_c")
 
-_LATER = {
-    "ssm": "ROADMAP.md Queue 1, item 1 (the ssm/hybrid slice)",
-    "hybrid": "ROADMAP.md Queue 1, item 1 (the ssm/hybrid slice)",
-    "moe": "ROADMAP.md Queue 1, item 3 (MoE/MLA/vlm/audio)",
-    "vlm": "ROADMAP.md Queue 1, item 3 (MoE/MLA/vlm/audio)",
-    "audio": "ROADMAP.md Queue 1, item 3 (MoE/MLA/vlm/audio)",
-}
+_LATER = "ROADMAP.md Queue 1, item 3 (MoE/MLA/vlm/audio)"
 
 
-def _require_dense(cfg):
-    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+def _require_ported(cfg):
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.mla is not None \
+            or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet; "
-            f"see {_LATER.get(cfg.family, 'ROADMAP.md Queue 1')}")
+            f"see {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +78,7 @@ def _block_defs(cfg, ll=()) -> dict:
 
 
 def param_defs(cfg) -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     d = cfg.d_model
     V = padded_vocab(cfg.vocab_size)
     defs: Dict[str, Any] = {
@@ -86,7 +87,12 @@ def param_defs(cfg) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["head"] = ParamDef((d, V), ("embed", "vocab"))
-    defs["layers"] = _block_defs(cfg, (cfg.n_layers,))
+    if cfg.family == "dense":
+        defs["layers"] = _block_defs(cfg, (cfg.n_layers,))
+    else:
+        defs["layers"] = mam.mamba_defs(cfg, ll=(cfg.n_layers,))
+    if cfg.family == "hybrid":
+        defs["shared_attn"] = _block_defs(cfg, ())
     return defs
 
 
@@ -106,18 +112,20 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda") -> dict:
                        device=dev)
 
 
-_NORMS = ("ln1", "ln2", "final_norm")
+# leaves the model reads in fp32 (rms_norm scales; the Mamba2 A_log, D,
+# dt_bias and gated-norm scale): casting them would change their values
+_FP32_LEAVES = ("ln1", "ln2", "final_norm", "A_log", "D", "dt_bias", "norm")
 
 
 def cast_params(cfg, params: dict, dtype) -> dict:
     """The tree with every matrix cast to ``dtype`` once. Each use casts
     these leaves to the compute dtype anyway (``w.to(dtype)``), so the
-    values seen by the model are identical; the norm scales, which
-    ``rms_norm`` reads in fp32, are left as they are. Serving uses this so
-    a decode step does not re-read and re-cast every fp32 weight."""
+    values seen by the model are identical; the leaves the model reads in
+    fp32 are left as they are. Serving uses this so a decode step does not
+    re-read and re-cast every fp32 weight."""
     def walk(tree):
         return {k: (walk(v) if isinstance(v, dict)
-                    else v if k in _NORMS else v.to(dtype))
+                    else v if k in _FP32_LEAVES else v.to(dtype))
                 for k, v in tree.items()}
     return walk(params)
 
@@ -128,7 +136,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg, params: dict):
         super().__init__()
-        _require_dense(cfg)
+        _require_ported(cfg)
         self.cfg = cfg
         self._tree = _to_module(params)
 
@@ -215,36 +223,60 @@ def _transformer_block(cfg, p, x, cos, sin, dtype, *,
 def forward(cfg, params, batch, *, collect_cache: bool = False):
     """batch: dict with 'tokens' (B, S).
 
-    Returns (logits (B, S, V_padded), aux_loss, cache_or_None), the cache
-    being {"kv": (k, v)} with k, v of shape (L, B, S, KH, hd)."""
-    _require_dense(cfg)
+    Returns (logits (B, S, V_padded), aux_loss, caches_or_None). With
+    ``collect_cache`` the caches hold "kv": (k, v), each (G, B, S, KH, hd)
+    for the G attention applications. The ssm and hybrid families always
+    return their per-layer "ssm" (L, B, nh, hp, ns) and "conv_x/b/c"
+    (L, B, d_conv-1, C) states (``repro/models/lm.py:381-382``)."""
+    _require_ported(cfg)
     dtype = cfg.compute_dt()
     tokens = batch["tokens"]
     B, S = tokens.shape[:2]
     x = embed_tokens(cfg, params, tokens, dtype)
-    cos, sin = rope_cos_sin(torch.arange(S, device=x.device), cfg.hd,
-                            cfg.rope_theta)
+    fam = cfg.family
+    cos = sin = None
+    if fam != "ssm":
+        cos, sin = rope_cos_sin(torch.arange(S, device=x.device), cfg.hd,
+                                cfg.rope_theta)
     stacked_cast = dtype if cfg.bf16_stacked_params else None
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        p_l = _layer(params["layers"], i, stacked_cast)
-        x, _, kv = _transformer_block(cfg, p_l, x, cos, sin, dtype,
+    ks, vs, states, convs = [], [], [], []
+
+    def attend(p, x):
+        x, _, kv = _transformer_block(cfg, p, x, cos, sin, dtype,
                                       collect_cache=collect_cache)
         if collect_cache:
             ks.append(kv[0])
             vs.append(kv[1])
+        return x
+
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["layers"], i, stacked_cast)
+        if fam == "dense":
+            x = attend(p_l, x)
+            continue
+        y, st, conv = mam.mamba_block(cfg, p_l, x, dtype, return_state=True)
+        x = x + y
+        states.append(st)
+        convs.append(conv)
+        if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            x = attend(params["shared_attn"], x)     # the tied block
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head(cfg, params, x, dtype)
-    caches = {"kv": (torch.stack(ks), torch.stack(vs))} if collect_cache \
-        else None
-    return logits, 0.0, caches
+    caches: Dict[str, Any] = {}
+    if states:
+        caches["ssm"] = torch.stack(states)
+        for n, per_layer in zip(_CONV, zip(*convs)):
+            caches[n] = torch.stack(per_layer)
+    if collect_cache and ks:
+        caches["kv"] = (torch.stack(ks), torch.stack(vs))
+    return logits, 0.0, (caches if collect_cache or states else None)
 
 
 def prefill_cache(cfg, caches, S: int) -> dict:
     """Reformat forward(collect_cache=True) output into the decode cache
     layout (same keys/shapes as cache_spec_defs). SWA archs keep the last
     ``window`` positions — with window | S these land in ring order."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     win = cfg.swa_window
 
     def ring(t):                       # t: (L,B,S,KH,hd)
@@ -252,35 +284,77 @@ def prefill_cache(cfg, caches, S: int) -> dict:
             t = t[:, :, -win:]
         return t.to(torch.bfloat16)
 
-    k, v = caches["kv"]
-    return {"k": ring(k), "v": ring(v)}
+    out = {}
+    if cfg.family in ("ssm", "hybrid"):
+        out["ssm"] = caches["ssm"].float()
+        for n in _CONV:
+            out[n] = caches[n].to(torch.bfloat16)
+    if cfg.family in ("dense", "hybrid"):
+        k, v = caches["kv"]
+        out["k"], out["v"] = ring(k), ring(v)
+    return out
 
 
 # ---------------------------------------------------------------------------
-# Decode (serve_step): one token against the KV cache
+# Decode (serve_step): one token against the KV cache / SSM state
 # ---------------------------------------------------------------------------
 
 def cache_spec_defs(cfg, max_len: int, batch: int) -> dict:
-    _require_dense(cfg)
-    L, KH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    _require_ported(cfg)
+    KH, hd = cfg.n_kv_heads, cfg.hd
+    L = cfg.n_layers
     win = cfg.swa_window
     S = min(max_len, win) if win else max_len
-    ax = ("layers", "batch", "kv_seq", "kv_heads", None)
-    return {"k": ParamDef((L, batch, S, KH, hd), ax, dtype="bfloat16"),
-            "v": ParamDef((L, batch, S, KH, hd), ax, dtype="bfloat16")}
+    fam = cfg.family
+    defs: Dict[str, Any] = {}
+    if fam in ("ssm", "hybrid"):
+        s = cfg.ssm
+        di, nh, ns = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), \
+            s.d_state
+        hax = "ssm_heads" if nh % 16 == 0 else "ssm_heads_rep"
+        defs["ssm"] = ParamDef((L, batch, nh, s.headdim, ns),
+                               ("layers", "batch", hax, None, "ssm_state"),
+                               dtype="float32")
+        defs["conv_x"] = ParamDef((L, batch, s.d_conv - 1, di),
+                                  ("layers", "batch", None, hax),
+                                  dtype="bfloat16")
+        for n in ("conv_b", "conv_c"):
+            defs[n] = ParamDef((L, batch, s.d_conv - 1, ns),
+                               ("layers", "batch", None, "ssm_state"),
+                               dtype="bfloat16")
+    if fam in ("dense", "hybrid"):
+        G = L if fam == "dense" else L // cfg.attn_every
+        ax = ("layers", "batch", "kv_seq", "kv_heads", None)
+        defs["k"] = ParamDef((G, batch, S, KH, hd), ax, dtype="bfloat16")
+        defs["v"] = ParamDef((G, batch, S, KH, hd), ax, dtype="bfloat16")
+    return defs
 
 
 def init_cache(cfg, max_len, batch, *, device="cuda") -> dict:
-    """Zero bf16 cache; its sequence length must be a whole number of
-    decode pages (``PAGE_SIZE``)."""
+    """Zero cache (bf16 k/v and conv states, fp32 ssm state); a k/v
+    cache's sequence length must be a whole number of decode pages
+    (``PAGE_SIZE``)."""
     dev = resolve_device(device)
     defs = cache_spec_defs(cfg, max_len, batch)
-    Smax = defs["k"].shape[2]
-    if Smax % PAGE_SIZE:
-        raise ValueError(f"cache length {Smax} is not a multiple of the "
-                         f"decode page size {PAGE_SIZE}")
+    if "k" in defs and defs["k"].shape[2] % PAGE_SIZE:
+        raise ValueError(f"cache length {defs['k'].shape[2]} is not a "
+                         f"multiple of the decode page size {PAGE_SIZE}")
     return {n: torch.zeros(pd.shape, dtype=getattr(torch, pd.dtype),
                            device=dev) for n, pd in defs.items()}
+
+
+def grow_cache(cfg, cache, max_len) -> dict:
+    """The prefill cache (``prefill_cache``, sized to the prompt) in a zero
+    cache of ``max_len`` positions on the same device, for decode: k/v grow
+    along the sequence; the SSM and conv states carry as they are."""
+    some = next(iter(cache.values()))
+    full = init_cache(cfg, max_len, some.shape[1], device=some.device)
+    for n, t in cache.items():
+        if t.shape == full[n].shape:
+            full[n] = t
+        else:
+            full[n][tuple(slice(0, s) for s in t.shape)] = t
+    return full
 
 
 def identity_pages(B, Smax, pos, window, device):
@@ -333,25 +407,50 @@ def _decode_ffn(cfg, p, x, dtype):
 
 def decode_step(cfg, params, cache, tokens, pos: int):
     """One decode step. tokens: (B,1) int; pos: the new token's position.
-    Writes the token's K/V into ``cache`` in place and returns
-    (logits (B, V_padded), cache)."""
-    _require_dense(cfg)
+    Writes the token's K/V and each layer's new SSM and conv state into
+    ``cache`` in place and returns (logits (B, V_padded), cache)."""
+    _require_ported(cfg)
     dtype = cfg.compute_dt()
     pos = int(pos)
     B = tokens.shape[0]
     x = embed_tokens(cfg, params, tokens, dtype)           # (B,1,D)
     dev = x.device
-    cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), cfg.hd,
-                            cfg.rope_theta)
-    Smax = cache["k"].shape[2]
-    if not cfg.swa_window and not 0 <= pos < Smax:
-        raise ValueError(f"position {pos} is outside the cache ({Smax})")
-    pages = identity_pages(B, Smax, pos, cfg.swa_window, dev)
+    fam = cfg.family
+    if fam != "ssm":
+        cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), cfg.hd,
+                                cfg.rope_theta)
+        Smax = cache["k"].shape[2]
+        if not cfg.swa_window and not 0 <= pos < Smax:
+            raise ValueError(f"position {pos} is outside the cache ({Smax})")
+        pages = identity_pages(B, Smax, pos, cfg.swa_window, dev)
+
+    def attend(p, x, g):
+        x = _decode_attn_block(cfg, p, x, cache["k"][g], cache["v"][g], pos,
+                               cos, sin, dtype, pages)
+        return _decode_ffn(cfg, p, x, dtype)
+
+    if fam != "dense":
+        # JAX replaces each conv state by the step's output, whose dtype is
+        # that of concatenating the cached (bf16) state with the compute
+        # dtype: fp32 compute turns the conv states fp32 from the first step
+        for n in _CONV:
+            want = torch.promote_types(cache[n].dtype, dtype)
+            if cache[n].dtype != want:
+                cache[n] = cache[n].to(want)
     for i in range(cfg.n_layers):
         p_l = _layer(params["layers"], i)
-        x = _decode_attn_block(cfg, p_l, x, cache["k"][i], cache["v"][i],
-                               pos, cos, sin, dtype, pages)
-        x = _decode_ffn(cfg, p_l, x, dtype)
+        if fam == "dense":
+            x = attend(p_l, x, i)
+            continue
+        y, st, conv = mam.mamba_decode_block(
+            cfg, p_l, x, cache["ssm"][i], tuple(cache[n][i] for n in _CONV),
+            dtype)
+        x = x + y
+        cache["ssm"][i] = st
+        for n, t in zip(_CONV, conv):
+            cache[n][i] = t
+        if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            x = attend(params["shared_attn"], x, i // cfg.attn_every)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head(cfg, params, x, dtype)                # (B,1,V)
     return logits[:, 0], cache

@@ -1,5 +1,6 @@
 """Batched serving loop: prefill once, then one greedy decode step per
-token over a KV cache updated in place."""
+token over a cache updated in place (K/V for attention layers, SSM and
+conv states for Mamba2 layers)."""
 
 from __future__ import annotations
 
@@ -28,17 +29,9 @@ class ServeLoop:
         cfg = self.cfg
         tokens = torch.as_tensor(prompt_tokens, device=self.device) \
             .to(torch.int32)
-        B, S0 = tokens.shape[0], tokens.shape[1]
+        S0 = tokens.shape[1]
         logits, cache = self.prefill(self.params, {"tokens": tokens})
-
-        # the prefill cache is sized S0; decode needs room for n_new more
-        full = lm.init_cache(cfg, self.max_len, B, device=self.device)
-        for k in cache:
-            if cache[k].shape == full[k].shape:
-                full[k] = cache[k]
-            else:                     # grow the seq dim
-                full[k][tuple(slice(0, s) for s in cache[k].shape)] = cache[k]
-        cache = full
+        cache = lm.grow_cache(cfg, cache, self.max_len)
 
         nxt = logits[..., :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
         out = [nxt]

@@ -15,6 +15,9 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn import ops as paged_ops
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_ref
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.serve import ServeLoop
@@ -24,9 +27,16 @@ pytestmark = pytest.mark.gpu
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}    # tests/test_kernels.py
 FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
                 (2, 128, 8, 8, 32, 64), (1, 256, 2, 2, 64, 128),
-                (2, 200, 4, 2, 64, 48)]                # ragged, windowed
+                (2, 200, 4, 2, 64, 48),                # ragged, windowed
+                (2, 192, 4, 4, 80, 0), (1, 200, 4, 2, 80, 0)]   # zamba2 hd
 PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
                 (1, 4, 4, 128, 64, 2)]
+SSD_ATOL, SSD_RTOL = 2e-5, 2e-4                        # tests/test_kernels.py
+SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
+              (2, 64, 2, 64, 64, 64),                  # tests/test_kernels.py
+              (2, 6, 4, 16, 8, 1),                     # cl = 1 (decode)
+              (1, 512, 3, 128, 128, 256),              # hp 128, two chunks
+              (1, 100, 2, 16, 8, 100)]                 # ragged 64-row tiles
 
 
 @pytest.fixture
@@ -124,6 +134,51 @@ def test_paged_kernel_permuted_table_is_bit_identical(cuda):
     assert torch.equal(out, out_p)
 
 
+def _ssd_inputs(dev, B, S, nh, hp, ns, dtype=torch.float32, seed=7):
+    """tests/test_kernels.py's SSD distributions; x/B/C in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = _rand(rng, (B, S, nh, hp), dtype, dev) * 0.5
+    dt = torch.nn.functional.softplus(_rand(rng, (B, S, nh), torch.float32,
+                                            dev))
+    A_log = torch.from_numpy((rng.standard_normal(nh) * 0.3).astype(f)) \
+        .to(dev)
+    Bm = _rand(rng, (B, S, ns), dtype, dev) * 0.5
+    Cm = _rand(rng, (B, S, ns), dtype, dev) * 0.5
+    return x, dt, A_log, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, dtype, B, S, nh, hp, ns, cl):
+    """Each of the four pieces against ssd_chunk_ref on the same (bf16 or
+    fp32) inputs; both compute in fp32."""
+    args = _ssd_inputs(cuda, B, S, nh, hp, ns, dtype)
+    before = ssd_kernel.ssd_chunk_call.launches
+    out = ssd_kernel.ssd_chunk_call(*args, chunk=cl)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_chunk_call.launches == before + 1
+    ref = ssd_chunk_ref(*args, chunk=cl)
+    for name, o, r in zip(("y_diag", "states", "exp_cs", "exp_tot"), out,
+                          ref):
+        assert o.dtype == torch.float32 and o.shape == r.shape, name
+        torch.testing.assert_close(o, r, atol=SSD_ATOL, rtol=SSD_RTOL,
+                                   msg=name)
+
+
+def test_ssd_op_on_card_matches_oracle(cuda):
+    """The full SSD through the kernel (padding, initial state, the
+    inter-chunk recurrence) against the plain chunked SSD."""
+    x, dt, A_log, Bm, Cm = _ssd_inputs(cuda, 2, 100, 4, 32, 16)
+    D = torch.ones(4, device=cuda)
+    st0 = torch.randn((2, 4, 32, 16), generator=torch.Generator(cuda)
+                      .manual_seed(0), device=cuda) * 0.2
+    y, st = ssd_ops.ssd(x, dt, A_log, Bm, Cm, D, chunk=32, state=st0)
+    yr, sr = ssd_ref(x, dt, A_log, Bm, Cm, D, 32, state=st0)
+    torch.testing.assert_close(y, yr, atol=SSD_ATOL, rtol=SSD_RTOL)
+    torch.testing.assert_close(st, sr, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
 def test_smoke_serve_on_card_matches_cpu(cuda):
     """The smoke config (head_dim widened to a kernel-supported 32) served
     on the card through both kernels gives the CPU's tokens in fp32."""
@@ -147,3 +202,23 @@ def test_smoke_serve_on_card_matches_cpu(cuda):
 def _to(tree, dev):
     return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
             for k, v in tree.items()}
+
+
+def test_smoke_hybrid_serve_on_card_matches_cpu(cuda):
+    """Smoke zamba2-2.7b (hybrid: every kernel) on the card gives the
+    CPU's tokens in fp32, with the launch counts of its main path."""
+    cfg = get_smoke_config("zamba2-2.7b").replace(compute_dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    cpu = ServeLoop(cfg, params, max_len=32, device="cpu").generate(prompt, 6)
+    counts = (ssd_kernel.ssd_chunk_call, flash_kernel.flash_attention_fwd,
+              paged_kernel.paged_attention)
+    before = [c.launches for c in counts]
+    out = ServeLoop(cfg, _to(params, cuda), max_len=32, device=cuda) \
+        .generate(prompt, 6)
+    torch.cuda.synchronize()
+    G = cfg.n_layers // cfg.attn_every
+    assert [c.launches - b for c, b in zip(counts, before)] == \
+        [cfg.n_layers * 6, G, G * 5]
+    assert torch.equal(out.cpu(), cpu)

@@ -41,12 +41,14 @@ import numpy as np, torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import lm
 from repro_torch.serve import ServeLoop
-cfg = get_smoke_config("stablelm-1.6b")
-params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
-out = ServeLoop(cfg, params, max_len=32, device="cpu").generate(prompt, 4)
-assert tuple(out.shape) == (2, 4)
-assert ((out >= 0) & (out < cfg.vocab_size)).all()
+for arch in ("stablelm-1.6b", "zamba2-2.7b"):     # dense; hybrid (SSD too)
+    cfg = get_smoke_config(arch)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    out = ServeLoop(cfg, params, max_len=32, device="cpu").generate(prompt, 4)
+    assert tuple(out.shape) == (2, 4)
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("repro", "jaxlib")
              or (m.startswith("jax") and sys.modules[m] is not None))
