@@ -13,10 +13,14 @@ Phases (any failure raises, and the script exits nonzero):
    the compiler's register / shared-memory / spill report;
 2. each kernel against its plain PyTorch version on CUDA tensors: the
    shape sweeps of ``tests/test_kernels.py``, a zero-length decode row, a
-   permuted page table (bit-identical output), flash at head_dim 80, the
-   SSD chunk kernel piece by piece (an initial state, a chunk of one
-   token, a padded S) and the full SSD against the plain chunked SSD, and
-   every kernel at the shapes of the serving runs;
+   permuted page table (bit-identical output, also at both serving shapes
+   and at a page count that is not a multiple of the split), the paged
+   kernel against the plain split-merge version (bf16, and fp32 at the
+   serving split) and at every length of the decode run, flash at
+   head_dim 80 and with ragged S at the tile edges, Sk != S, a window and
+   strided views, the SSD chunk kernel piece by piece (an initial state, a
+   chunk of one token, a padded S) and the full SSD against the plain
+   chunked SSD, and every kernel at the shapes of the serving runs;
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
@@ -30,9 +34,10 @@ Phases (any failure raises, and the script exits nonzero):
 4. device times (CUDA events over launches queued behind a held stream,
    after warm-up) of each kernel, its plain version, its bound and, where
    one PyTorch call computes the same function, that call as a yardstick
-   the port never calls, at the serving shapes (the SSD kernel also at a
-   decode step's chunk of one token); each model's prefill and decode
-   times;
+   the port never calls, at the serving shapes (paged at the first and
+   last decode lengths, 33 and 34 pages, with its cluster shape; flash
+   with its CTA shape; the SSD kernel also at a decode step's chunk of
+   one token); each model's prefill and decode times;
 5. where the time goes: ``torch.profiler`` over one prefill and eight
    decode steps of each model, device busy share and kernel time by kind.
 
@@ -64,6 +69,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as flash_ops        # noqa
 from repro_torch.kernels.paged_attn import kernel as paged_kernel       # noqa
 from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
+from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref  # noqa
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel           # noqa
 from repro_torch.kernels.ssd_scan import ops as ssd_ops                 # noqa
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_ref     # noqa
@@ -81,7 +87,8 @@ SSD_ATOL, SSD_RTOL = 2e-5, 2e-4                        # tests/test_kernels.py
 FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
                 (2, 128, 8, 8, 32, 64), (1, 256, 2, 2, 64, 128)]
 PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
-                (1, 4, 4, 128, 64, 2)]
+                (1, 4, 4, 128, 64, 2),
+                (2, 16, 4, 128, 64, 5)]                # GQA, hd 128, pages of 64
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
               (2, 64, 2, 64, 64, 64)]                  # B, S, nh, hp, ns, cl
 KERNELS = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
@@ -97,8 +104,9 @@ BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
 # mamba2-130m's decode step repeats the forward's arithmetic for that token
 # (a one-token chunk runs the same kernel sums) and has matched it bit for
 # bit; zamba2-2.7b's 54 Mamba2 layers carry the rounding of 9 attention
-# blocks further than stablelm's 24 layers: 0.256 at |logit| <= 4.3 on the
-# H100 against stablelm's 0.078 at <= 5.0
+# blocks further than stablelm's 24 layers: 0.445 at |logit| <= 4.2 on the
+# H100 with the wgmma flash kernel (0.256 with the mma.sync one) against
+# stablelm's 0.078 at <= 5.0
 LOGIT_TOLS = {"dense": (0.15, 0.05), "hybrid": (0.4, 0.05),
               "ssm": (0.15, 0.05)}
 
@@ -268,19 +276,102 @@ def check_ssd_full(rng, dev, B, S, nh, hp, ns, cl, dtype=torch.float32,
         f"{tol[0]}/{tol[1]}), state {es:.3e}")
 
 
+def check_flash_strided(rng, dev):
+    """q/k/v that are views into wider rows go through TMA by their
+    strides; rows that are not 16-byte aligned are refused."""
+    B, S, H, KH, hd, pad = 2, 96, 4, 2, 64, 8
+    q, k, v = (rand(rng, (B, S, n, hd + pad), torch.bfloat16, dev)[..., :hd]
+               for n in (H, KH, KH))
+    e = check_close("flash strided", flash_kernel.flash_attention_fwd(q, k, v),
+                    attn.reference_attention(q, k, v), TOLS[torch.bfloat16],
+                    TOLS[torch.bfloat16])
+    bad = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16,
+                      device=dev)[..., :64]
+    try:
+        flash_kernel.flash_attention_fwd(bad, bad, bad)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash kernel took misaligned bf16 rows")
+    log(f"flash  strided views (rows of {hd + pad}): max abs err {e:.3e}; "
+        f"misaligned rows refused")
+
+
+def paged_split_ref(q, kp, vp, table, lens):
+    n_split = paged_kernel.plan(table.shape[1], kp.shape[1],
+                                q.shape[1] // kp.shape[2], q.shape[2],
+                                q.dtype)["n_split"]
+    return paged_attention_split_ref(q, kp, vp, table, lens, n_split=n_split)
+
+
+def check_paged_permuted(rng, dev, B, H, KH, hd, page, nblk):
+    """The same pages under a permuted table give the same bits; the kernel
+    also agrees with the plain split-merge version."""
+    dt = torch.float32 if hd == 16 else torch.bfloat16
+    npool = B * nblk
+    q = rand(rng, (B, H, hd), dt, dev)
+    kp = rand(rng, (npool, page, KH, hd), dt, dev)
+    vp = rand(rng, (npool, page, KH, hd), dt, dev)
+    table = torch.arange(npool, dtype=torch.int32, device=dev).view(B, nblk)
+    lens = torch.tensor([nblk * page - 5 * i for i in range(B)],
+                        dtype=torch.int32, device=dev)
+    perm = torch.from_numpy(rng.permutation(npool)).to(dev)
+    inv = torch.argsort(perm).to(torch.int32)
+    a = paged_kernel.paged_attention(q, kp, vp, table, lens)
+    b = paged_kernel.paged_attention(q, kp[perm], vp[perm],
+                                     inv[table.long()], lens)
+    if not torch.equal(a, b):
+        raise AssertionError(f"paged kernel {B, H, KH, hd, page, nblk}: "
+                             f"permuted table changed the bits")
+    tol = PAGED_TOL_F32 if dt == torch.float32 else TOLS[dt]
+    e = check_close("paged vs split-merge plain", a,
+                    paged_split_ref(q, kp, vp, table, lens), tol, tol)
+    log(f"paged  B={B} H={H} KH={KH} hd={hd} page={page} nblk={nblk} "
+        f"{str(dt)[6:]} {paged_kernel.plan(nblk, page, H // KH, hd, dt)}: "
+        f"permuted table bit-identical; vs split-merge plain {e:.3e}")
+
+
+def check_paged_decode_lengths(rng, dev):
+    """Every length a serving decode step reads (513 .. 543: 33 and 34
+    pages of 16), stablelm's shape, against both plain versions."""
+    B, H, hd = BATCH, 32, 64
+    q = rand(rng, (B, H, hd), torch.bfloat16, dev)
+    n_pages = B * MAX_LEN // lm.PAGE_SIZE
+    kp = rand(rng, (n_pages, lm.PAGE_SIZE, H, hd), torch.bfloat16, dev)
+    vp = rand(rng, (n_pages, lm.PAGE_SIZE, H, hd), torch.bfloat16, dev)
+    worst = 0.0
+    for pos in range(PROMPT, MAX_LEN - 1):
+        table, lens = lm.identity_pages(B, MAX_LEN, pos, 0, dev)
+        out = paged_kernel.paged_attention(q, kp, vp, table, lens)
+        tol = TOLS[torch.bfloat16]
+        worst = max(worst, check_close(
+            f"paged length {pos + 1}", out,
+            paged_split_ref(q, kp, vp, table, lens), tol, tol),
+            check_close(f"paged length {pos + 1} vs plain", out,
+                        paged_ops.paged_attention_ref(q, kp, vp, table,
+                                                      lens), tol, tol))
+    log(f"paged  every decode length {PROMPT + 1}..{MAX_LEN - 1} (B={B} "
+        f"H={H} hd={hd}): max abs err {worst:.3e} against both plain "
+        f"versions")
+
+
 def phase_kernels_vs_plain(dev):
     rng = np.random.default_rng(0)
     for B, S, H, KH, hd, win in FLASH_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             check_flash(rng, dev, B, S, H, KH, hd, dt, win=win)
-    # ragged edges (S not a multiple of the 64-row tile), cross-attention
-    # lengths and a sliding window
-    for S, Sk, win in ((513, 513, 0), (100, 160, 0), (200, 200, 48)):
+    # ragged edges at the 64-row q tiles and the 64-key tiles,
+    # cross-attention lengths (Sk != S) and a sliding window
+    for S in (1, 63, 65, 127, 129, 513):
+        check_flash(rng, dev, 2, S, 4, 2, 64, torch.bfloat16)
+    for S, Sk, win in ((100, 160, 0), (160, 100, 0), (200, 200, 48)):
         check_flash(rng, dev, 2, S, 4, 2, 64, torch.bfloat16, Sk=Sk, win=win)
-    # head_dim 80 (zamba2-2.7b's shared attention block)
+    # head_dim 80 (zamba2-2.7b's shared attention block): ragged S, a window
     for dt in (torch.float32, torch.bfloat16):
         check_flash(rng, dev, 2, 256, 4, 2, 80, dt)
         check_flash(rng, dev, 1, 200, 4, 4, 80, dt)            # ragged S
+    check_flash(rng, dev, 2, 200, 4, 2, 80, torch.bfloat16, win=48)
+    check_flash_strided(rng, dev)
 
     for B, H, KH, hd, page, nblk in PAGED_SHAPES:
         for dt, tol in ((torch.float32, PAGED_TOL_F32),
@@ -303,23 +394,13 @@ def phase_kernels_vs_plain(dev):
                 f"nblk={nblk} lens={lens_np.tolist()} {str(dt)[6:]}: "
                 f"max abs err {e:.3e} (tol {tol})")
 
-    # the same pages under a permuted table: bit-identical
-    B, H, KH, hd, page, nblk = 2, 4, 2, 16, 8, 4
-    npool = B * nblk
-    q = rand(rng, (B, H, hd), torch.float32, dev)
-    kp = rand(rng, (npool, page, KH, hd), torch.float32, dev)
-    vp = rand(rng, (npool, page, KH, hd), torch.float32, dev)
-    table = torch.arange(npool, dtype=torch.int32, device=dev).view(B, nblk)
-    lens = torch.tensor([nblk * page, nblk * page - 5], dtype=torch.int32,
-                        device=dev)
-    perm = torch.from_numpy(rng.permutation(npool)).to(dev)
-    inv = torch.argsort(perm).to(torch.int32)
-    a = paged_kernel.paged_attention(q, kp, vp, table, lens)
-    b = paged_kernel.paged_attention(q, kp[perm], vp[perm],
-                                     inv[table.long()], lens)
-    if not torch.equal(a, b):
-        raise AssertionError("paged kernel: permuted table changed the bits")
-    log("paged  permuted page table: bit-identical")
+    # the same pages under a permuted table: bit-identical, also where the
+    # pages are split across a cluster (both serving shapes, and 11 pages,
+    # not a multiple of the split)
+    for shape in ((2, 4, 2, 16, 8, 4), (BATCH, 32, 32, 64, 16, 34),
+                  (BATCH, 32, 32, 80, 16, 34), (2, 8, 2, 64, 16, 11)):
+        check_paged_permuted(rng, dev, *shape)
+    check_paged_decode_lengths(rng, dev)
 
     # the SSD chunk kernel: the sweep of tests/test_kernels.py, a chunk of
     # one token (each decode step), a ragged 64-row tile, bf16 inputs
@@ -355,16 +436,34 @@ def phase_kernels_vs_plain(dev):
         pool_v = rand(rng, (Bm * per_seq, lm.PAGE_SIZE, Hm, hd),
                       torch.bfloat16, dev)
         table, lens = lm.identity_pages(Bm, MAX_LEN, MAX_LEN - 2, 0, dev)
+        out = paged_ops.paged_attention(qd, pool_k, pool_v, table, lens)
         e = check_close(
-            "paged serving shape",
-            paged_ops.paged_attention(qd, pool_k, pool_v, table, lens),
+            "paged serving shape", out,
             paged_ops.paged_attention(qd.cpu(), pool_k.cpu(), pool_v.cpu(),
                                       table.cpu(), lens.cpu()).to(dev),
             TOLS[torch.bfloat16], TOLS[torch.bfloat16])
+        e_split = check_close(
+            "paged serving shape vs split-merge plain", out,
+            paged_split_ref(qd, pool_k, pool_v, table, lens),
+            TOLS[torch.bfloat16], TOLS[torch.bfloat16])
         errs.setdefault("paged_attention", e)
+        # fp32 at the same split, against the plain split-merge version at
+        # the fp32 tolerance (a fault in the merge's order or weights
+        # shows there); one row of length 0, one that leaves the last
+        # split empty
+        q32, k32, v32 = (t.float() for t in (qd, pool_k, pool_v))
+        lens32 = torch.tensor([MAX_LEN - 1, 0, 30 * lm.PAGE_SIZE, 97],
+                              dtype=torch.int32, device=dev)
+        e32 = check_close(
+            "paged serving shape fp32 vs split-merge plain",
+            paged_kernel.paged_attention(q32, k32, v32, table, lens32),
+            paged_split_ref(q32, k32, v32, table, lens32), PAGED_TOL_F32,
+            PAGED_TOL_F32)
         log(f"paged  serving shape q {tuple(qd.shape)} pool "
             f"{tuple(pool_k.shape)} bf16, {table.shape[1]} pages, length "
-            f"{int(lens[0])}: max abs err {e:.3e}")
+            f"{int(lens[0])}: max abs err {e:.3e} (plain), {e_split:.3e} "
+            f"(split-merge plain); fp32 lengths {lens32.tolist()} vs "
+            f"split-merge plain {e32:.3e} (tol {PAGED_TOL_F32})")
     # zamba2-2.7b (nh 80, ns 64) and mamba2-130m (nh 24, ns 128): prefill
     # (cl 256) and a decode step (cl 1), bf16 x/B/C as the model makes them
     errs["ssd_chunk_call"] = check_ssd_chunk(rng, dev, BATCH, PROMPT, 80, 64,
@@ -492,6 +591,8 @@ def ssd_work(B, S, nh, hp, ns, cl, esz):
 
 
 def time_flash(rng, dev, H, KH, hd):
+    """Device ms of the bf16 kernel, its plain version, SDPA and the
+    bound."""
     dt = torch.bfloat16
     B, S = BATCH, PROMPT
     sets = [tuple(rand(rng, (B, S, n, hd), dt, dev) for n in (H, KH, KH))
@@ -505,17 +606,17 @@ def time_flash(rng, dev, H, KH, hd):
     pairs = S * (S + 1) // 2
     bnd = bound(2 * B * S * H * hd * 2 + 2 * B * S * KH * hd * 2,
                 4 * B * H * hd * pairs, dt)
-    log(f"  flash  q/k/v {(B, S, H, hd)} bf16 causal: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bnd[0]:.4f} "
-        f"ms ({bnd[1]})")
+    log(f"  flash  q/k/v {(B, S, H, hd)} bf16 causal: kernel {ms:.4f} ms "
+        f"({flash_kernel.plan(hd)}), plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
     return ms, plain_ms, lib_ms, bnd
 
 
-def time_paged(rng, dev, H, KH, hd):
+def time_paged(rng, dev, H, KH, hd, length):
+    """Device ms at one decode length (the split depends on the pages)."""
     dt = torch.bfloat16
     B = BATCH
     per_seq = MAX_LEN // lm.PAGE_SIZE
-    length = MAX_LEN - 1                             # the last decode step
     table, lens = lm.identity_pages(B, MAX_LEN, length - 1, 0, dev)
     q = rand(rng, (B, H, hd), dt, dev)
     pools = [tuple(rand(rng, (B * per_seq, lm.PAGE_SIZE, KH, hd), dt, dev)
@@ -539,8 +640,13 @@ def time_paged(rng, dev, H, KH, hd):
     bnd = bound(2 * B * length * KH * hd * 2 + 2 * B * H * hd * 2
                 + table.numel() * 4 + lens.numel() * 4,
                 4 * B * H * hd * length, dt)
+    plan = paged_kernel.plan(table.shape[1], lm.PAGE_SIZE, H // KH, hd, dt)
     log(f"  paged  q {(B, H, hd)} over {table.shape[1]} pages x "
-        f"{lm.PAGE_SIZE}, length {length}: kernel {ms:.4f} ms, plain "
+        f"{lm.PAGE_SIZE}, length {length}, clusters of {plan['n_split']} "
+        f"CTAs x {plan['pages_per_split']} pages ({plan['pages_per_stage']} "
+        f"a stage, {plan['smem_bytes']} B shared), grid "
+        f"{plan['n_split'] * KH * B} CTAs, {KH * B} clusters of which "
+        f"{plan['max_active_clusters']} fit at once: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa over the dense cache {lib_ms:.4f} ms, "
         f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     return ms, plain_ms, lib_ms, bnd
@@ -572,8 +678,11 @@ def phase_kernel_times(dev):
     out = {"flash_attention_fwd": time_flash(rng, dev, 32, 32, 64)}
     time_flash(rng, dev, 32, 32, 80)                  # zamba2-2.7b
     free_card()
-    out["paged_attention"] = time_paged(rng, dev, 32, 32, 64)
-    time_paged(rng, dev, 32, 32, 80)                  # zamba2-2.7b
+    # the first and last decode steps' lengths: 33 and 34 pages
+    time_paged(rng, dev, 32, 32, 64, PROMPT + 1)
+    out["paged_attention"] = time_paged(rng, dev, 32, 32, 64, MAX_LEN - 1)
+    time_paged(rng, dev, 32, 32, 80, PROMPT + 1)      # zamba2-2.7b
+    time_paged(rng, dev, 32, 32, 80, MAX_LEN - 1)
     free_card()
     out["ssd_chunk_call"] = time_ssd(rng, dev, 80, 64, 64, PROMPT, 256,
                                      "zamba2-2.7b prefill")
@@ -627,7 +736,7 @@ def phase_serve_times(dev, arch, cfg, serve, prompts):
 # ---------------------------------------------------------------------------
 
 KINDS = (("flash kernel", ("flash_fwd_",)),
-         ("paged kernel", ("paged_attn_kernel",)),
+         ("paged kernel", ("paged_split_kernel",)),
          ("ssd kernel", ("ssd_chunk_kernel",)),
          ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
          ("copy/cast", ("copy", "convert", "to_copy")))

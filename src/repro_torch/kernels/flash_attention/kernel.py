@@ -49,7 +49,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
             for t in (q, k, v)):
-        raise ValueError("the bf16 flash kernel loads 16-byte rows: q/k/v "
+        raise ValueError("the bf16 flash kernel loads with TMA: q/k/v "
                          "need 16-byte aligned pointers and strides")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
@@ -70,3 +70,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention_fwd.launches = 0
+
+
+def plan(hd: int) -> dict:
+    """The bf16 kernel's CTA at this head_dim: threads, shared-memory
+    bytes and CTAs an SM holds. Builds the kernel if needed."""
+    fn = _build.bind(SOURCE, "flash_fwd_bf16_plan",
+                     [ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * 3)()
+    err = fn(hd, ctypes.cast(out, ctypes.c_void_p))
+    _build.check(SOURCE, "flash_fwd_bf16_plan", err)
+    return dict(zip(("threads", "smem_bytes", "ctas_per_sm"), out))

@@ -5,7 +5,9 @@ The kernel is ``csrc/paged_attn.cu`` (it replaces the Pallas TPU kernel
 what bounds it and how it is laid out. This wrapper checks its inputs,
 allocates the output, launches on the current stream and counts launches
 in ``paged_attention.launches``. It takes CUDA tensors only; the plain
-version is ``ref.paged_attention_ref``.
+version is ``ref.paged_attention_ref``, and ``ref.paged_attention_split_ref``
+repeats the kernel's split-and-merge in PyTorch. ``plan`` reports the
+decomposition a call launches.
 """
 
 from __future__ import annotations
@@ -78,3 +80,18 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
 
 
 paged_attention.launches = 0
+
+
+def plan(nblk: int, page_sz: int, G: int, hd: int, dtype) -> dict:
+    """The kernel's decomposition for these shapes (it depends on shapes
+    only): CTAs a cluster, pages a CTA, pages a shared-memory stage,
+    shared-memory bytes a CTA, and how many such clusters the card holds
+    at once. Builds the kernel if needed."""
+    fn = _build.bind(SOURCE, "paged_attn_plan", [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    err = fn(nblk, page_sz, G, hd, int(dtype == torch.bfloat16),
+             ctypes.cast(out, ctypes.c_void_p))
+    _build.check(SOURCE, "paged_attn_plan", err)
+    return dict(zip(("n_split", "pages_per_split", "pages_per_stage",
+                     "smem_bytes", "max_active_clusters"), out))

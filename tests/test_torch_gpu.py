@@ -15,6 +15,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn import ops as paged_ops
+from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_ref
@@ -30,7 +31,12 @@ FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
                 (2, 200, 4, 2, 64, 48),                # ragged, windowed
                 (2, 192, 4, 4, 80, 0), (1, 200, 4, 2, 80, 0)]   # zamba2 hd
 PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
-                (1, 4, 4, 128, 64, 2)]
+                (1, 4, 4, 128, 64, 2),
+                (2, 16, 4, 128, 64, 5)]                # GQA, hd 128, pages of 64
+# B, H, KH, hd, page, nblk: both serving shapes (34 pages of 16) and an nblk
+# that is not a multiple of its split (11 pages -> 6 CTAs of 2)
+PERMUTE_SHAPES = [(4, 32, 32, 64, 16, 34), (4, 32, 32, 80, 16, 34),
+                  (2, 8, 2, 64, 16, 11)]
 SSD_ATOL, SSD_RTOL = 2e-5, 2e-4                        # tests/test_kernels.py
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
               (2, 64, 2, 64, 64, 64),                  # tests/test_kernels.py
@@ -85,6 +91,23 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, KH, hd, win):
                   TOLS[dtype])
 
 
+@pytest.mark.parametrize("S,Sk,hd,win", [
+    (1, 1, 64, 0), (63, 63, 64, 0), (65, 65, 64, 0), (127, 127, 64, 0),
+    (129, 129, 64, 0), (513, 513, 64, 0),          # ragged q and key tiles
+    (100, 160, 64, 0), (160, 100, 64, 0), (129, 70, 128, 0),   # Sk != S
+    (200, 200, 80, 48), (130, 130, 32, 20)])       # windows, hd 80 and 32
+def test_flash_bf16_kernel_at_tile_edges(cuda, S, Sk, hd, win):
+    """The TMA + wgmma kernel where q rows, keys or the window end inside
+    a 64-row q tile or a 64-key tile."""
+    rng = np.random.default_rng(2)
+    q = _rand(rng, (2, S, 4, hd), torch.bfloat16, cuda)
+    k = _rand(rng, (2, Sk, 2, hd), torch.bfloat16, cuda)
+    v = _rand(rng, (2, Sk, 2, hd), torch.bfloat16, cuda)
+    out = flash_kernel.flash_attention_fwd(q, k, v, window=win)
+    _assert_close(out, attn.reference_attention(q, k, v, window=win),
+                  TOLS[torch.bfloat16])
+
+
 @pytest.mark.parametrize("dtype,pad", [(torch.float32, 4),
                                        (torch.bfloat16, 8)])
 def test_flash_kernel_reads_strided_inputs(cuda, dtype, pad):
@@ -132,6 +155,76 @@ def test_paged_kernel_permuted_table_is_bit_identical(cuda):
     out_p = paged_kernel.paged_attention(q, kp[perm], vp[perm],
                                          inv[table.long()], lens)
     assert torch.equal(out, out_p)
+
+
+@pytest.mark.parametrize("B,H,KH,hd,page,nblk", PERMUTE_SHAPES)
+def test_paged_kernel_permuted_table_bits_at_split_shapes(cuda, B, H, KH, hd,
+                                                          page, nblk):
+    """Bit identity under a permuted table where the pages are split across
+    the CTAs of a cluster, and the kernel against the plain split-merge
+    version and the plain version (bf16, as served)."""
+    q, kp, vp, _, _ = _paged_inputs(cuda, torch.bfloat16, B, H, KH, hd, page,
+                                    nblk, seed=8)
+    npool = kp.shape[0]
+    table = torch.arange(B * nblk, dtype=torch.int32, device=cuda) \
+        .view(B, nblk)
+    lens = torch.tensor([nblk * page - 1 - 5 * i for i in range(B)],
+                        dtype=torch.int32, device=cuda)
+    perm = torch.randperm(npool, generator=torch.Generator()
+                          .manual_seed(9)).to(cuda)
+    inv = torch.argsort(perm).to(torch.int32)
+    out = paged_kernel.paged_attention(q, kp, vp, table, lens)
+    out_p = paged_kernel.paged_attention(q, kp[perm], vp[perm],
+                                         inv[table.long()], lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_p)
+    n_split = paged_kernel.plan(nblk, page, H // KH, hd, q.dtype)["n_split"]
+    tol = TOLS[torch.bfloat16]
+    _assert_close(out, paged_attention_split_ref(q, kp, vp, table, lens,
+                                                 n_split=n_split), tol)
+    _assert_close(out, paged_ops.paged_attention(
+        *[a.cpu() for a in (q, kp, vp, table, lens)]).to(cuda), tol)
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+def test_paged_kernel_fp32_serving_split_matches_split_ref(cuda, hd):
+    """fp32 at a serving split (B 4, 32 KV heads, 34 pages of 16: 7 CTAs
+    of 5 pages) against the plain split-merge version at the fp32
+    tolerance, where a fault in the merge's order or weights would show;
+    one row of length 0 and one that leaves the last split empty."""
+    B, H, page, nblk = 4, 32, 16, 34
+    q, kp, vp, _, _ = _paged_inputs(cuda, torch.float32, B, H, H, hd, page,
+                                    nblk, seed=12)
+    table = torch.arange(B * nblk, dtype=torch.int32, device=cuda) \
+        .view(B, nblk)
+    lens = torch.tensor([543, 0, 30 * page, 97], dtype=torch.int32,
+                        device=cuda)
+    plan = paged_kernel.plan(nblk, page, 1, hd, q.dtype)
+    assert (plan["n_split"], plan["pages_per_split"]) == (7, 5)
+    out = paged_kernel.paged_attention(q, kp, vp, table, lens)
+    _assert_close(out, paged_attention_split_ref(q, kp, vp, table, lens,
+                                                 n_split=plan["n_split"]),
+                  3e-5)
+
+
+def test_paged_kernel_every_decode_length(cuda):
+    """Every length of the serving decode run (513 to 543: 33 and 34 pages
+    of 16) at the stablelm shape, against the plain version."""
+    B, H, hd, page, Smax = 4, 32, 64, 16, 544
+    rng = np.random.default_rng(11)
+    q = _rand(rng, (B, H, hd), torch.bfloat16, cuda)
+    kc = _rand(rng, (B * Smax // page, page, H, hd), torch.bfloat16, cuda)
+    vc = _rand(rng, (B * Smax // page, page, H, hd), torch.bfloat16, cuda)
+    for pos in range(512, 543):
+        table, lens = lm.identity_pages(B, Smax, pos, 0, cuda)
+        out = paged_kernel.paged_attention(q, kc, vc, table, lens)
+        ref = paged_attention_split_ref(q, kc, vc, table, lens,
+                                        n_split=paged_kernel.plan(
+                                            table.shape[1], page, 1, hd,
+                                            q.dtype)["n_split"])
+        _assert_close(out, ref, TOLS[torch.bfloat16])
+        _assert_close(out, paged_ops.paged_attention_ref(
+            q, kc, vc, table, lens), TOLS[torch.bfloat16])
 
 
 def _ssd_inputs(dev, B, S, nh, hp, ns, dtype=torch.float32, seed=7):
