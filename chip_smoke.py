@@ -18,9 +18,12 @@ Phases (any failure raises, and the script exits nonzero):
    kernel against the plain split-merge version (bf16, and fp32 at the
    serving split) and at every length of the decode run, flash at
    head_dim 80 and with ragged S at the tile edges, Sk != S, a window and
-   strided views, the SSD chunk kernel piece by piece (an initial state, a
-   chunk of one token, a padded S) and the full SSD against the plain
-   chunked SSD, and every kernel at the shapes of the serving runs;
+   strided views, the SSD chunk kernel piece by piece (an initial state,
+   one-token chunks, a padded S, a chunk that is not a multiple of 16, hp
+   16/32/64 x ns 8..128, a shape for its scalar kernel), in bf16 also
+   against the split arithmetic of its tensor-core instance, and the full
+   SSD against the plain chunked SSD, and every kernel at the shapes of
+   the serving runs;
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
@@ -36,8 +39,9 @@ Phases (any failure raises, and the script exits nonzero):
    one PyTorch call computes the same function, that call as a yardstick
    the port never calls, at the serving shapes (paged at the first and
    last decode lengths, 33 and 34 pages, with its cluster shape; flash
-   with its CTA shape; the SSD kernel also at a decode step's chunk of
-   one token); each model's prefill and decode times;
+   with its CTA shape; the SSD kernel with its plan, also at a decode
+   step's chunk of one token, bound at the TF32 tensor-core rate or the
+   bytes); each model's prefill and decode times;
 5. where the time goes: ``torch.profiler`` over one prefill and eight
    decode steps of each model, device busy share and kernel time by kind.
 
@@ -72,7 +76,8 @@ from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref  # noqa
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel           # noqa
 from repro_torch.kernels.ssd_scan import ops as ssd_ops                 # noqa
-from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_ref     # noqa
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,         # noqa
+                                              ssd_chunk_split_ref, ssd_ref)
 from repro_torch.models import attention as attn               # noqa: E402
 from repro_torch.models import lm                              # noqa: E402
 from repro_torch.serve import ServeLoop                        # noqa: E402
@@ -80,6 +85,9 @@ from repro_torch.serve import ServeLoop                        # noqa: E402
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the SSD kernel's products run on the tensor cores from split operands:
+# its bound takes the function's operations at the TF32 rate
+SSD_RATE = ("TF32 tensor cores", 495e12)
 
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py
 PAGED_TOL_F32 = 3e-5
@@ -243,18 +251,26 @@ def ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype):
 
 
 def check_ssd_chunk(rng, dev, B, S, nh, hp, ns, cl, dtype=torch.float32):
+    """Each piece against ssd_chunk_ref and, in bf16, against the split
+    arithmetic of the tensor-core instance (ssd_chunk_split_ref)."""
     args = ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype)
     out = ssd_kernel.ssd_chunk_call(*args, chunk=cl)
-    ref = ssd_chunk_ref(*args, chunk=cl)
-    errs = [check_close(f"ssd chunk {(B, S, nh, hp, ns, cl)} {name}", o, r,
-                        SSD_ATOL, SSD_RTOL)
-            for name, o, r in zip(("y_diag", "states", "exp_cs", "exp_tot"),
-                                  out, ref)]
+    names = ("y_diag", "states", "exp_cs", "exp_tot")
+    refs = {"plain": ssd_chunk_ref(*args, chunk=cl)}
+    if dtype == torch.bfloat16:
+        refs["split"] = ssd_chunk_split_ref(*args, chunk=cl)
+    errs = {what: [check_close(f"ssd chunk {(B, S, nh, hp, ns, cl)} {name} "
+                               f"vs {what}", o, r, SSD_ATOL, SSD_RTOL)
+                   for name, o, r in zip(names, out, ref)]
+            for what, ref in refs.items()}
+    e = errs["plain"]
+    split = f"; vs split {max(errs['split']):.3e}" if "split" in errs else ""
+    path = ssd_kernel.plan(B, S, nh, hp, ns, cl, dtype)["path"]
     log(f"ssd    B={B} S={S} nh={nh} hp={hp} ns={ns} cl={cl} "
-        f"{str(dtype)[6:]}: max abs err y {errs[0]:.3e} states "
-        f"{errs[1]:.3e} exp_cs {errs[2]:.3e} exp_tot {errs[3]:.3e} "
-        f"(atol {SSD_ATOL} rtol {SSD_RTOL})")
-    return max(errs)
+        f"{str(dtype)[6:]} ({path}): max abs err y {e[0]:.3e} states "
+        f"{e[1]:.3e} exp_cs {e[2]:.3e} exp_tot {e[3]:.3e}{split} (atol "
+        f"{SSD_ATOL} rtol {SSD_RTOL})")
+    return max(max(v) for v in errs.values())
 
 
 def check_ssd_full(rng, dev, B, S, nh, hp, ns, cl, dtype=torch.float32,
@@ -406,8 +422,15 @@ def phase_kernels_vs_plain(dev):
     # one token (each decode step), a ragged 64-row tile, bf16 inputs
     for shape in SSD_SHAPES:
         check_ssd_chunk(rng, dev, *shape)
-    check_ssd_chunk(rng, dev, 2, 6, 4, 16, 8, 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_ssd_chunk(rng, dev, 2, 6, 4, 16, 8, 1, dtype)   # 6 chunks of 1
     check_ssd_chunk(rng, dev, 1, 200, 4, 32, 16, 100, torch.bfloat16)
+    check_ssd_chunk(rng, dev, 1, 64, 3, 12, 20, 32, torch.bfloat16)  # scalar
+    # the tensor-core instance at every hp and ns of the serving
+    # configurations and the tests
+    for hp in (16, 32, 64):
+        for ns in (8, 16, 32, 64, 128):
+            check_ssd_chunk(rng, dev, 2, 256, 3, hp, ns, 128, torch.bfloat16)
     # the full SSD (padding, initial state, inter-chunk recurrence)
     for shape in SSD_SHAPES:
         check_ssd_full(rng, dev, *shape)
@@ -663,11 +686,15 @@ def time_ssd(rng, dev, nh, hp, ns, S, cl, what):
     plain_ms = cuda_ms(lambda i: ssd_chunk_ref(*sets[i], chunk=cl), n_sets,
                        max(5, reps // 10))
     byt, flops = ssd_work(B, S, nh, hp, ns, cl, 2)
-    bnd = bound(byt, flops, torch.float32)
+    t_bytes, t_ops = byt / PEAK_BYTES_PER_S, flops / SSD_RATE[1]
+    bnd = (max(t_bytes, t_ops) * 1e3,
+           "bytes" if t_bytes >= t_ops else "operations")
     log(f"  ssd    {what}: x {(B, S, nh, hp)} ns {ns} cl {cl} bf16: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]}; {flops / 1e9:.3f} GFLOP fp32, "
-        f"{byt / 1e6:.1f} MB)")
+        f"{ms:.4f} ms ({ssd_kernel.plan(B, S, nh, hp, ns, cl, dt)}), plain "
+        f"{plain_ms:.4f} ms, library none, bound {bnd[0]:.4f} ms ({bnd[1]}; "
+        f"{byt / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, "
+        f"{flops / 1e9:.3f} GFLOP at the {SSD_RATE[0]}' "
+        f"{SSD_RATE[1] / 1e12:.0f} TFLOP/s)")
     return ms, plain_ms, None, bnd
 
 
@@ -737,7 +764,8 @@ def phase_serve_times(dev, arch, cfg, serve, prompts):
 
 KINDS = (("flash kernel", ("flash_fwd_",)),
          ("paged kernel", ("paged_split_kernel",)),
-         ("ssd kernel", ("ssd_chunk_kernel",)),
+         ("ssd kernel", ("ssd_chunk_kernel", "ssd_chunk_mma_kernel",
+                         "ssd_decode_kernel")),
          ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
          ("copy/cast", ("copy", "convert", "to_copy")))
 

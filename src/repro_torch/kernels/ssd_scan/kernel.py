@@ -5,7 +5,9 @@ The kernel is ``csrc/ssd_chunk.cu`` (it replaces the Pallas TPU kernel
 bounds it and how it is laid out. This wrapper checks its inputs,
 allocates the four fp32 outputs, launches on the current stream and counts
 launches in ``ssd_chunk_call.launches``. It takes CUDA tensors only; the
-plain version is ``ref.ssd_chunk_ref``.
+plain version is ``ref.ssd_chunk_ref``, and ``ref.ssd_chunk_split_ref`` is
+the split arithmetic of the bf16 tensor-core instance. ``plan`` reports
+which of the source's three kernels a call runs and how it is laid out.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ SOURCE = "ssd_chunk"
 _SYMBOLS = {torch.bfloat16: "ssd_chunk_bf16", torch.float32: "ssd_chunk_f32"}
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 MAX_HP, MAX_NS = 128, 256     # y accumulators a thread; shared-memory tiles
+PATHS = ("scalar", "mma", "decode")
+_PLAN_KEYS = ("path", "ctas", "threads", "heads_per_cta", "smem_bytes",
+              "ctas_per_sm", "registers", "spill_bytes", "sms")
 
 
 def ssd_chunk_call(x, dt, A_log, B_, C_, *, chunk: int):
@@ -78,3 +83,22 @@ def ssd_chunk_call(x, dt, A_log, B_, C_, *, chunk: int):
 
 
 ssd_chunk_call.launches = 0
+
+
+def plan(B: int, S: int, nh: int, hp: int, ns: int, cl: int, dtype) -> dict:
+    """The launch ``ssd_chunk_call`` makes at these shapes (x, B and C on
+    16-byte boundaries, as fresh tensors are): ``path`` ("decode" for
+    cl == 1, "mma" for the bf16 tensor-core kernel, else "scalar"), CTAs,
+    threads and heads a CTA, dynamic shared memory bytes, CTAs resident
+    on an SM, the kernel's registers a thread and local-memory (spill)
+    bytes, and the card's SMs. Builds the kernel if needed."""
+    fn = _build.bind(SOURCE, "ssd_chunk_plan", [ctypes.c_int] * 7
+                     + [ctypes.c_void_p])
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = fn(B, S, nh, hp, ns, cl, int(dtype == torch.bfloat16),
+             ctypes.cast(out, ctypes.c_void_p))
+    _build.check(SOURCE, "ssd_chunk_plan", err)
+    res = dict(zip(_PLAN_KEYS, out))
+    res["path"] = PATHS[res["path"]]
+    return res
+

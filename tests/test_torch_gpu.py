@@ -18,7 +18,8 @@ from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,
+                                              ssd_chunk_split_ref, ssd_ref)
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.serve import ServeLoop
@@ -42,7 +43,17 @@ SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
               (2, 64, 2, 64, 64, 64),                  # tests/test_kernels.py
               (2, 6, 4, 16, 8, 1),                     # cl = 1 (decode)
               (1, 512, 3, 128, 128, 256),              # hp 128, two chunks
-              (1, 100, 2, 16, 8, 100)]                 # ragged 64-row tiles
+              (1, 100, 2, 16, 8, 100),                 # ragged 64-row tiles
+              (1, 200, 4, 32, 16, 100),                # cl not a multiple of 16
+              (4, 512, 80, 64, 64, 256),               # zamba2-2.7b prefill
+              (4, 512, 24, 64, 128, 256),              # mamba2-130m prefill
+              (4, 1, 80, 64, 64, 1),                   # their decode steps
+              (4, 1, 24, 64, 128, 1),
+              (2, 3, 2, 12, 10, 1),                    # ns % 4 != 0 at cl 1
+              (1, 64, 3, 12, 20, 32)]                  # scalar-kernel shape
+# the tensor-core instance's head shapes: hp x ns, two chunks of 128
+SSD_HEAD_SWEEP = [(hp, ns) for hp in (16, 32, 64)
+                  for ns in (8, 16, 32, 64, 128)]
 
 
 @pytest.fixture
@@ -245,18 +256,49 @@ def _ssd_inputs(dev, B, S, nh, hp, ns, dtype=torch.float32, seed=7):
 @pytest.mark.parametrize("B,S,nh,hp,ns,cl", SSD_SHAPES)
 def test_ssd_kernel_matches_plain(cuda, dtype, B, S, nh, hp, ns, cl):
     """Each of the four pieces against ssd_chunk_ref on the same (bf16 or
-    fp32) inputs; both compute in fp32."""
+    fp32) inputs, both computing in fp32, and in bf16 also against the
+    split arithmetic of the tensor-core instance (ssd_chunk_split_ref)."""
     args = _ssd_inputs(cuda, B, S, nh, hp, ns, dtype)
     before = ssd_kernel.ssd_chunk_call.launches
     out = ssd_kernel.ssd_chunk_call(*args, chunk=cl)
     torch.cuda.synchronize()
     assert ssd_kernel.ssd_chunk_call.launches == before + 1
-    ref = ssd_chunk_ref(*args, chunk=cl)
-    for name, o, r in zip(("y_diag", "states", "exp_cs", "exp_tot"), out,
-                          ref):
-        assert o.dtype == torch.float32 and o.shape == r.shape, name
-        torch.testing.assert_close(o, r, atol=SSD_ATOL, rtol=SSD_RTOL,
-                                   msg=name)
+    refs = {"plain": ssd_chunk_ref(*args, chunk=cl)}
+    if dtype == torch.bfloat16:
+        refs["split"] = ssd_chunk_split_ref(*args, chunk=cl)
+    for what, ref in refs.items():
+        for name, o, r in zip(("y_diag", "states", "exp_cs", "exp_tot"),
+                              out, ref):
+            assert o.dtype == torch.float32 and o.shape == r.shape, name
+            torch.testing.assert_close(o, r, atol=SSD_ATOL, rtol=SSD_RTOL,
+                                       msg=f"{name} vs {what}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hp,ns", SSD_HEAD_SWEEP)
+def test_ssd_kernel_head_shapes(cuda, dtype, hp, ns):
+    """Every hp and ns the serving configurations and tests use (in bf16
+    the tensor cores), two chunks of 128."""
+    test_ssd_kernel_matches_plain(cuda, dtype, 2, 256, 3, hp, ns, 128)
+
+
+def test_ssd_kernel_plan(cuda):
+    """Which kernel a call runs: the decode kernel at cl 1, the tensor
+    cores for bf16 chunks, the scalar kernel for fp32 chunks and for
+    shapes the tensor-core instance does not take."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for shape, dtype, path in (((4, 512, 80, 64, 64, 256), bf, "mma"),
+                               ((4, 512, 24, 64, 128, 256), bf, "mma"),
+                               ((4, 1, 80, 64, 64, 1), bf, "decode"),
+                               ((2, 6, 4, 16, 8, 1), f32, "decode"),
+                               ((2, 128, 4, 32, 16, 32), f32, "scalar"),
+                               ((1, 64, 3, 12, 20, 32), bf, "scalar")):
+        p = ssd_kernel.plan(*shape, dtype)
+        assert p["path"] == path, (shape, p)
+        assert p["ctas"] > 0 and p["ctas_per_sm"] >= 1, (shape, p)
+    zamba = ssd_kernel.plan(4, 512, 80, 64, 64, 256, bf)
+    assert zamba["heads_per_cta"] == 2 and zamba["spill_bytes"] == 0
+    assert zamba["ctas"] >= zamba["sms"], zamba
 
 
 def test_ssd_op_on_card_matches_oracle(cuda):

@@ -2,8 +2,12 @@
 inputs: the SSD chunk kernel's plain version (``ssd_chunk_ref``, the
 kernel's contract) against the Pallas kernel in interpret mode piece by
 piece, and the full SSD (``ops.ssd`` and ``models.mamba.ssd_chunked``)
-against ``repro``'s Pallas SSD and its oracle. The CUDA kernel itself is
-held against ``ssd_chunk_ref`` on a card by tests/test_torch_gpu.py."""
+against ``repro``'s Pallas SSD and its oracle. The split arithmetic of the
+kernel's bf16 tensor-core instance (``ssd_chunk_split_ref``) is held
+against both at the serving head shapes, and fewer split pieces are shown
+to lose the margin. The CUDA kernel itself is held against
+``ssd_chunk_ref`` and ``ssd_chunk_split_ref`` on a card by
+tests/test_torch_gpu.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +19,8 @@ from repro.kernels.ssd_scan.ops import ssd as pk_ssd
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,
+                                              ssd_chunk_split_ref, ssd_ref)
 from repro_torch.models import mamba as tmamba
 
 ATOL, RTOL = 2e-5, 2e-4                 # tests/test_kernels.py: SSD sweep
@@ -25,6 +30,14 @@ SSD_SHAPES = [                          # tests/test_kernels.py:38-42
     (2, 64, 2, 64, 64, 64),
 ]
 PIECES = ("y_diag", "states", "exp_cs", "exp_tot")
+# one or two chunks of 256 tokens with zamba2-2.7b's (hp 64, ns 64) and
+# mamba2-130m's (hp 64, ns 128) head shapes, a few heads
+SERVING_HEAD_SHAPES = [
+    (1, 512, 2, 64, 64, 256),
+    (2, 256, 3, 64, 64, 256),
+    (1, 256, 4, 64, 128, 256),
+    (1, 512, 2, 64, 128, 256),
+]
 
 
 def _inputs(B, S, nh, hp, ns, seed=0, state=False):
@@ -78,6 +91,53 @@ def test_chunk_pieces_read_bf16_inputs_as_pallas_does():
                         tB, tC, chunk=64)
     for name, t, j in zip(PIECES, got, want):
         _close(t, j, name)
+
+
+def _bf16_case(B, S, nh, hp, ns, seed):
+    """bf16 x/B/C (the serving dtype) for the split arithmetic: the torch
+    tensors and the same values as JAX arrays."""
+    x, dt, A_log, B_, C_, _ = _inputs(B, S, nh, hp, ns, seed=seed)
+    tx, tB, tC = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, B_, C_))
+    jx, jB, jC = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, B_, C_))
+    t = (tx, torch.from_numpy(dt), torch.from_numpy(A_log), tB, tC)
+    j = (jx, jnp.asarray(dt), jnp.asarray(A_log), jB, jC)
+    return t, j
+
+
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl", SERVING_HEAD_SHAPES + SSD_SHAPES)
+def test_split_arithmetic_matches_plain_and_pallas(B, S, nh, hp, ns, cl):
+    """The bf16 tensor-core instance's decomposition (C·Bᵀ in one bf16
+    pass, the scores and the state weights each split into three bf16
+    pieces) against ssd_chunk_ref and the Pallas kernel in interpret mode,
+    at the kernel's tolerance."""
+    t, j = _bf16_case(B, S, nh, hp, ns, seed=8)
+    got = ssd_chunk_split_ref(*t, chunk=cl)
+    ref = ssd_chunk_ref(*t, chunk=cl)
+    want = pk_chunk(*j, chunk=cl, interpret=True)
+    for name, g, r, w in zip(PIECES, got, ref, want):
+        assert g.dtype == torch.float32 and g.shape == r.shape, name
+        _close(g, r.numpy(), f"{name} vs ssd_chunk_ref")
+        _close(g, w, f"{name} vs pallas")
+
+
+@pytest.mark.parametrize("pieces", [1, 2])
+def test_fewer_split_pieces_lose_the_margin(pieces):
+    """Why the scores are split in three: at cl 256 a single unsplit bf16
+    pass misses the tolerance by far (y and the states); two pieces use
+    more than a tenth of it on y, over twenty times what three use."""
+    t, _ = _bf16_case(1, 512, 2, 64, 64, seed=9)
+    ref = ssd_chunk_ref(*t, chunk=256)
+
+    def worst(out):           # max of err / (atol + rtol |ref|), y and st
+        return [float(((o - r).abs() / (ATOL + RTOL * r.abs())).max())
+                for o, r in zip(out[:2], ref[:2])]
+    three = worst(ssd_chunk_split_ref(*t, chunk=256))
+    fewer = worst(ssd_chunk_split_ref(*t, chunk=256, pieces=pieces))
+    assert max(three) < 0.05, three
+    if pieces == 1:
+        assert min(fewer) > 10, fewer
+    else:
+        assert fewer[0] > 0.1 and fewer[0] > 20 * three[0], (fewer, three)
 
 
 @pytest.mark.parametrize("B,S,nh,hp,ns,cl", SSD_SHAPES)
