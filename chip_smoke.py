@@ -7,10 +7,11 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``:
 
 Phases (any failure raises, and the script exits nonzero):
 
-1. the card's name, count and power limit; build the three CUDA kernels
-   (flash attention, paged attention, the Mamba2 SSD chunk step) from
-   ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel) and print
-   the compiler's register / shared-memory / spill report;
+1. the card's name, count and power limit; build the four CUDA kernel
+   sources (flash attention forward and backward, paged attention, the
+   Mamba2 SSD chunk step) from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and print the compiler's register / shared-memory
+   / spill report;
 2. each kernel against its plain PyTorch version on CUDA tensors: the
    shape sweeps of ``tests/test_kernels.py``, a zero-length decode row, a
    permuted page table (bit-identical output, also at both serving shapes
@@ -22,8 +23,11 @@ Phases (any failure raises, and the script exits nonzero):
    one-token chunks, a padded S, a chunk that is not a multiple of 16, hp
    16/32/64 x ns 8..128, a shape for its scalar kernel), in bf16 also
    against the split arithmetic of its tensor-core instance, and the full
-   SSD against the plain chunked SSD, and every kernel at the shapes of
-   the serving runs;
+   SSD against the plain chunked SSD, the flash forward's lse output and
+   the flash backward kernel against the plain forward and block-recompute
+   backward (bf16 and fp32, head_dim 32/64/80/128, GQA, a window, S = 513
+   and S = 130), and every kernel at the shapes of the serving and
+   training runs;
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
@@ -33,7 +37,17 @@ Phases (any failure raises, and the script exits nonzero):
    ``mamba2-130m`` (ssm: the SSD kernel in its 24 layers). The launch
    counters, set to 0 just before each run and read just after, must
    equal what that path launches; each model's first decode step is held
-   against a full forward over prompt + token;
+   against a full forward over prompt + token. Then the training path:
+   ``TrainLoop`` on ``stablelm-1.6b`` at full width and full depth (24
+   layers, each rematerialised) for 6 AdamW steps of 2 x 4096 tokens from
+   a ``RingLoader`` over a synthetic corpus (no checkpoint is due in the
+   run: a full-width one is 26 GB); the counters must show 48 forward and
+   24 backward flash launches a step. One step's loss and gradients at
+   full width and 2 layers are held against the same step with attention
+   through autograd of the plain ``reference_attention``; a smoke-size
+   run that crashes at step 8 and restarts from the ring checkpoint of
+   step 5 must end bitwise equal to the uninterrupted run, under
+   ``torch.use_deterministic_algorithms(True)``;
 4. device times (CUDA events over launches queued behind a held stream,
    after warm-up) of each kernel, its plain version, its bound and, where
    one PyTorch call computes the same function, that call as a yardstick
@@ -41,9 +55,14 @@ Phases (any failure raises, and the script exits nonzero):
    last decode lengths, 33 and 34 pages, with its cluster shape; flash
    with its CTA shape; the SSD kernel with its plan, also at a decode
    step's chunk of one token, bound at the TF32 tensor-core rate or the
-   bytes); each model's prefill and decode times;
+   bytes); each model's prefill and decode times; the train step's time
+   and tokens/s, the flash backward at the training shape beside its
+   bound and the backward of ``scaled_dot_product_attention``, and the
+   flash forward at the training shape;
 5. where the time goes: ``torch.profiler`` over one prefill and eight
-   decode steps of each model, device busy share and kernel time by kind.
+   decode steps of each model, and over one train step (forward and
+   backward, then the optimizer), device busy share and kernel time by
+   kind.
 
 The last lines are a JSON object with one entry per kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -54,23 +73,35 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS is deterministic only with a fixed workspace, which must be set
+# before CUDA initialises (the restart check runs deterministically)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch                                                  # noqa: E402
 import torch.nn.functional as F                               # noqa: E402
 
-from repro_torch.configs import get_config                    # noqa: E402
+from repro_torch.checkpoint import Checkpointer                # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data import (RingLoader, TokenStore,        # noqa: E402
+                              make_synthetic_corpus)
 from repro_torch.kernels import _build                        # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as flash_ops        # noqa
+from repro_torch.kernels.flash_attention.ref import (        # noqa: E402
+    flash_attention_bwd_ref, flash_attention_fwd_ref)
 from repro_torch.kernels.paged_attn import kernel as paged_kernel       # noqa
 from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref  # noqa
@@ -78,9 +109,15 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel           # noqa
 from repro_torch.kernels.ssd_scan import ops as ssd_ops                 # noqa
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,         # noqa
                                               ssd_chunk_split_ref, ssd_ref)
+from repro_torch.launch.steps import (loss_and_grads,        # noqa: E402
+                                      make_train_step)
 from repro_torch.models import attention as attn               # noqa: E402
 from repro_torch.models import lm                              # noqa: E402
+from repro_torch.optim import (adamw_init, adamw_update,       # noqa: E402
+                               cosine_schedule)
 from repro_torch.serve import ServeLoop                        # noqa: E402
+from repro_torch.train import TrainLoop, TrainLoopConfig       # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map             # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -100,8 +137,16 @@ PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
               (2, 64, 2, 64, 64, 64)]                  # B, S, nh, hp, ns, cl
 KERNELS = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
+           "flash_attention_bwd": flash_kernel.flash_attention_bwd,
            "paged_attention": paged_kernel.paged_attention,
            "ssd_chunk_call": ssd_kernel.ssd_chunk_call}
+# the flash backward against the plain block-recompute backward: the same
+# fp32 arithmetic from the same inputs, so TOLS (bf16: one rounding of the
+# outputs); the lse output is fp32 in both (measured <= 9.5e-7)
+FLASH_BWD_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 513, 4, 1, 128, 0),
+                    (2, 128, 8, 8, 32, 64), (1, 200, 4, 2, 80, 48),
+                    (2, 130, 4, 4, 64, 0), (1, 513, 8, 2, 64, 100)]
+LSE_TOL = 1e-5
 
 # the serving runs: 4 prompts x 512 tokens, 32 new tokens, one per model
 ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m")
@@ -117,6 +162,17 @@ BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
 # stablelm's 0.078 at <= 5.0
 LOGIT_TOLS = {"dense": (0.15, 0.05), "hybrid": (0.4, 0.05),
               "ssm": (0.15, 0.05)}
+
+# the training run: stablelm-1.6b at full width and depth, train_4k's
+# sequence (configs/base.py), a global batch cut from 256 to 2
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_PATH = "train " + TRAIN_ARCH
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6
+# one step at full width and 2 layers, flash kernels vs autograd of the
+# plain attention, both bf16 compute: the loss to 2e-3 relative and each
+# gradient leaf to 2e-2 relative L2 (a few bf16 roundings, 2^-8 each)
+GRAD_LOSS_RTOL, GRAD_REL_L2 = 2e-3, 2e-2
+RESTART_STEPS, RESTART_CKPT, RESTART_CRASH = 10, 5, 8
 
 
 def log(*a):
@@ -313,6 +369,36 @@ def check_flash_strided(rng, dev):
         f"misaligned rows refused")
 
 
+def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64):
+    """The forward's lse output against the plain forward's, then the
+    backward kernel against the plain block-recompute backward on the
+    same (q, k, v, o, lse, do). Returns the backward's max abs error."""
+    q, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(2))
+    k, v = (rand(rng, (B, S, KH, hd), dt, dev) for _ in range(2))
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, window=win,
+                                              with_lse=True)
+    if not torch.equal(o, flash_kernel.flash_attention_fwd(q, k, v,
+                                                           window=win)):
+        raise AssertionError("flash forward: writing lse changed the output")
+    _, lse_ref = flash_attention_fwd_ref(q, k, v, window=win,
+                                         q_chunk=q_chunk)
+    what = f"flash bwd B={B} S={S} H={H} KH={KH} hd={hd} win={win} " \
+        f"{str(dt)[6:]}"
+    e_lse = check_close(what + " lse", lse, lse_ref, LSE_TOL, LSE_TOL)
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, window=win)
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, window=win,
+                                  q_chunk=q_chunk)
+    errs = [check_close(f"{what} d{n}", a, b, TOLS[dt], TOLS[dt])
+            for n, a, b in zip("qkv", got, ref)]
+    again = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, window=win)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two calls gave different bits")
+    log(f"{what}: max abs err lse {e_lse:.3e} (atol = rtol = {LSE_TOL}); "
+        f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (atol = rtol = "
+        f"{TOLS[dt]}); a second call bit-identical")
+    return max(errs)
+
+
 def paged_split_ref(q, kp, vp, table, lens):
     n_split = paged_kernel.plan(table.shape[1], kp.shape[1],
                                 q.shape[1] // kp.shape[2], q.shape[2],
@@ -388,6 +474,9 @@ def phase_kernels_vs_plain(dev):
         check_flash(rng, dev, 1, 200, 4, 4, 80, dt)            # ragged S
     check_flash(rng, dev, 2, 200, 4, 2, 80, torch.bfloat16, win=48)
     check_flash_strided(rng, dev)
+    for B, S, H, KH, hd, win in FLASH_BWD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=win)
 
     for B, H, KH, hd, page, nblk in PAGED_SHAPES:
         for dt, tol in ((torch.float32, PAGED_TOL_F32),
@@ -496,6 +585,9 @@ def phase_kernels_vs_plain(dev):
     check_ssd_chunk(rng, dev, BATCH, 1, 24, 64, 128, 1, torch.bfloat16)
     check_ssd_full(rng, dev, BATCH, PROMPT, 80, 64, 64, 256)
     check_ssd_full(rng, dev, BATCH, PROMPT, 24, 64, 128, 256)
+    # the training shape: stablelm-1.6b's attention at 2 x 4096
+    errs["flash_attention_bwd"] = check_flash_bwd(
+        rng, dev, TRAIN_B, TRAIN_S, 32, 32, 64, torch.bfloat16, q_chunk=512)
     torch.cuda.synchronize()
     return errs
 
@@ -507,11 +599,11 @@ def phase_kernels_vs_plain(dev):
 def expected_launches(cfg):
     L, steps = cfg.n_layers, NEW - 1
     if cfg.family == "dense":
-        return {"flash_attention_fwd": L, "paged_attention": L * steps,
-                "ssd_chunk_call": 0}
+        return {"flash_attention_fwd": L, "flash_attention_bwd": 0,
+                "paged_attention": L * steps, "ssd_chunk_call": 0}
     G = L // cfg.attn_every if cfg.family == "hybrid" else 0
-    return {"flash_attention_fwd": G, "paged_attention": G * steps,
-            "ssd_chunk_call": L * (1 + steps)}
+    return {"flash_attention_fwd": G, "flash_attention_bwd": 0,
+            "paged_attention": G * steps, "ssd_chunk_call": L * (1 + steps)}
 
 
 def phase_main_path(dev, arch):
@@ -592,6 +684,244 @@ def _leaves(tree):
             yield v
 
 
+def train_loader(corpus):
+    return RingLoader(TokenStore(corpus), batch=TRAIN_B, seq=TRAIN_S)
+
+
+def card_batch(corpus, dev):
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in next(iter(train_loader(corpus))).items()}
+
+
+def phase_train(dev, corpus, ckpt_dir):
+    """TrainLoop on stablelm-1.6b at full width and full depth: the
+    counters, set to 0 just before ``run()`` and read just after, must
+    show 48 forward (remat runs each layer's forward twice) and 24
+    backward flash launches a step; the loss stays finite, the gradient
+    is nonzero and the parameters move."""
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat:
+        raise AssertionError(f"{TRAIN_ARCH}: expected remat in its config")
+    t0 = time.perf_counter()
+    loop = TrainLoop(cfg, TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                          ckpt_every=TRAIN_STEPS + 1,
+                                          ckpt_dir=ckpt_dir, log_every=1),
+                     train_loader(corpus), seed=0, device=dev)
+    n_par = sum(t.numel() for t in tree_leaves(loop.params))
+    lay = loop.params["layers"]
+    watch = {"embed": loop.params["embed"][:256], "wq[0]": lay["attn"]["wq"][0],
+             "w2[23]": lay["mlp"]["w2"][-1],
+             "final_norm": loop.params["final_norm"]}
+    before = {n: t.detach().clone() for n, t in watch.items()}
+    log(f"train[{TRAIN_ARCH}]: {cfg.n_layers}L d_model={cfg.d_model} "
+        f"H={cfg.n_heads} hd={cfg.hd} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab_size}: {n_par / 1e9:.3f} B params fp32, AdamW m/v "
+        f"fp32, remat={cfg.remat}, bf16 compute; batch {TRAIN_B} x "
+        f"{TRAIN_S} tokens; built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in loop.metrics_log:
+        log(f"train[{TRAIN_ARCH}]: step {m['step']}: loss {m['loss']:.6f} "
+            f"grad_norm {m['grad_norm']:.6f} lr {m['lr']:.3e}")
+    log(f"train[{TRAIN_ARCH}]: {TRAIN_STEPS} steps in {run_s:.2f} s "
+        f"(first step included); launches {launches}; peak memory "
+        f"{peak_gb:.2f} GB")
+    L = cfg.n_layers
+    want = {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
+            "flash_attention_bwd": L * TRAIN_STEPS, "paged_attention": 0,
+            "ssd_chunk_call": 0}
+    if launches != want:
+        raise AssertionError(f"train: launch counts {launches} != {want}")
+    if len(loop.metrics_log) != TRAIN_STEPS or not all(
+            np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+            for m in loop.metrics_log):
+        raise AssertionError(f"train: non-finite metrics {loop.metrics_log}")
+    if not all(m["grad_norm"] > 0 for m in loop.metrics_log):
+        raise AssertionError("train: a zero gradient")
+    moved = {n: float((watch[n].float() - before[n].float()).abs().max())
+             for n in watch}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"train: parameters did not move: {moved}")
+    log(f"train[{TRAIN_ARCH}]: largest change of watched parameters over "
+        f"the run: { {n: f'{v:.3e}' for n, v in moved.items()} }")
+    return cfg, loop, launches, peak_gb
+
+
+def phase_train_times(dev, cfg, loop, corpus):
+    """The train step's device and host time after the run's warm-up,
+    tokens/s, and where its time goes (torch.profiler over one step:
+    forward + backward, then the optimizer)."""
+    batch = card_batch(corpus, dev)
+    reps = 3
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(reps):
+        loop.params, loop.opt_state, m = loop.step_fn(loop.params,
+                                                      loop.opt_state, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    step_ms = e0.elapsed_time(e1) / reps
+    tok_s = TRAIN_B * TRAIN_S * 1e3 / host_ms
+    log(f"train[{TRAIN_ARCH}]: step {step_ms:.3f} ms by CUDA events "
+        f"({host_ms:.3f} ms host, mean of {reps}), {tok_s:.1f} tokens/s at "
+        f"batch {TRAIN_B} x {TRAIN_S}; loss {float(m['loss']):.6f}")
+
+    box = {}
+
+    def fwd_bwd():
+        box["lg"] = loss_and_grads(cfg, loop.params, batch)
+
+    def optimizer():
+        lr = cosine_schedule(loop.opt_state.step, peak_lr=loop.lc.peak_lr,
+                             warmup=100, total=loop.lc.total_steps)
+        loop.params, loop.opt_state, _ = adamw_update(
+            box["lg"][1], loop.opt_state, loop.params, lr=lr)
+    log(f"where the time goes [{TRAIN_PATH}] (torch.profiler, one step):")
+    wall, kern, host = _profile(fwd_bwd)
+    _report("forward + backward", wall, kern, host)
+    wall_o, kern_o, host_o = _profile(optimizer)
+    _report("optimizer (AdamW)", wall_o, kern_o, host_o)
+    busy = sum(us for us, _ in kern.values()) / 1e3
+    busy_o = sum(us for us, _ in kern_o.values()) / 1e3
+    log(f"  train step: wall {wall + wall_o:.3f} ms, device busy "
+        f"{busy + busy_o:.3f} ms ({100 * (busy + busy_o) / (wall + wall_o):.1f}"
+        f"%), optimizer {busy_o:.3f} ms of it")
+    del box
+    return {"step_ms": step_ms, "step_host_ms": host_ms,
+            "tokens_per_s": tok_s}
+
+
+def _plain_flash(q, k, v, *, causal=True, window=0, q_chunk=512, k_chunk=0,
+                 scale=None, schedule="triangular"):
+    return attn.reference_attention(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+
+
+def phase_train_grads(dev, corpus):
+    """One step's loss and every gradient leaf at full width and 2 layers,
+    with the flash kernels, against the same step with attention through
+    autograd of the plain ``reference_attention`` (bf16 compute both)."""
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=2)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(1),
+                            device=dev)
+    batch = card_batch(corpus, dev)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    loss_k, grads_k = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    kernel_attention = attn.flash_attention
+    attn.flash_attention = _plain_flash
+    try:
+        loss_p, grads_p = loss_and_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+    finally:
+        attn.flash_attention = kernel_attention
+    want = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers, "paged_attention": 0,
+            "ssd_chunk_call": 0}
+    if launches != want:
+        raise AssertionError(f"2-layer step launches {launches} != {want}")
+    if any(fn.launches != launches[n] for n, fn in KERNELS.items()):
+        raise AssertionError("the plain step launched a kernel")
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not loss_err <= GRAD_LOSS_RTOL:
+        raise AssertionError(f"2-layer loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)}: {loss_err:.3e}")
+    worst = ("", 0.0)
+    names = [n for n, _ in _named_leaves(grads_k)]
+    for name, a, b in zip(names, tree_leaves(grads_k), tree_leaves(grads_p)):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        if not (np.isfinite(rel) and rel <= GRAD_REL_L2):
+            raise AssertionError(f"2-layer gradient {name}: relative L2 "
+                                 f"{rel:.3e} > {GRAD_REL_L2}")
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+    log(f"train[{TRAIN_ARCH}, 2 layers]: flash kernels vs autograd of the "
+        f"plain attention, one step at {TRAIN_B} x {TRAIN_S}: loss "
+        f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_err:.2e}, "
+        f"tol {GRAD_LOSS_RTOL}); {len(names)} gradient leaves, worst "
+        f"relative L2 {worst[1]:.3e} at {worst[0]} (tol {GRAD_REL_L2})")
+    return worst[1]
+
+
+def _named_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _named_leaves(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
+
+def phase_train_restart(dev, ckpt_dir):
+    """Twin of test_substrate.py::test_train_restart_matches_uninterrupted
+    on the card at smoke size (head_dim 32): crash at step 8, restart from
+    the port's ring checkpoint of step 5, and the final parameters are
+    bitwise those of the uninterrupted run."""
+    cfg = get_smoke_config(TRAIN_ARCH).replace(head_dim=32)
+    params0 = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    step_fn = make_train_step(cfg, peak_lr=1e-2, warmup=2)
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(RESTART_STEPS):
+        t = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        batches.append({"tokens": torch.from_numpy(t).to(dev),
+                        "labels": torch.from_numpy(np.roll(t, -1, 1)).to(dev)})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            p = tree_map(lambda t: t.clone(), params0)
+            o = adamw_init(p)
+            for i in range(RESTART_STEPS):
+                p, o, _ = step_fn(p, o, batches[i])
+            ref = p
+            ck = Checkpointer(ckpt_dir, every=RESTART_CKPT)
+            p = tree_map(lambda t: t.clone(), params0)
+            o = adamw_init(p)
+            for i in range(RESTART_CRASH):
+                ck.maybe_save(i, {"p": p, "o": o})
+                p, o, _ = step_fn(p, o, batches[i])
+            restored, st = ck.restore_or({"p": p, "o": o})
+            p, o = restored["p"], restored["o"]
+            if st != RESTART_CKPT or int(o.step) != RESTART_CKPT:
+                raise AssertionError(f"restart: restored step {st}, "
+                                     f"optimizer step {int(o.step)}")
+            for i in range(st, RESTART_STEPS):
+                p, o, _ = step_fn(p, o, batches[i])
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    differ = [n for (n, a), b in zip(_named_leaves(ref), tree_leaves(p))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"restart: {len(differ)} parameter leaves "
+                             f"differ from the uninterrupted run: {differ}; "
+                             f"ops without a deterministic CUDA version: "
+                             f"{nondet}")
+    log(f"train restart [{TRAIN_ARCH} smoke, hd 32]: crash at step "
+        f"{RESTART_CRASH}, restart from the ring checkpoint of step {st}: "
+        f"all {len(tree_leaves(p))} parameter leaves bitwise equal to the "
+        f"uninterrupted {RESTART_STEPS} steps under "
+        f"use_deterministic_algorithms; ops without a deterministic CUDA "
+        f"version on the path: {nondet or 'none'}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
@@ -613,25 +943,63 @@ def ssd_work(B, S, nh, hp, ns, cl, esz):
     return byt, flops
 
 
-def time_flash(rng, dev, H, KH, hd):
-    """Device ms of the bf16 kernel, its plain version, SDPA and the
-    bound."""
+def time_flash(rng, dev, H, KH, hd, B=BATCH, S=PROMPT, with_lse=False):
+    """Device ms of the bf16 kernel (writing lse, as training calls it,
+    with ``with_lse``), its plain version, SDPA and the bound."""
     dt = torch.bfloat16
-    B, S = BATCH, PROMPT
     sets = [tuple(rand(rng, (B, S, n, hd), dt, dev) for n in (H, KH, KH))
-            for _ in range(4)]                       # 4 x 33.5 MB > L2
-    ms = cuda_ms(lambda i: flash_kernel.flash_attention_fwd(*sets[i]), 4, 50)
-    plain_ms = cuda_ms(lambda i: attn.reference_attention(*sets[i]), 4, 10)
+            for _ in range(4)]                       # 4 x >= 33.5 MB > L2
+    reps = max(5, 50 * PROMPT * PROMPT // (S * S))
+    ms = cuda_ms(lambda i: flash_kernel.flash_attention_fwd(
+        *sets[i], with_lse=with_lse), 4, reps)
+    plain_ms = cuda_ms(lambda i: attn.reference_attention(*sets[i]), 4,
+                       max(3, reps // 5))
     t_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
     lib_ms = cuda_ms(
         lambda i: F.scaled_dot_product_attention(*t_sets[i], is_causal=True),
-        4, 50)
+        4, reps)
     pairs = S * (S + 1) // 2
-    bnd = bound(2 * B * S * H * hd * 2 + 2 * B * S * KH * hd * 2,
+    bnd = bound(2 * B * S * H * hd * 2 + 2 * B * S * KH * hd * 2
+                + (B * H * S * 4 if with_lse else 0),
                 4 * B * H * hd * pairs, dt)
-    log(f"  flash  q/k/v {(B, S, H, hd)} bf16 causal: kernel {ms:.4f} ms "
+    log(f"  flash  q/k/v {(B, S, H, hd)} bf16 causal"
+        f"{' (+lse)' if with_lse else ''}: kernel {ms:.4f} ms "
         f"({flash_kernel.plan(hd)}), plain {plain_ms:.4f} ms, sdpa "
         f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return ms, plain_ms, lib_ms, bnd
+
+
+def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64):
+    """Device ms of the backward kernel at the training shape (causal,
+    bf16), its plain version, the backward of SDPA (causal) and the
+    bound: q/k/v/o/do and lse read once, dq/dk/dv written once; five
+    products over the causal pairs."""
+    dt = torch.bfloat16
+    sets = []
+    for _ in range(2):                               # 2 x 168 MB > L2
+        q, k, v, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(4))
+        o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True)
+        sets.append((q, k, v, o, lse, do))
+    ms = cuda_ms(lambda i: flash_kernel.flash_attention_bwd(*sets[i]), 2, 5,
+                 warmup=2)
+    plain_ms = cuda_ms(lambda i: flash_attention_bwd_ref(*sets[i]), 2, 2,
+                       warmup=1)
+    lib = []
+    for q, k, v, _, _, do in sets:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
+    lib_ms = cuda_ms(lambda i: torch.autograd.grad(
+        lib[i][0], lib[i][1], lib[i][2], retain_graph=True), 2, 10)
+    pairs = S * (S + 1) // 2
+    bnd = bound(8 * B * S * H * hd * 2 + B * H * S * 4,
+                5 * 2 * B * H * hd * pairs, dt)
+    log(f"  flash bwd q/k/v/o/do {(B, S, H, hd)} bf16 causal: kernel "
+        f"{ms:.4f} ms ({5 * 2 * B * H * hd * pairs / ms / 1e9:.1f} TFLOP/s "
+        f"of the five products), plain {plain_ms:.4f} ms, backward of sdpa "
+        f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del lib
     return ms, plain_ms, lib_ms, bnd
 
 
@@ -700,10 +1068,15 @@ def time_ssd(rng, dev, nh, hp, ns, S, cl, what):
 
 def phase_kernel_times(dev):
     rng = np.random.default_rng(1)
-    log("kernel times at the serving shapes (device ms a call: CUDA events "
-        "over back-to-back calls queued behind a held stream):")
+    log("kernel times at the serving and training shapes (device ms a "
+        "call: CUDA events over back-to-back calls queued behind a held "
+        "stream):")
     out = {"flash_attention_fwd": time_flash(rng, dev, 32, 32, 64)}
     time_flash(rng, dev, 32, 32, 80)                  # zamba2-2.7b
+    out["flash_attention_fwd train"] = time_flash(
+        rng, dev, 32, 32, 64, B=TRAIN_B, S=TRAIN_S, with_lse=True)
+    free_card()
+    out["flash_attention_bwd"] = time_flash_bwd(rng, dev)
     free_card()
     # the first and last decode steps' lengths: 33 and 34 pages
     time_paged(rng, dev, 32, 32, 64, PROMPT + 1)
@@ -762,12 +1135,15 @@ def phase_serve_times(dev, arch, cfg, serve, prompts):
 # phase 5: where the time goes (torch.profiler)
 # ---------------------------------------------------------------------------
 
-KINDS = (("flash kernel", ("flash_fwd_",)),
+KINDS = (("flash fwd", ("flash_fwd_",)),
+         ("flash bwd", ("flash_bwd_",)),
          ("paged kernel", ("paged_split_kernel",)),
          ("ssd kernel", ("ssd_chunk_kernel", "ssd_chunk_mma_kernel",
                          "ssd_decode_kernel")),
          ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
-         ("copy/cast", ("copy", "convert", "to_copy")))
+         ("copy/cast", ("copy", "convert", "to_copy")),
+         ("elementwise", ("elementwise",)),
+         ("reduction", ("reduce",)))
 
 
 def _kind(name):
@@ -865,26 +1241,52 @@ def main() -> int:
         phase_profile(dev, arch, cfg, serve, prompts)
         del serve
         free_card()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cfg = get_config(TRAIN_ARCH)
+        corpus = make_synthetic_corpus(
+            os.path.join(tmp, "tokens.bin"), 64 * TRAIN_B * (TRAIN_S + 1),
+            cfg.vocab_size, seed=0)
+        cfg, loop, launches[TRAIN_PATH], train_peak_gb = phase_train(
+            dev, corpus, os.path.join(tmp, "ckpt_full"))
+        train_times = phase_train_times(dev, cfg, loop, corpus)
+        train_times["peak_memory_gb"] = train_peak_gb
+        del loop
+        free_card()
+        train_times["grad_rel_l2_2_layers"] = phase_train_grads(dev, corpus)
+        free_card()
+        phase_train_restart(dev, os.path.join(tmp, "ckpt_restart"))
+        free_card()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     times = phase_kernel_times(dev)
+    paths = ARCHS + (TRAIN_PATH,)
     kernels = []
     for kname, src, replaces in (
             ("flash_attention_fwd", "src/repro_torch/csrc/flash_fwd.cu",
              "src/repro/kernels/flash_attention/kernel.py:71"),
+            ("flash_attention_bwd", "src/repro_torch/csrc/flash_bwd.cu",
+             "src/repro/models/attention.py:211"),
             ("paged_attention", "src/repro_torch/csrc/paged_attn.cu",
              "src/repro/kernels/paged_attn/kernel.py:70"),
             ("ssd_chunk_call", "src/repro_torch/csrc/ssd_chunk.cu",
              "src/repro/kernels/ssd_scan/kernel.py:73")):
         ms, plain_ms, lib_ms, (bound_ms, bound_by) = times[kname]
-        by_path = {a: launches[a][kname] for a in ARCHS}
-        kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
-                        "max_abs_err": errs[kname], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms})
+        by_path = {a: launches[a][kname] for a in paths}
+        entry = {"name": kname, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, "max_abs_err": errs[kname],
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": lib_ms}
+        if kname == "flash_attention_fwd":      # also at the training shape
+            t_ms, t_plain, t_lib, (t_bound, _) = \
+                times["flash_attention_fwd train"]
+            entry.update(train_ms=t_ms, train_plain_ms=t_plain,
+                         train_library_ms=t_lib, train_bound_ms=t_bound)
+        kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "serve": serve_times}))
+    print(json.dumps({"kernels": kernels, "serve": serve_times,
+                      "train": train_times}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -8,7 +8,11 @@
 // all read through their strides (the last dim must be contiguous), so the
 // caller needs no transpose copies. Softmax is the Pallas kernel's fp32
 // online softmax: masked scores are -1e30, the running sum l is clamped to
-// 1e-30 at the end, and the output is written in q's dtype.
+// 1e-30 at the end, and the output is written in q's dtype. Where the
+// caller passes an lse pointer (training), each row's log-sum-exp of the
+// scaled scores, m + ln(max(l, 1e-30)) in natural-log units, is written
+// beside the output as (B, H, S) fp32 for the backward
+// (csrc/flash_bwd.cu); a null pointer (serving) writes none.
 //
 // What bounds it on the card: at the serving shapes (S = 512, hd = 64, bf16)
 // the function moves ~33.5 MB and needs ~4.3 GFLOP (causal), so the data
@@ -45,7 +49,7 @@
 // Common design:
 //   * one CTA per (q tile, head, batch);
 //   * the k loop visits only tiles that intersect the causal / window mask
-//     (the rule of _block_pairs in models/attention.py); the Pallas grid
+//     (the rule of block_pairs in kernels/flash_attention/ref.py); the grid
 //     visits every tile. In the bf16 kernel a warpgroup also skips the
 //     tiles no row of its own may see, and masks only tiles on an edge;
 //   * ragged edges are masked in the kernel: q rows >= S are not stored,
@@ -113,7 +117,7 @@ template <int HD>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     Args a) {
+                     float* __restrict__ lse, Args a) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [BQ][HD + 1]
   float* Ks = Qs + BQ * (HD + 1);          // [BK][HD + 1]
@@ -208,6 +212,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* ob = o + b * a.o_sb + gq * a.o_ss + h * a.o_sh;
 #pragma unroll
     for (int j = 0; j < HD / 4; ++j) ob[c4 + 4 * j] = acc[j] * inv;
+    if (lse != nullptr && c4 == 0)         // natural-log units here
+      lse[(size_t(b) * a.H + h) * a.S + gq] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -407,7 +413,8 @@ constexpr size_t bf16_smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
-                      __nv_bfloat16* __restrict__ o, const Args a) {
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      const Args a) {
   using C = Cols<HD>;
   constexpr int Q_BYTES = WG_ROWS * HD * 2;
   constexpr int KV_BYTES = WG_BK * HD * 2; // one K (or V) tile
@@ -578,6 +585,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
 
   const float inv_a = 1.f / fmaxf(l[0], 1e-30f);
   const float inv_b = 1.f / fmaxf(l[1], 1e-30f);
+  if (lse != nullptr && t == 0) {
+    // m is in log2 units: lse = m ln 2 + ln(max(l, 1e-30))
+    float* lb = lse + (size_t(b) * a.H + h) * a.S;
+    if (row_a < a.S)
+      lb[row_a] = m[0] * 0.6931471805599453f + logf(fmaxf(l[0], 1e-30f));
+    if (row_b < a.S)
+      lb[row_b] = m[1] * 0.6931471805599453f + logf(fmaxf(l[1], 1e-30f));
+  }
   __nv_bfloat16* ob = o + b * a.o_sb + h * a.o_sh + 2 * t;
 #pragma unroll
   for (int c = 0; c < C::NB; ++c) {
@@ -600,16 +615,18 @@ flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
 // ---------------------------------------------------------------------------
 
 int launch_f32(void (*kernel)(const float*, const float*, const float*,
-                              float*, Args),
+                              float*, float*, Args),
                size_t smem, const void* q, const void* k, const void* v,
-               void* o, int B, const Args& a, cudaStream_t stream) {
+               void* o, void* lse, int B, const Args& a,
+               cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid((a.S + BQ - 1) / BQ, a.H, B);
   kernel<<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), a);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), a);
   return int(cudaGetLastError());
 }
 
@@ -658,8 +675,8 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd,
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                const Args& a, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, const Args& a, cudaStream_t stream) {
   using C = Cols<HD>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorNotSupported);
@@ -681,7 +698,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return int(err);
   dim3 grid((a.S + WG_ROWS - 1) / WG_ROWS, a.H, B);
   flash_fwd_bf16_kernel<HD><<<grid, WG_THREADS, smem, stream>>>(
-      maps, static_cast<__nv_bfloat16*>(o), a);
+      maps, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), a);
   return int(cudaGetLastError());
 }
 
@@ -709,7 +726,7 @@ bool bad_shape(int B, int S, int Sk, int H, int KH) {
 extern "C" {
 
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Sk, int H, int KH, int hd,
+                   void* lse, int B, int S, int Sk, int H, int KH, int hd,
                    long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
                    long long v_sb, long long v_ss, long long v_sh,
@@ -731,21 +748,21 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                            window);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch_bf16<32>(q, k, v, o, B, a, st);
-    case 64: return launch_bf16<64>(q, k, v, o, B, a, st);
-    case 80: return launch_bf16<80>(q, k, v, o, B, a, st);
-    case 128: return launch_bf16<128>(q, k, v, o, B, a, st);
+    case 32: return launch_bf16<32>(q, k, v, o, lse, B, a, st);
+    case 64: return launch_bf16<64>(q, k, v, o, lse, B, a, st);
+    case 80: return launch_bf16<80>(q, k, v, o, lse, B, a, st);
+    case 128: return launch_bf16<128>(q, k, v, o, lse, B, a, st);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                  int B, int S, int Sk, int H, int KH, int hd, long long q_sb,
-                  long long q_ss, long long q_sh, long long k_sb,
-                  long long k_ss, long long k_sh, long long v_sb,
-                  long long v_ss, long long v_sh, long long o_sb,
-                  long long o_ss, long long o_sh, float scale, int causal,
-                  int window, void* stream) {
+                  void* lse, int B, int S, int Sk, int H, int KH, int hd,
+                  long long q_sb, long long q_ss, long long q_sh,
+                  long long k_sb, long long k_ss, long long k_sh,
+                  long long v_sb, long long v_ss, long long v_sh,
+                  long long o_sb, long long o_ss, long long o_sh,
+                  float scale, int causal, int window, void* stream) {
   if (bad_shape(B, S, Sk, H, KH)) return int(cudaErrorInvalidValue);
   const Args a = make_args(S, Sk, H, KH, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal,
@@ -754,16 +771,16 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
   switch (hd) {
     case 32:
       return launch_f32(flash_fwd_f32_kernel<32>, f32_smem_bytes<32>(), q, k,
-                        v, o, B, a, st);
+                        v, o, lse, B, a, st);
     case 64:
       return launch_f32(flash_fwd_f32_kernel<64>, f32_smem_bytes<64>(), q, k,
-                        v, o, B, a, st);
+                        v, o, lse, B, a, st);
     case 80:
       return launch_f32(flash_fwd_f32_kernel<80>, f32_smem_bytes<80>(), q, k,
-                        v, o, B, a, st);
+                        v, o, lse, B, a, st);
     case 128:
       return launch_f32(flash_fwd_f32_kernel<128>, f32_smem_bytes<128>(), q,
-                        k, v, o, B, a, st);
+                        k, v, o, lse, B, a, st);
     default:
       return int(cudaErrorInvalidValue);
   }

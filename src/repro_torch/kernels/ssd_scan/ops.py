@@ -1,21 +1,34 @@
 """Full SSD = the intra-chunk pieces (the CUDA kernel on CUDA tensors, the
 plain version on CPU tensors and on nothing else) + the linear inter-chunk
 recurrence, which stays plain PyTorch as it stays jnp around the Pallas
-kernel (``repro/kernels/ssd_scan/ops.py``)."""
+kernel (``repro/kernels/ssd_scan/ops.py``).
+
+The kernel has no backward yet (the JAX package never differentiates its
+Pallas SSD kernel either: it trains with ``use_pallas=False``). A call on
+CUDA tensors that needs a gradient raises ``NotImplementedError`` rather
+than return a tensor that would drop it; on CPU tensors the plain version
+differentiates as it is."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import needs_grad
 from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_call as _kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+
+NO_BACKWARD = ("the SSD chunk kernel has no backward yet: training the ssm "
+               "and hybrid families on the card needs the SSD backward "
+               "kernel of ROADMAP.md Queue 1, item 3")
 
 
 def ssd(x, dt, A_log, B_, C_, D_, *, chunk: int = 256, state=None):
     """x: (B, S, nh, hp); dt: (B, S, nh) (post-softplus, fp32); A_log, D_:
     (nh,); B_/C_: (B, S, ns); state: (B, nh, hp, ns) or None.
     Returns (y (B, S, nh, hp) in x's dtype, final_state fp32)."""
+    if x.device.type != "cpu" and needs_grad(x, dt, A_log, B_, C_, D_, state):
+        raise NotImplementedError(NO_BACKWARD)
     B, S, nh, hp = x.shape
     ns = B_.shape[-1]
     cl = min(chunk, S)

@@ -16,6 +16,13 @@ op (the CUDA paged kernel on the card): each layer's dense cache
 block follows every ``attn_every`` Mamba2 layers) runs its SSD through the
 CUDA SSD chunk kernel on the card, at prefill and at decode.
 
+Training differentiates ``forward``: attention through the flash
+kernels' ``FlashAttention`` function, and with ``cfg.remat`` each layer
+is rematerialised in the backward (``_maybe_remat``). On the card only
+the dense family trains: the SSD kernel has no backward yet, and its op
+raises when a gradient is needed (ROADMAP.md Queue 1); on the CPU every
+family differentiates through the plain versions.
+
 The moe, vlm and audio families raise ``NotImplementedError``: they come
 in later slices of the port (ROADMAP.md, Queue 1).
 """
@@ -27,6 +34,7 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -40,7 +48,7 @@ from repro_torch.models.layers import (ParamDef, apply_rope, materialize,
 PAGE_SIZE = 16          # tokens per page of the decode op's pool view
 _CONV = ("conv_x", "conv_b", "conv_c")
 
-_LATER = "ROADMAP.md Queue 1, item 3 (MoE/MLA/vlm/audio)"
+_LATER = "ROADMAP.md Queue 1, item 4 (MoE/MLA/vlm/audio)"
 
 
 def _require_ported(cfg):
@@ -183,15 +191,19 @@ def lm_head(cfg, params, x, dtype):
 # Transformer block (prefill)
 # ---------------------------------------------------------------------------
 
-def _layer(stacked: dict, i: int, cast=None) -> dict:
-    """Views of layer ``i`` of the stacked tree (JAX: one scan step). With
-    ``cast``, fp32 leaves are cast to it (``cfg.bf16_stacked_params``)."""
-    def pick(a):
-        a = a[i]
-        return a.to(cast) if cast is not None and a.dtype == torch.float32 \
-            else a
-    return {k: (_layer(v, i, cast) if isinstance(v, dict) else pick(v))
-            for k, v in stacked.items()}
+def _layers(stacked: dict, cast=None) -> list:
+    """Every layer's views of the stacked tree (JAX: the scan's slices),
+    by one ``unbind`` a leaf: its backward stacks the layers' gradients
+    once, where a ``stacked[i]`` a layer would make each layer's gradient
+    a full stacked-size tensor and sum all of them. With ``cast``, fp32
+    leaves are cast to it (``cfg.bf16_stacked_params``)."""
+    def split(a):
+        return [p.to(cast) if cast is not None and p.dtype == torch.float32
+                else p for p in a.unbind(0)]
+    per_key = {k: _layers(v, cast) if isinstance(v, dict) else split(v)
+               for k, v in stacked.items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
 def _transformer_block(cfg, p, x, cos, sin, dtype, *,
@@ -217,8 +229,23 @@ def _transformer_block(cfg, p, x, cos, sin, dtype, *,
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill; also returns the KV cache)
+# Forward (train & prefill share this; prefill also returns the KV cache)
 # ---------------------------------------------------------------------------
+
+def _maybe_remat(cfg):
+    """How a layer's body runs: with ``cfg.remat`` and grad enabled, under
+    ``torch.utils.checkpoint`` (only the body's inputs are kept; its
+    activations are recomputed in the backward), the counterpart of
+    ``jax.checkpoint(policy=nothing_saveable)`` at
+    ``repro/models/lm.py:231-235``. The JAX package remats the scan body:
+    a layer, or in the hybrid family a group of ``attn_every`` Mamba2
+    layers with the tied block; the port remats each layer and each tied
+    block application, which computes the same values."""
+    if cfg.remat and torch.is_grad_enabled():
+        return lambda fn, *args: torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return lambda fn, *args: fn(*args)
+
 
 def forward(cfg, params, batch, *, collect_cache: bool = False):
     """batch: dict with 'tokens' (B, S).
@@ -238,24 +265,32 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
     if fam != "ssm":
         cos, sin = rope_cos_sin(torch.arange(S, device=x.device), cfg.hd,
                                 cfg.rope_theta)
-    stacked_cast = dtype if cfg.bf16_stacked_params else None
+    layers = _layers(params["layers"],
+                     dtype if cfg.bf16_stacked_params else None)
+    run = _maybe_remat(cfg)
     ks, vs, states, convs = [], [], [], []
 
-    def attend(p, x):
+    def attn_body(p, x):
         x, _, kv = _transformer_block(cfg, p, x, cos, sin, dtype,
                                       collect_cache=collect_cache)
+        return x, kv
+
+    def attend(p, x):
+        x, kv = run(attn_body, p, x)
         if collect_cache:
             ks.append(kv[0])
             vs.append(kv[1])
         return x
 
-    for i in range(cfg.n_layers):
-        p_l = _layer(params["layers"], i, stacked_cast)
+    def mamba_body(p_l, x):
+        y, st, conv = mam.mamba_block(cfg, p_l, x, dtype, return_state=True)
+        return x + y, st, conv
+
+    for i, p_l in enumerate(layers):
         if fam == "dense":
             x = attend(p_l, x)
             continue
-        y, st, conv = mam.mamba_block(cfg, p_l, x, dtype, return_state=True)
-        x = x + y
+        x, st, conv = run(mamba_body, p_l, x)
         states.append(st)
         convs.append(conv)
         if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
@@ -437,8 +472,7 @@ def decode_step(cfg, params, cache, tokens, pos: int):
             want = torch.promote_types(cache[n].dtype, dtype)
             if cache[n].dtype != want:
                 cache[n] = cache[n].to(want)
-    for i in range(cfg.n_layers):
-        p_l = _layer(params["layers"], i)
+    for i, p_l in enumerate(_layers(params["layers"])):
         if fam == "dense":
             x = attend(p_l, x, i)
             continue

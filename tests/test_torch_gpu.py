@@ -13,6 +13,8 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_fwd_ref)
 from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref
@@ -34,6 +36,13 @@ FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
 PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
                 (1, 4, 4, 128, 64, 2),
                 (2, 16, 4, 128, 64, 5)]                # GQA, hd 128, pages of 64
+# the backward: GQA, hd 32-128, a window, S = 513 and S = 130 (not a
+# multiple of the 64-row tiles); lse is fp32 arithmetic in both kernels
+# (the bf16 kernel keeps its max in log2 units): measured <= 9.5e-7
+FLASH_BWD_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 513, 4, 1, 128, 0),
+                    (2, 128, 8, 8, 32, 64), (1, 200, 4, 2, 80, 48),
+                    (2, 130, 4, 4, 64, 0)]
+LSE_TOL = 1e-5
 # B, H, KH, hd, page, nblk: both serving shapes (34 pages of 16) and an nblk
 # that is not a multiple of its split (11 pages -> 6 CTAs of 2)
 PERMUTE_SHAPES = [(4, 32, 32, 64, 16, 34), (4, 32, 32, 80, 16, 34),
@@ -138,6 +147,86 @@ def test_flash_kernel_refuses_misaligned_bf16_rows(cuda):
                     device=cuda)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
         flash_kernel.flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,win", FLASH_BWD_SHAPES)
+def test_flash_lse_and_backward_match_plain(cuda, dtype, B, S, H, KH, hd,
+                                            win):
+    """The forward's lse output against the plain forward's, and the
+    backward kernel against the plain block-recompute backward on the same
+    (q, k, v, o, lse, do); dq/dk/dv come back in the inputs' dtype, after
+    the same fp32 arithmetic (bf16: one rounding apart)."""
+    rng = np.random.default_rng(4)
+    q, do = (_rand(rng, (B, S, H, hd), dtype, cuda) for _ in range(2))
+    k, v = (_rand(rng, (B, S, KH, hd), dtype, cuda) for _ in range(2))
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, window=win,
+                                              with_lse=True)
+    assert torch.equal(o, flash_kernel.flash_attention_fwd(q, k, v,
+                                                           window=win))
+    _, lse_ref = flash_attention_fwd_ref(q, k, v, window=win, q_chunk=64)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    _assert_close(lse, lse_ref, LSE_TOL)
+    before = flash_kernel.flash_attention_bwd.launches
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, window=win)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_bwd.launches == before + 1
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, window=win,
+                                  q_chunk=64)
+    for a, b, x in zip(got, ref, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape
+        _assert_close(a, b, TOLS[dtype])
+
+
+def test_flash_backward_is_deterministic(cuda):
+    """No atomics: two identical calls give the same bits (bf16, GQA)."""
+    rng = np.random.default_rng(5)
+    q, do = (_rand(rng, (2, 384, 8, 64), torch.bfloat16, cuda)
+             for _ in range(2))
+    k, v = (_rand(rng, (2, 384, 2, 64), torch.bfloat16, cuda)
+            for _ in range(2))
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True)
+    a = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    b = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_smoke_train_loop_on_card(cuda, tmp_path):
+    """Two smoke-size TrainLoop steps on the card (head_dim 32: the kernels
+    take no 24) from a ring-backed loader: every layer's attention runs
+    the forward and backward kernels once a step, and the first step's
+    loss is the CPU's within bf16 rounding."""
+    import os
+    from repro_torch.data import RingLoader, TokenStore, \
+        make_synthetic_corpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config("stablelm-1.6b").replace(head_dim=32)
+    path = make_synthetic_corpus(os.path.join(tmp_path, "tok.bin"), 20_000,
+                                 cfg.vocab_size)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    first = next(iter(RingLoader(TokenStore(path), batch=2, seq=64)))
+    _, _, cpu_m = make_train_step(cfg)(
+        params, adamw_init(params),
+        {k: torch.as_tensor(v) for k, v in first.items()})
+    loop = TrainLoop(cfg, TrainLoopConfig(total_steps=2, ckpt_every=100,
+                                          ckpt_dir=str(tmp_path / "ck"),
+                                          log_every=1),
+                     RingLoader(TokenStore(path), batch=2, seq=64),
+                     params=card_params, device=cuda)
+    fwd0 = flash_kernel.flash_attention_fwd.launches
+    bwd0 = flash_kernel.flash_attention_bwd.launches
+    loop.run()
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_fwd.launches - fwd0 == 2 * cfg.n_layers
+    assert flash_kernel.flash_attention_bwd.launches - bwd0 == 2 * cfg.n_layers
+    m0, m1 = loop.metrics_log
+    assert np.isfinite(m1["loss"]) and m1["grad_norm"] > 0
+    np.testing.assert_allclose(m0["loss"], float(cpu_m["loss"]), rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

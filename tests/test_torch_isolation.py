@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the ``repro`` package,
-it serves with JAX unimportable, and its entry points refuse to run
-without a card unless the caller asks for the CPU."""
+it serves and trains with JAX unimportable, and its entry points refuse
+to run without a card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -61,11 +61,46 @@ print("OK")
     assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
 
 
+def test_trains_with_jax_unimportable(tmp_path):
+    """One smoke ``TrainLoop`` step on the CPU from a ring-backed loader,
+    with a ring checkpoint, while any ``import jax`` raises."""
+    code = f"""
+import os, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import numpy as np, torch
+from repro_torch.checkpoint import latest_step
+from repro_torch.configs import get_smoke_config
+from repro_torch.data import RingLoader, TokenStore, make_synthetic_corpus
+from repro_torch.train import TrainLoop, TrainLoopConfig
+cfg = get_smoke_config("stablelm-1.6b")
+path = make_synthetic_corpus(os.path.join({str(tmp_path)!r}, "tok.bin"),
+                             10_000, cfg.vocab_size)
+ckpt = os.path.join({str(tmp_path)!r}, "ckpt")
+loop = TrainLoop(cfg, TrainLoopConfig(total_steps=2, ckpt_every=1,
+                                      ckpt_dir=ckpt, log_every=1),
+                 RingLoader(TokenStore(path), batch=2, seq=16),
+                 device="cpu")
+last = loop.run()
+assert last["step"] == 1 and np.isfinite(last["loss"]), last
+assert latest_step(ckpt) == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("repro", "jaxlib")
+             or (m.startswith("jax") and sys.modules[m] is not None))
+assert not bad, bad
+print("OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
+
+
 def _entry_points():
     from repro_torch import interop, resolve_device
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import lm
     from repro_torch.serve import ServeLoop
+    from repro_torch.train import TrainLoop, TrainLoopConfig
     cfg = get_smoke_config("stablelm-1.6b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
@@ -76,12 +111,13 @@ def _entry_points():
         "ServeLoop": lambda: ServeLoop(cfg, params, max_len=32),
         "params_from_numpy": lambda: interop.params_from_numpy(
             cfg, {k: v for k, v in params.items()}),
+        "TrainLoop": lambda: TrainLoop(cfg, TrainLoopConfig(), iter(())),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_params",
                                   "init_cache", "ServeLoop",
-                                  "params_from_numpy"])
+                                  "params_from_numpy", "TrainLoop"])
 def test_entry_points_need_a_card_unless_asked_for_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
