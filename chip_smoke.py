@@ -11,7 +11,7 @@ Phases (any failure raises, and the script exits nonzero):
    sources (flash attention forward and backward, paged attention, the
    Mamba2 SSD chunk step) from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the compiler's register / shared-memory
-   / spill report;
+   / spill report, with the flash backward's CTA shapes at each head dim;
 2. each kernel against its plain PyTorch version on CUDA tensors: the
    shape sweeps of ``tests/test_kernels.py``, a zero-length decode row, a
    permuted page table (bit-identical output, also at both serving shapes
@@ -26,8 +26,11 @@ Phases (any failure raises, and the script exits nonzero):
    SSD against the plain chunked SSD, the flash forward's lse output and
    the flash backward kernel against the plain forward and block-recompute
    backward (bf16 and fp32, head_dim 32/64/80/128, GQA, a window, S = 513
-   and S = 130), and every kernel at the shapes of the serving and
-   training runs;
+   and S = 130; in bf16 also at the edges of its tiles, Sk != S both
+   ways, windows with GQA 4:1, and strided and misaligned inputs through
+   the wrapper; two calls bit-identical at every shape; the tile rule
+   compiled into its kernels against its mirror in ``ref.py``), and every
+   kernel at the shapes of the serving and training runs;
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
@@ -101,7 +104,7 @@ from repro_torch.kernels import _build                        # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as flash_ops        # noqa
 from repro_torch.kernels.flash_attention.ref import (        # noqa: E402
-    flash_attention_bwd_ref, flash_attention_fwd_ref)
+    flash_attention_bwd_ref, flash_attention_fwd_ref, tile_kinds)
 from repro_torch.kernels.paged_attn import kernel as paged_kernel       # noqa
 from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref  # noqa
@@ -147,6 +150,18 @@ FLASH_BWD_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 513, 4, 1, 128, 0),
                     (2, 128, 8, 8, 32, 64), (1, 200, 4, 2, 80, 48),
                     (2, 130, 4, 4, 64, 0), (1, 513, 8, 2, 64, 100)]
 LSE_TOL = 1e-5
+# the bf16 backward at the edges of its tiles: ragged S around 64-row q
+# tiles and 128-key dK/dV CTAs, Sk != S both ways, windows 48 and 100 with
+# GQA 4:1, hd 80 and 128 (B, S, Sk, H, KH, hd, window)
+FLASH_BWD_EDGES = ([(2, S, S, 4, 2, 64, 0)
+                    for S in (1, 63, 65, 127, 129, 255, 257, 513)]
+                   + [(2, 100, 160, 4, 2, 64, 0), (2, 160, 100, 4, 2, 64, 0),
+                      (1, 129, 300, 4, 4, 64, 0), (1, 300, 129, 4, 4, 64, 0),
+                      (1, 300, 300, 8, 2, 64, 48),
+                      (2, 257, 257, 8, 2, 64, 100),
+                      (2, 257, 257, 8, 2, 80, 0), (1, 300, 300, 4, 2, 80, 48),
+                      (2, 257, 257, 4, 1, 128, 0),
+                      (1, 200, 130, 4, 2, 128, 100)])
 
 # the serving runs: 4 prompts x 512 tokens, 32 new tokens, one per model
 ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m")
@@ -275,6 +290,8 @@ def phase_card_and_build():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"  ptxas[{src}] {line.strip()[:200]}")
+    for hd in flash_kernel.HEAD_DIMS:
+        log(f"  flash bwd bf16 CTAs at hd {hd}: {flash_kernel.plan_bwd(hd)}")
     return name, count, smi_line
 
 
@@ -369,12 +386,15 @@ def check_flash_strided(rng, dev):
         f"misaligned rows refused")
 
 
-def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64):
+def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64,
+                    Sk=None):
     """The forward's lse output against the plain forward's, then the
     backward kernel against the plain block-recompute backward on the
-    same (q, k, v, o, lse, do). Returns the backward's max abs error."""
+    same (q, k, v, o, lse, do), and a second call bit for bit against the
+    first. Returns the backward's max abs error."""
+    Sk = Sk or S
     q, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(2))
-    k, v = (rand(rng, (B, S, KH, hd), dt, dev) for _ in range(2))
+    k, v = (rand(rng, (B, Sk, KH, hd), dt, dev) for _ in range(2))
     o, lse = flash_kernel.flash_attention_fwd(q, k, v, window=win,
                                               with_lse=True)
     if not torch.equal(o, flash_kernel.flash_attention_fwd(q, k, v,
@@ -382,8 +402,8 @@ def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64):
         raise AssertionError("flash forward: writing lse changed the output")
     _, lse_ref = flash_attention_fwd_ref(q, k, v, window=win,
                                          q_chunk=q_chunk)
-    what = f"flash bwd B={B} S={S} H={H} KH={KH} hd={hd} win={win} " \
-        f"{str(dt)[6:]}"
+    what = f"flash bwd B={B} S={S} Sk={Sk} H={H} KH={KH} hd={hd} " \
+        f"win={win} {str(dt)[6:]}"
     e_lse = check_close(what + " lse", lse, lse_ref, LSE_TOL, LSE_TOL)
     got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, window=win)
     ref = flash_attention_bwd_ref(q, k, v, o, lse, do, window=win,
@@ -397,6 +417,46 @@ def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64):
         f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (atol = rtol = "
         f"{TOLS[dt]}); a second call bit-identical")
     return max(errs)
+
+
+def check_flash_bwd_strided(rng, dev):
+    """The bf16 backward through the wrapper on views into wider rows
+    (16-byte aligned: TMA reads them by their strides; rows of hd + 4:
+    copied first) and on tensors whose data starts 2 bytes past an
+    aligned address (copied first): bit for bit the contiguous call's
+    gradients, and within TOLS of the plain backward."""
+    B, S, H, KH, hd = 2, 200, 4, 2, 64
+    dt = torch.bfloat16
+    q, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(2))
+    k, v = (rand(rng, (B, S, KH, hd), dt, dev) for _ in range(2))
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True)
+    want = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, q_chunk=64)
+
+    def padded(t, pad):
+        wide = torch.zeros((*t.shape[:3], hd + pad), dtype=dt, device=dev)
+        wide[..., :hd] = t
+        return wide[..., :hd]
+
+    def shifted(t):                        # data 2 bytes past alignment
+        flat = torch.empty(t.numel() + 1, dtype=dt, device=dev)[1:]
+        return flat.view(t.shape).copy_(t)
+    errs = []
+    for what, make in (("rows of hd + 8", lambda t: padded(t, 8)),
+                       ("rows of hd + 4", lambda t: padded(t, 4)),
+                       ("2-byte offset", shifted)):
+        args = [make(t) for t in (q, k, v, o)] + [lse, make(do)]
+        got = flash_kernel.flash_attention_bwd(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"flash bwd {what}: gradients differ from "
+                                 f"the contiguous call's")
+        errs.append(max(check_close(f"flash bwd {what} d{n}", a, b,
+                                    TOLS[dt], TOLS[dt])
+                        for n, a, b in zip("qkv", got, ref)))
+    log(f"flash bwd strided (rows of {hd} + 8, read by TMA through their "
+        f"strides), misaligned (rows of {hd} + 4; a 2-byte offset; both "
+        f"copied): bit-identical to the contiguous call; vs plain max abs "
+        f"err {max(errs):.3e}")
 
 
 def paged_split_ref(q, kp, vp, table, lens):
@@ -457,6 +517,29 @@ def check_paged_decode_lengths(rng, dev):
         f"versions")
 
 
+def check_tile_rule():
+    """The tile rule as compiled into the bf16 backward kernels against
+    ref.tile_kinds: ragged S and Sk, S != Sk, windows, the kernels' tiles
+    (64 x 64) and others."""
+    n = 0
+    for S in (1, 63, 64, 65, 127, 129, 200, 257, 513):
+        for Sk in (1, 64, 100, 129, 300, 513):
+            for qt, kt in ((64, 64), (64, 128), (128, 64), (16, 32)):
+                for causal in (False, True):
+                    for win in (0, 1, 48, 100, 257):
+                        got = flash_kernel.tile_kinds(S, Sk, qt, kt, causal,
+                                                      win).numpy()
+                        want = tile_kinds(S, Sk, qt, kt, causal, win)
+                        if not np.array_equal(got, want):
+                            raise AssertionError(
+                                f"tile rule {(S, Sk, qt, kt, causal, win)}: "
+                                f"kernel {got.tolist()} != ref "
+                                f"{want.tolist()}")
+                        n += 1
+    log(f"flash bwd tile rule: the kernels' copy equals ref.tile_kinds in "
+        f"{n} cases")
+
+
 def phase_kernels_vs_plain(dev):
     rng = np.random.default_rng(0)
     for B, S, H, KH, hd, win in FLASH_SHAPES:
@@ -477,6 +560,12 @@ def phase_kernels_vs_plain(dev):
     for B, S, H, KH, hd, win in FLASH_BWD_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=win)
+    # the bf16 backward's tile edges (64-row q tiles, 128-key dK/dV CTAs)
+    for B, S, Sk, H, KH, hd, win in FLASH_BWD_EDGES:
+        check_flash_bwd(rng, dev, B, S, H, KH, hd, torch.bfloat16, win=win,
+                        Sk=Sk)
+    check_flash_bwd_strided(rng, dev)
+    check_tile_rule()
 
     for B, H, KH, hd, page, nblk in PAGED_SHAPES:
         for dt, tol in ((torch.float32, PAGED_TOL_F32),
@@ -997,8 +1086,9 @@ def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64):
                 5 * 2 * B * H * hd * pairs, dt)
     log(f"  flash bwd q/k/v/o/do {(B, S, H, hd)} bf16 causal: kernel "
         f"{ms:.4f} ms ({5 * 2 * B * H * hd * pairs / ms / 1e9:.1f} TFLOP/s "
-        f"of the five products), plain {plain_ms:.4f} ms, backward of sdpa "
-        f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        f"of the five products; {flash_kernel.plan_bwd(hd)}), plain "
+        f"{plain_ms:.4f} ms, backward of sdpa {lib_ms:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]})")
     del lib
     return ms, plain_ms, lib_ms, bnd
 
@@ -1077,6 +1167,10 @@ def phase_kernel_times(dev):
         rng, dev, 32, 32, 64, B=TRAIN_B, S=TRAIN_S, with_lse=True)
     free_card()
     out["flash_attention_bwd"] = time_flash_bwd(rng, dev)
+    free_card()
+    time_flash_bwd(rng, dev, hd=80)                   # zamba2-2.7b
+    free_card()
+    time_flash_bwd(rng, dev, H=16, hd=128)
     free_card()
     # the first and last decode steps' lengths: 33 and 34 pages
     time_paged(rng, dev, 32, 32, 64, PROMPT + 1)

@@ -20,44 +20,57 @@
 // dq/dk/dv written once) and needs five causal products, ~344 GFLOP: the
 // data sheet puts it at the bf16 tensor-core bound (~0.35 ms at 989
 // TFLOP/s; 0.08 ms for the bytes). Two sets of kernels, one split:
-//   * bf16 (training): the products on the tensor cores, mma.sync
-//     m16n8k16 with fp32 sums, from bf16 tiles in shared memory read with
-//     ldmatrix; P^T, dS^T and dS are rounded to bf16 as the A operands of
-//     the second products and never leave registers (the forward rounds P
-//     the same way). Simple rather than fast: no pipelining of the tile
-//     loads, 4 warps a CTA; PERF.md has its time beside the bound;
+//   * bf16 (training), laid out as csrc/flash_fwd.cu is: TMA loads from
+//     the tensors' own strides into mbarrier rings fed by a producer warp,
+//     products as wgmma on the tensor cores with fp32 sums (S^T = K Q^T,
+//     dP^T = V dO^T, S = Q K^T, dP = dO V^T from shared memory; dV +=
+//     P^T dO, dK += dS^T Q, dQ += dS K with the A operand in registers).
+//     P^T, dS^T and dS are rounded to bf16 as those A operands and never
+//     leave registers (the forward rounds P the same way). Softmax in log2
+//     units: the pre-pass writes lse log2 e beside D, and scale log2 e is
+//     folded once. Only tiles on the causal diagonal, the window's edge or
+//     the ragged edge test the mask (the tile rule, tile_kind below);
 //   * fp32: scalar fp32 FMAs out of shared memory (bound by shared-memory
 //     issue), which keeps full fp32 accuracy.
 //
 // Design (the common FlashAttention-2 split, deterministic: no atomics,
 // every sum in a fixed order, so two calls give the same bits):
-//   * flash_bwd_dot_kernel: D = rowsum(do * o), one warp a (b, s, h) row;
-//   * flash_bwd_dkdv_kernel: one CTA per (k tile of 64 keys, KV head, b)
-//     keeps its K and V tiles in shared memory and dK/dV in registers,
-//     and loops over the G query heads of its KV head and, for each, over
-//     the 64-row q tiles that meet the causal / window mask of its keys:
-//     it recomputes S and dP for the (q tile x k tile), forms P and dS in
-//     shared memory, and accumulates dV += P^T dO and dK += dS^T Q;
-//   * flash_bwd_dq_kernel: one CTA per (q tile, q head, b) keeps Q, dO,
-//     lse and D of its rows and dQ in registers, and loops over the k tiles
-//     that meet its mask (the rule of the forward), recomputing S, dP and
-//     dS and accumulating dQ += dS K.
+//   * a pre-pass: D = rowsum(do * o) (flash_bwd_dot_kernel: fp32, one warp
+//     a (b, s, h) row; flash_bwd_prep_bf16_kernel: bf16, 8 lanes a row,
+//     with lse log2 e beside D);
+//   * dK/dV: one CTA per (k tile, KV head, b) keeps its K and V in shared
+//     memory and dK/dV in registers, and loops over the G query heads of
+//     its KV head and, for each, over the 64-row q tiles that meet the
+//     causal / window mask of its keys: it recomputes S^T and dP^T for the
+//     (k tile x q tile), forms P^T and dS^T, and accumulates dV += P^T dO
+//     and dK += dS^T Q. bf16 (flash_bwd_dkdv_wgmma_kernel): 128 keys, two
+//     consumer warpgroups of 64 keys each reading the same ring stage of
+//     Q/dO/lse/D, and a producer warpgroup; fp32: 64 keys, 256 threads;
+//   * dQ: one CTA per (q tile, q head, b) keeps Q, dO, lse and D of its
+//     rows and dQ, and loops over the k tiles that meet its mask (the rule
+//     of the forward), recomputing S, dP and dS and accumulating dQ += dS
+//     K. bf16 (flash_bwd_dq_wgmma_kernel): one consumer warpgroup of 64
+//     rows and a producer warp with a ring of K/V tiles, the forward's CTA.
 // S and dP are computed twice (once per kernel): 7 products instead of 5,
 // the price of no atomics. Tiles that the mask discards entirely are never
-// visited; rows >= S and keys >= Sk are masked (p = 0) and not stored.
-// Heavy tiles launch first (early k tiles; late q tiles). In the fp32
-// kernels a thread of the 256 owns a 4 x 4 block of each 64 x 64 score
-// tile (rows ty + 16 i, keys tx + 16 j) and 4 x hd/16 of each output tile;
-// tiles are fp32 in shared memory with odd row strides (hd + 1), so no
-// warp's loads conflict. In the bf16 kernels each of 4 warps owns 16 rows
-// (keys for dK/dV, q rows for dQ) of the CTA's 64 and every 64-wide tile
-// it meets.
+// computed; rows >= S and keys >= Sk are masked (p = 0) and not stored.
+// Heavy tiles launch first (early k tiles; late q tiles). The bf16 kernels
+// serve head dims 32, 64, 80 (64 + 16 column blocks) and 128; the CTA
+// shapes and ring depths were chosen by timing on the card (PERF.md) and
+// are compile-time constants below. In the fp32 kernels a thread of the
+// 256 owns a 4 x 4 block of each 64 x 64 score tile (rows ty + 16 i, keys
+// tx + 16 j) and 4 x hd/16 of each output tile; tiles are fp32 in shared
+// memory with odd row strides (hd + 1), so no warp's loads conflict.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -377,434 +390,706 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same split on the tensor cores (mma.sync m16n8k16)
+// bf16: TMA-fed tile rings and wgmma (the layout of csrc/flash_fwd.cu)
 // ---------------------------------------------------------------------------
 //
-// Fragment layouts (PTX ISA, mma .m16n8k16, bf16 inputs, fp32 sums): with
-// g = lane / 4 and t = lane % 4, an accumulator holds (row g, cols 2t,
-// 2t + 1) and (row g + 8, the same cols) of its 16 x 8 tile. Two
-// neighbouring 8-column tiles of an accumulator, packed to bf16, are
-// exactly the A fragment of a product over those 16 columns, so P^T, dS^T
-// and dS never leave registers. Tiles are bf16 in shared memory with rows
-// of hd + 8 elements (16-byte aligned, no ldmatrix bank conflicts).
+// The helpers (TMA, mbarriers, wgmma, column blocks, fragment layouts) are
+// csrc/hopper.cuh's. P^T, dS^T and dS are packed from their accumulators
+// straight into the register A operands of the second products, so they
+// never leave registers.
+//
+// Every bf16 tile in shared memory is 64 rows (q rows or keys) of hd
+// columns, written by TMA from the tensor's own strides, in column blocks
+// of one swizzle width each (a row of 128, 64 or 32 bytes): hd 32 = 32;
+// 64 = 64; 80 = 64 + 16; 128 = 64 + 64. Block c of a tile sits at byte
+// 64 * off(c) * 2. As a K-major operand (the first products: Q, K, V, dO
+// with hd the reduced dimension) a k-step is 16 columns inside a block; as
+// the MN-major B operand (the second products: dO, Q, K with the rows
+// reduced) a k-step is 16 rows of every block.
 
-constexpr int M_ROWS = 64;        // keys (dK/dV) or q rows (dQ) a CTA
-constexpr int M_THREADS = 128;    // 4 warps of 16 rows each
+constexpr int T_ROWS = 64;                 // rows of a tile, and of a wgmma M
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// The CTA shapes and ring depths, chosen by timing on the card (PERF.md):
+//   * dK/dV: 128 keys, two consumer warpgroups of 64 keys each and a
+//     producer warpgroup (one thread of it issues the loads), so that
+//     setmaxnreg can move registers from it to the consumers: 3 x 128
+//     threads launch at 168 registers each, then hold 24 (producer) and
+//     240 (consumers); a ring of 2 Q/dO/lse/D stages;
+//   * dQ: 64 rows, one consumer warpgroup and a producer warp (the
+//     forward's CTA); a ring of 3 K/V stages.
+constexpr int KV_KEYS = 2 * T_ROWS;
+constexpr int KV_THREADS = 3 * 128;
+constexpr int KV_STAGES = 2;
+constexpr int Q_THREADS = 128 + 32;
+constexpr int Q_STAGES = 3;
+
+// The tile rule, mirrored by tile_kinds in kernels/flash_attention/ref.py:
+// a tile of q rows q0 .. q0 + nq - 1 and keys k0 .. k0 + nk - 1 is
+// skipped when no (row, key) pair in it is allowed (rows >= S and keys >=
+// Sk are never allowed), interior when every pair is allowed and in range
+// (no mask test), and an edge otherwise (each pair tested).
+enum TileKind { TILE_SKIPPED = 0, TILE_INTERIOR = 1, TILE_EDGE = 2 };
+
+__host__ __device__ __forceinline__ int tile_kind(const Args& a, int q0,
+                                                  int nq, int k0, int nk) {
+  const int q_last = (q0 + nq < a.S ? q0 + nq : a.S) - 1;
+  const int k_last = (k0 + nk < a.Sk ? k0 + nk : a.Sk) - 1;
+  if (q_last < q0 || k_last < k0) return TILE_SKIPPED;
+  if (a.causal && k0 > q_last) return TILE_SKIPPED;
+  if (a.window && k_last <= q0 - a.window) return TILE_SKIPPED;
+  const bool interior = q0 + nq <= a.S && k0 + nk <= a.Sk &&
+                        (!a.causal || k0 + nk - 1 <= q0) &&
+                        (!a.window || k0 > q0 + nq - 1 - a.window);
+  return interior ? TILE_INTERIOR : TILE_EDGE;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+struct TmaMaps {                           // one box shape per column block
+  CUtensorMap q[2], k[2], v[2], dout[2];
+};
+
+// a plain copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// c (16 x 8, fp32) += a (16 x 16, bf16) b (16 x 8, bf16)
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// the packed A operands of products still in flight stay where they are
+template <int N>
+__device__ __forceinline__ void fence_a(uint32_t (*p)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(p[i][j])::"memory");
 }
 
-// the A fragment of columns 16 kk .. 16 kk + 15 of an accumulator row block
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*c)[4],
-                                         int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// lane's address for an A fragment (rows r0 .. r0 + 15, cols c0 .. c0 + 15)
-// of a row-major tile, or for two B fragments (n tiles n0, n0 + 8; k cols
-// c0 .. c0 + 15) of a tile stored n-major (B = the tile's transpose)
-template <int LD>
-__device__ __forceinline__ const __nv_bfloat16* a_addr(
-    const __nv_bfloat16* tile, int r0, int c0, int lane) {
-  return tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
-}
-template <int LD>
-__device__ __forceinline__ const __nv_bfloat16* b_addr(
-    const __nv_bfloat16* tile, int n0, int c0, int lane) {
-  const int mi = lane >> 3;
-  return tile + (n0 + (mi >> 1) * 8 + (lane & 7)) * LD + c0 + (mi & 1) * 8;
-}
-// two B fragments (n tiles n0, n0 + 8; k rows k0 .. k0 + 15) of a tile
-// stored k-major, read with ldmatrix.trans
-template <int LD>
-__device__ __forceinline__ const __nv_bfloat16* bt_addr(
-    const __nv_bfloat16* tile, int k0, int n0, int lane) {
-  const int mi = lane >> 3;
-  return tile + (k0 + (mi & 1) * 8 + (lane & 7)) * LD + n0 + (mi >> 1) * 8;
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// 64 rows of HD bf16 from row r0 of a (rows, HD) view with row stride ss
-// into shared memory (row stride HD + 8), 16 bytes a load; rows >= limit
-// are zeros
 template <int HD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* base,
-                                               long long ss, int r0,
-                                               int limit) {
-  constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < M_ROWS * CH; i += M_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int g = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (g < limit) val = *reinterpret_cast<const uint4*>(base + g * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * (HD + 8) + c) = val;
+struct Tile {
+  using C = Cols<HD>;
+  static constexpr int BYTES = T_ROWS * HD * 2;
+
+  // every column block of 64 rows from (row, head, b) of a map
+  __device__ static void load(uint32_t tile, const CUtensorMap* maps,
+                              uint32_t bar, int head, int row, int b) {
+#pragma unroll
+    for (int c = 0; c < C::NB; ++c)
+      tma_load_4d(tile + T_ROWS * C::off(c) * 2, &maps[c], bar, C::off(c),
+                  head, row, b);
+  }
+};
+
+// d (64 x 64) = a b^T over hd: both tiles K-major, 16 columns a step
+template <int HD>
+__device__ __forceinline__ void ss_product(float* d, uint32_t a, uint32_t b) {
+  using C = Cols<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c = (16 * kk) / 64;
+    const int rb = C::width(c) * 2;
+    const uint32_t at = T_ROWS * C::off(c) * 2 + (16 * kk - C::off(c)) * 2;
+    wgmma_ss_n64(d, gmma_desc(a + at, rb), gmma_desc(b + at, rb), kk > 0);
   }
 }
 
-__device__ __forceinline__ void load_rows_m(float* lse_s, float* D_s,
-                                            const float* lb, const float* Db,
-                                            int r0, int S) {
-  for (int i = threadIdx.x; i < M_ROWS; i += M_THREADS) {
-    const int g = r0 + i;
-    lse_s[i] = g < S ? lb[g] : 0.f;
-    D_s[i] = g < S ? Db[g] : 0.f;
+// acc (64 x hd) += p (64 x 64, packed bf16 registers) b (a tile read
+// MN-major, 16 of its rows a step)
+template <int HD>
+__device__ __forceinline__ void rs_product(float* acc, const uint32_t (*p)[4],
+                                           uint32_t b) {
+  using C = Cols<HD>;
+  constexpr int rb0 = C::width(0) * 2, rb1 = C::width(1) * 2;
+#pragma unroll
+  for (int kc = 0; kc < T_ROWS / 16; ++kc) {
+    wgmma_rs<C::width(0)>(acc, p[kc], gmma_desc(b + 16 * kc * rb0, rb0));
+    if constexpr (C::NB == 2)
+      wgmma_rs<C::width(1)>(
+          acc + C::off(1) / 2, p[kc],
+          gmma_desc(b + T_ROWS * C::off(1) * 2 + 16 * kc * rb1, rb1));
+  }
+}
+
+// the A fragments of a 64 x 64 accumulator, 16 columns each
+__device__ __forceinline__ void pack_a(uint32_t (*p)[4], const float* s) {
+#pragma unroll
+  for (int kc = 0; kc < T_ROWS / 16; ++kc) {
+    const float* s0 = s + 8 * kc;          // columns 16kc .. 16kc + 7
+    const float* s1 = s0 + 4;              // columns 16kc + 8 .. 16kc + 15
+    p[kc][0] = pack_bf16(s0[0], s0[1]);
+    p[kc][1] = pack_bf16(s0[2], s0[3]);
+    p[kc][2] = pack_bf16(s1[0], s1[1]);
+    p[kc][3] = pack_bf16(s1[2], s1[3]);
+  }
+}
+
+// a 64 x hd accumulator as bf16 rows row_a and row_a + 8 (each if < n) of
+// base, rows rs elements apart
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long rs,
+                                           const float* acc, int row_a,
+                                           int n, int t) {
+  using C = Cols<HD>;
+#pragma unroll
+  for (int c = 0; c < C::NB; ++c) {
+#pragma unroll
+    for (int j = 0; j < C::width(c) / 8; ++j) {
+      const float* r = acc + C::off(c) / 2 + 4 * j;
+      const int col = C::off(c) + 8 * j + 2 * t;
+      if (row_a < n)
+        *reinterpret_cast<__nv_bfloat162*>(base + row_a * rs + col) =
+            __floats2bfloat162_rn(r[0], r[1]);
+      if (row_a + 8 < n)
+        *reinterpret_cast<__nv_bfloat162*>(base + (row_a + 8) * rs + col) =
+            __floats2bfloat162_rn(r[2], r[3]);
+    }
   }
 }
 
 template <int HD>
-constexpr size_t mma_smem_bytes() {      // four bf16 tiles, lse, D
-  return 4 * size_t(M_ROWS) * (HD + 8) * 2 + 2 * M_ROWS * sizeof(float);
+constexpr size_t dkdv_wg_smem_bytes() {    // K, V; the ring; barriers
+  return 1024 + size_t(4) * Tile<HD>::BYTES +
+         size_t(KV_STAGES) * (2 * Tile<HD>::BYTES + 1024) +
+         8 * (2 * KV_STAGES + 1);
 }
 
-// one CTA per (k tile of 64 keys, KV head, b); warp w owns keys 16 w ..
-// 16 w + 15 of the tile and works in the transposed orientation:
-// S^T = K Q^T and dP^T = V dO^T (16 keys x 64 q rows), then
-// dV += P^T dO and dK += dS^T Q
 template <int HD>
-__global__ void __launch_bounds__(M_THREADS)
-flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ D,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, Args a) {
-  constexpr int LD = HD + 8, NT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + M_ROWS * LD;
-  __nv_bfloat16* Qs = Vs + M_ROWS * LD;
-  __nv_bfloat16* dOs = Qs + M_ROWS * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + M_ROWS * LD);
-  float* D_s = lse_s + M_ROWS;
+constexpr size_t dq_wg_smem_bytes() {      // Q, dO; the ring; barriers
+  return 1024 + size_t(2) * Tile<HD>::BYTES +
+         size_t(Q_STAGES) * 2 * Tile<HD>::BYTES + 8 * (2 * Q_STAGES + 1);
+}
+
+// P^T of a 64-key x 64-row tile in place of S^T: p = exp2(s scale
+// log2 e - lse log2 e). This thread's keys are its rows key_a, key_a + 8,
+// its q rows the columns q0 + 8j + 2t (+1), whose lse log2 e l2 holds. On
+// an edge tile each pair is tested.
+template <bool EDGE>
+__device__ __forceinline__ void probs_t(const Args& a, float* st,
+                                        const float* l2, float scale2,
+                                        int q0, int key_a, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 lv = *reinterpret_cast<const float2*>(l2 + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(st[4 * j + e] * scale2 - ((e & 1) ? lv.y : lv.x));
+      if (EDGE && !allowed(a, q0 + 8 * j + 2 * t + (e & 1),
+                           key_a + 8 * (e >> 1)))
+        p = 0.f;
+      st[4 * j + e] = p;
+    }
+  }
+}
+
+// dS^T = P^T (dP^T - D) scale in place of dP^T (D of the columns' rows)
+__device__ __forceinline__ void dgrad_t(const float* pt, float* dpt,
+                                        const float* Dr, float scale,
+                                        int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 dv = *reinterpret_cast<const float2*>(Dr + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[4 * j + e] = pt[4 * j + e] *
+                       (dpt[4 * j + e] - ((e & 1) ? dv.y : dv.x)) * scale;
+  }
+}
+
+// P of a 64-row x 64-key tile in place of S: this thread's q rows are
+// row_a, row_a + 8 (their lse log2 e in l2), its keys the columns
+// k0 + 8j + 2t (+1)
+template <bool EDGE>
+__device__ __forceinline__ void probs(const Args& a, float* s,
+                                      const float* l2, float scale2,
+                                      int row_a, int k0, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(s[4 * j + e] * scale2 - l2[e >> 1]);
+      if (EDGE && !allowed(a, row_a + 8 * (e >> 1),
+                           k0 + 8 * j + 2 * t + (e & 1)))
+        p = 0.f;
+      s[4 * j + e] = p;
+    }
+}
+
+// the bf16 pre-pass: D = rowsum(do * o) and lse log2 e, written (B, H, ld)
+// with rows S .. ld - 1 zero, so that a tile's rows are one aligned
+// 256-byte copy; 8 lanes a (b, s, h) row, 16 bytes a load (the wrapper
+// makes the rows of o and do 16-byte aligned)
+__global__ void flash_bwd_prep_bf16_kernel(const __nv_bfloat16* __restrict__ o,
+                                           const __nv_bfloat16* __restrict__ dout,
+                                           const float* __restrict__ lse,
+                                           float* __restrict__ D,
+                                           float* __restrict__ L2, Args a,
+                                           int hd, int ld) {
+  const long long row =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 3;
+  const int sub = threadIdx.x & 7;
+  const bool valid = row < (long long)a.B * ld * a.H;
+  const int h = int(row % a.H);
+  const int s = int((row / a.H) % ld);
+  const int b = int(row / ((long long)a.H * ld));
+  float acc = 0.f;
+  if (valid && s < a.S) {
+    const __nv_bfloat16* ob = o + b * a.o_sb + s * a.o_ss + h * a.o_sh;
+    const __nv_bfloat16* db = dout + b * a.do_sb + s * a.do_ss + h * a.do_sh;
+    for (int d = 8 * sub; d < hd; d += 64) {
+      const uint4 x = *reinterpret_cast<const uint4*>(ob + d);
+      const uint4 y = *reinterpret_cast<const uint4*>(db + d);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 xf = __bfloat1622float2(xp[i]);
+        const float2 yf = __bfloat1622float2(yp[i]);
+        acc = fmaf(xf.x, yf.x, acc);
+        acc = fmaf(xf.y, yf.y, acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (valid && sub == 0) {
+    const long long out = ((long long)b * a.H + h) * ld + s;
+    D[out] = s < a.S ? acc : 0.f;
+    L2[out] = s < a.S ? lse[((long long)b * a.H + h) * a.S + s] * LOG2E : 0.f;
+  }
+}
+
+// one CTA per (128 keys, KV head, b): two consumer warpgroups of 64 keys
+// and a producer warpgroup. K and V of the CTA's keys arrive once; the
+// producer streams, for each of the G query heads, the 64-row q tiles that
+// meet the keys' mask through a ring of KV_STAGES stages (Q, dO, and the
+// rows' lse log2 e and D). Each warpgroup computes S^T = K Q^T and
+// dP^T = V dO^T (SS), P^T and dS^T in registers, then dV += P^T dO and
+// dK += dS^T Q (RS); both warpgroups read the same stage.
+template <int HD>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ TmaMaps maps,
+                            const float* __restrict__ L2,
+                            const float* __restrict__ Dd,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, const Args a,
+                            int s_pad) {
+  constexpr int TB = Tile<HD>::BYTES;
+  constexpr int STAGE = 2 * TB + 1024;     // Q, dO, lse log2 e and D
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t v_s = k_s + 2 * TB;
+  const uint32_t ring = v_s + 2 * TB;
+  const uint32_t bars = ring + KV_STAGES * STAGE;
+  const uint32_t kv_bar = bars + 16 * KV_STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (KV_STAGES + s); };
+  const unsigned char* smem_base =
+      smem_raw + (ring - smem_u32(smem_raw));   // generic view of the ring
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int kh = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * M_ROWS;      // early keys (most work) first
-  const int kw = warp * 16;                // this warp's keys in the tile
+  // early keys (the most q tiles) first
+  const int k0 = blockIdx.x * KV_KEYS;
   const int G = a.H / a.KH;
-  load_tile_bf16<HD>(Ks, k + b * a.k_sb + kh * a.k_sh, a.k_ss, k0, a.Sk);
-  load_tile_bf16<HD>(Vs, v + b * a.v_sb + kh * a.v_sh, a.v_ss, k0, a.Sk);
+  // the q tiles that meet the mask of keys k0 .. k_last (the tile rule at
+  // 64 rows x the CTA's keys: every other tile is skipped)
+  const int k_last = min(k0 + KV_KEYS, a.Sk) - 1;
+  const int it_lo = a.causal ? k0 / T_ROWS : 0;
+  int it_hi = (a.S + T_ROWS - 1) / T_ROWS - 1;
+  if (a.window) it_hi = min(it_hi, (k_last + a.window - 1) / T_ROWS);
 
-  const int k_last = min(k0 + M_ROWS, a.Sk) - 1;
-  const int it_lo = a.causal ? k0 / M_ROWS : 0;
-  int it_hi = (a.S + M_ROWS - 1) / M_ROWS - 1;
-  if (a.window) it_hi = min(it_hi, (k_last + a.window - 1) / M_ROWS);
-
-  float dk_acc[NT][4], dv_acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  for (int gh = 0; gh < G; ++gh) {
-    const int h = kh * G + gh;
-    const __nv_bfloat16* qb = q + b * a.q_sb + h * a.q_sh;
-    const __nv_bfloat16* dob = dout + b * a.do_sb + h * a.do_sh;
-    const float* lb = lse + ((long long)b * a.H + h) * a.S;
-    const float* Db = D + ((long long)b * a.H + h) * a.S;
-    for (int it = it_lo; it <= it_hi; ++it) {
-      const int q0 = it * M_ROWS;
-      __syncthreads();                     // the previous tile is consumed
-      load_tile_bf16<HD>(Qs, qb, a.q_ss, q0, a.S);
-      load_tile_bf16<HD>(dOs, dob, a.do_ss, q0, a.S);
-      load_rows_m(lse_s, D_s, lb, Db, q0, a.S);
-      __syncthreads();
-
-      float st[8][4], dpt[8][4];           // 16 keys x 64 q rows
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        ldsm_x4(ka, a_addr<LD>(Ks, kw, 16 * kk, lane));
-        ldsm_x4(va, a_addr<LD>(Vs, kw, 16 * kk, lane));
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t qf[4], of[4];
-          ldsm_x4(qf, b_addr<LD>(Qs, 16 * np, 16 * kk, lane));
-          ldsm_x4(of, b_addr<LD>(dOs, 16 * np, 16 * kk, lane));
-          mma16816(st[2 * np], ka, qf[0], qf[1]);
-          mma16816(st[2 * np + 1], ka, qf[2], qf[3]);
-          mma16816(dpt[2 * np], va, of[0], of[1]);
-          mma16816(dpt[2 * np + 1], va, of[2], of[3]);
-        }
-      }
-
-      // P^T and dS^T in place (masked entries 0)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * j + 2 * t + (e & 1);
-          const int key = k0 + kw + g + (e >> 1) * 8;
-          const float p = allowed(a, q0 + qi, key)
-                              ? expf(st[j][e] * a.scale - lse_s[qi])
-                              : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - D_s[qi]) * a.scale;
-        }
-
-      // dV += P^T dO, dK += dS^T Q over the 64 q rows, 16 at a time
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t pa[4], sa[4];
-        acc_to_a(pa, st, kk);
-        acc_to_a(sa, dpt, kk);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t of[4], qf[4];
-          ldsm_x4_trans(of, bt_addr<LD>(dOs, 16 * kk, 16 * np, lane));
-          ldsm_x4_trans(qf, bt_addr<LD>(Qs, 16 * kk, 16 * np, lane));
-          mma16816(dv_acc[2 * np], pa, of[0], of[1]);
-          mma16816(dv_acc[2 * np + 1], pa, of[2], of[3]);
-          mma16816(dk_acc[2 * np], sa, qf[0], qf[1]);
-          mma16816(dk_acc[2 * np + 1], sa, qf[2], qf[3]);
-        }
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);              // one arrival a consumer warp
     }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int gk = k0 + kw + g + 8 * half;
-    if (gk >= a.Sk) continue;
-    const long long row = ((long long)b * a.Sk + gk) * a.KH + kh;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int d = 8 * j + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(dk + row * HD + d) =
-          __floats2bfloat162_rn(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + row * HD + d) =
-          __floats2bfloat162_rn(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+  if (warp >= 8) {
+    // producer: K and V, then Q/dO/lse/D stages as the ring frees them
+    setmaxnreg_dec<24>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(kv_bar, 4 * TB);
+      for (int w = 0; w < 2; ++w) {
+        Tile<HD>::load(k_s + w * TB, maps.k, kv_bar, kh, k0 + T_ROWS * w, b);
+        Tile<HD>::load(v_s + w * TB, maps.v, kv_bar, kh, k0 + T_ROWS * w, b);
+      }
+      int i = 0;
+      for (int gh = 0; gh < G; ++gh) {
+        const int h = kh * G + gh;
+        const float* l2 = L2 + ((long long)b * a.H + h) * s_pad;
+        const float* dd = Dd + ((long long)b * a.H + h) * s_pad;
+        for (int it = it_lo; it <= it_hi; ++it, ++i) {
+          const int s = i % KV_STAGES;
+          if (i >= KV_STAGES) mbar_wait(empty(s), ((i / KV_STAGES) - 1) & 1);
+          mbar_expect_tx(full(s), 2 * TB + 512);
+          const uint32_t st = ring + s * STAGE;
+          Tile<HD>::load(st, maps.q, full(s), h, it * T_ROWS, b);
+          Tile<HD>::load(st + TB, maps.dout, full(s), h, it * T_ROWS, b);
+          bulk_load(st + 2 * TB, l2 + it * T_ROWS, 256, full(s));
+          bulk_load(st + 2 * TB + 256, dd + it * T_ROWS, 256, full(s));
+        }
+      }
     }
+  } else {
+    setmaxnreg_inc<240>();
+    const int wg = warp >> 2, wi = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw = k0 + T_ROWS * wg;       // this warpgroup's first key
+    const int key_a = kw + 16 * wi + g;    // this thread's two keys
+    const uint32_t my_k = k_s + wg * TB, my_v = v_s + wg * TB;
+    const float scale2 = a.scale * LOG2E;
+
+    float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+    for (int n = 0; n < HD / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+    mbar_wait(kv_bar, 0);
+
+    int i = 0;
+    for (int gh = 0; gh < G; ++gh) {
+      for (int it = it_lo; it <= it_hi; ++it, ++i) {
+        const int s = i % KV_STAGES;
+        const int q0 = it * T_ROWS;
+        mbar_wait(full(s), (i / KV_STAGES) & 1);
+        __syncwarp();                      // wgmma wants converged warps
+        const int kind = tile_kind(a, q0, T_ROWS, kw, T_ROWS);
+        if (kind != TILE_SKIPPED) {
+          const uint32_t q_t = ring + s * STAGE, do_t = q_t + TB;
+          const float* l2 = reinterpret_cast<const float*>(
+              smem_base + s * STAGE + 2 * TB);
+          float st[32], dpt[32];
+#pragma unroll
+          for (int n = 0; n < 32; ++n) st[n] = dpt[n] = 0.f;
+          wgmma_fence();
+          ss_product<HD>(st, my_k, q_t);   // S^T = K Q^T
+          wgmma_commit();
+          ss_product<HD>(dpt, my_v, do_t); // dP^T = V dO^T
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs<32>(st);
+          if (kind == TILE_EDGE)
+            probs_t<true>(a, st, l2, scale2, q0, key_a, t);
+          else
+            probs_t<false>(a, st, l2, scale2, q0, key_a, t);
+          wgmma_wait<0>();
+          fence_regs<32>(dpt);
+          dgrad_t(st, dpt, l2 + 64, a.scale, t);
+          uint32_t pa[4][4], sa[4][4];
+          pack_a(pa, st);
+          pack_a(sa, dpt);
+          wgmma_fence();
+          rs_product<HD>(dv_acc, pa, do_t);  // dV += P^T dO
+          rs_product<HD>(dk_acc, sa, q_t);   // dK += dS^T Q
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<HD / 2>(dv_acc);
+          fence_regs<HD / 2>(dk_acc);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));  // the stage may be refilled
+      }
+    }
+
+    const long long rs = (long long)a.KH * HD;
+    const long long base = ((long long)b * a.Sk * a.KH + kh) * HD;
+    store_rows<HD>(dk + base, rs, dk_acc, key_a, a.Sk, t);
+    store_rows<HD>(dv + base, rs, dv_acc, key_a, a.Sk, t);
   }
 }
 
-// one CTA per (q tile of 64 rows, q head, b); warp w owns q rows 16 w ..
-// 16 w + 15, keeps their Q and dO as A fragments, and loops over the k
-// tiles: S = Q K^T, dP = dO V^T (16 rows x 64 keys), dQ += dS K
+// one CTA per (64 q rows, q head, b): one consumer warpgroup and a
+// producer warp. Q, dO of the CTA's rows arrive once (lse log2 e and D of
+// a thread's two rows are read into registers); the producer keeps a ring
+// of Q_STAGES K/V tiles of 64 keys in flight. The warpgroup computes
+// S = Q K^T and dP = dO V^T (SS), dS in registers, then dQ += dS K (RS).
 template <int HD>
-__global__ void __launch_bounds__(M_THREADS)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ D,
-                        __nv_bfloat16* __restrict__ dq, Args a) {
-  constexpr int LD = HD + 8, NT = HD / 8, KS = HD / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + M_ROWS * LD;
-  __nv_bfloat16* Ks = dOs + M_ROWS * LD;
-  __nv_bfloat16* Vs = Ks + M_ROWS * LD;
-  float* lse_s = reinterpret_cast<float*>(Vs + M_ROWS * LD);
-  float* D_s = lse_s + M_ROWS;
+__global__ void __launch_bounds__(Q_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ TmaMaps maps,
+                          const float* __restrict__ L2,
+                          const float* __restrict__ Dd,
+                          __nv_bfloat16* __restrict__ dq, const Args a,
+                          int s_pad) {
+  constexpr int TB = Tile<HD>::BYTES;
+  constexpr int STAGE = 2 * TB;            // K, V
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + TB;
+  const uint32_t ring = do_s + TB;
+  const uint32_t bars = ring + Q_STAGES * STAGE;
+  const uint32_t q_bar = bars + 16 * Q_STAGES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (Q_STAGES + s); };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.H / a.KH);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * M_ROWS;   // late rows first
-  const int qw = warp * 16;
-  const __nv_bfloat16* kb = k + b * a.k_sb + kh * a.k_sh;
-  const __nv_bfloat16* vb = v + b * a.v_sb + kh * a.v_sh;
-  load_tile_bf16<HD>(Qs, q + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-  load_tile_bf16<HD>(dOs, dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0,
-                     a.S);
-  load_rows_m(lse_s, D_s, lse + ((long long)b * a.H + h) * a.S,
-              D + ((long long)b * a.H + h) * a.S, q0, a.S);
-  __syncthreads();
-  uint32_t qa[KS][4], oa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    ldsm_x4(qa[kk], a_addr<LD>(Qs, qw, 16 * kk, lane));
-    ldsm_x4(oa[kk], a_addr<LD>(dOs, qw, 16 * kk, lane));
+  // late rows (the most k tiles) first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * T_ROWS;
+  // the k tiles that meet the mask of rows q0 .. q_last
+  const int q_last = min(q0 + T_ROWS, a.S) - 1;
+  int j_lo = 0, j_hi = (a.Sk + T_ROWS - 1) / T_ROWS - 1;
+  if (a.causal) j_hi = min(j_hi, q_last / T_ROWS);
+  if (a.window && q0 - a.window + 1 > 0) j_lo = (q0 - a.window + 1) / T_ROWS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Q_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const float lse_r[2] = {lse_s[qw + g], lse_s[qw + g + 8]};
-  const float D_r[2] = {D_s[qw + g], D_s[qw + g + 8]};
+  __syncthreads();
 
-  const int q_last = min(q0 + M_ROWS, a.S) - 1;
-  int j_lo = 0, j_hi = (a.Sk + M_ROWS - 1) / M_ROWS - 1;
-  if (a.causal) j_hi = min(j_hi, q_last / M_ROWS);
-  if (a.window && q0 - a.window + 1 > 0)
-    j_lo = (q0 - a.window + 1) / M_ROWS;
-
-  float dq_acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-
-  for (int jt = j_lo; jt <= j_hi; ++jt) {
-    const int k0 = jt * M_ROWS;
-    __syncthreads();                       // the previous tile is consumed
-    load_tile_bf16<HD>(Ks, kb, a.k_ss, k0, a.Sk);
-    load_tile_bf16<HD>(Vs, vb, a.v_ss, k0, a.Sk);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];               // 16 q rows x 64 keys
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4(kf, b_addr<LD>(Ks, 16 * np, 16 * kk, lane));
-        ldsm_x4(vf, b_addr<LD>(Vs, 16 * np, 16 * kk, lane));
-        mma16816(s[2 * np], qa[kk], kf[0], kf[1]);
-        mma16816(s[2 * np + 1], qa[kk], kf[2], kf[3]);
-        mma16816(dp[2 * np], oa[kk], vf[0], vf[1]);
-        mma16816(dp[2 * np + 1], oa[kk], vf[2], vf[3]);
-      }
-
-    // dS in place of S (masked entries 0)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t + (e & 1);
-        const int gq = q0 + qw + g + (e >> 1) * 8;
-        const float p = allowed(a, gq, key)
-                            ? expf(s[j][e] * a.scale - lse_r[e >> 1])
-                            : 0.f;
-        s[j][e] = p * (dp[j][e] - D_r[e >> 1]) * a.scale;
-      }
-
-    // dQ += dS K over the 64 keys, 16 at a time
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, s, kk);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t kf[4];
-        ldsm_x4_trans(kf, bt_addr<LD>(Ks, 16 * kk, 16 * np, lane));
-        mma16816(dq_acc[2 * np], sa, kf[0], kf[1]);
-        mma16816(dq_acc[2 * np + 1], sa, kf[2], kf[3]);
+  if (warp == 4) {
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, 2 * TB);
+      Tile<HD>::load(q_s, maps.q, q_bar, h, q0, b);
+      Tile<HD>::load(do_s, maps.dout, q_bar, h, q0, b);
+      for (int jt = j_lo, i = 0; jt <= j_hi; ++jt, ++i) {
+        const int s = i % Q_STAGES;
+        if (i >= Q_STAGES) mbar_wait(empty(s), ((i / Q_STAGES) - 1) & 1);
+        mbar_expect_tx(full(s), STAGE);
+        const uint32_t kt = ring + s * STAGE;
+        Tile<HD>::load(kt, maps.k, full(s), kh, jt * T_ROWS, b);
+        Tile<HD>::load(kt + TB, maps.v, full(s), kh, jt * T_ROWS, b);
       }
     }
-  }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    const int row_a = q0 + 16 * warp + g;  // this thread's two rows
+    const float scale2 = a.scale * LOG2E;
+    const float* l2b = L2 + ((long long)b * a.H + h) * s_pad;
+    const float* ddb = Dd + ((long long)b * a.H + h) * s_pad;
+    float l2[2], Dr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;       // rows past S: padded zeros,
+      l2[r] = row < s_pad ? l2b[row] : 0.f;  // masked on edge tiles
+      Dr[r] = row < s_pad ? ddb[row] : 0.f;
+    }
 
+    float dq_acc[HD / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int gq = q0 + qw + g + 8 * half;
-    if (gq >= a.S) continue;
-    const long long row = ((long long)b * a.S + gq) * a.H + h;
+    for (int n = 0; n < HD / 2; ++n) dq_acc[n] = 0.f;
+    // dQ += dS K of a tile runs on while the next tile's S and dP are
+    // issued: its stage is released, and its A operand may be
+    // overwritten, only after the wait that follows (timed on the card
+    // against waiting at once: faster in dQ at hd 80 and 128, no slower
+    // at 64; slower in dK/dV, which waits at once)
+    uint32_t sa[4][4] = {};
+    int pending = -1;                      // the stage it reads
+    mbar_wait(q_bar, 0);
+
+    for (int jt = j_lo, i = 0; jt <= j_hi; ++jt, ++i) {
+      const int s = i % Q_STAGES;
+      const int k0 = jt * T_ROWS;
+      mbar_wait(full(s), (i / Q_STAGES) & 1);
+      __syncwarp();
+      const int kind = tile_kind(a, q0, T_ROWS, k0, T_ROWS);
+      if (kind == TILE_SKIPPED) {
+        if (pending >= 0) {
+          wgmma_wait<0>();
+          fence_regs<HD / 2>(dq_acc);
+          fence_a<4>(sa);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty(pending));
+          pending = -1;
+        }
+        if (lane == 0) mbar_arrive(empty(s));
+        continue;
+      }
+      const uint32_t k_t = ring + s * STAGE, v_t = k_t + TB;
+      float sc[32], dp[32];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dq + row * HD + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(dq_acc[j][2 * half],
-                                dq_acc[j][2 * half + 1]);
+      for (int n = 0; n < 32; ++n) sc[n] = dp[n] = 0.f;
+      wgmma_fence();
+      ss_product<HD>(sc, q_s, k_t);        // S = Q K^T
+      wgmma_commit();
+      ss_product<HD>(dp, do_s, v_t);       // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait<1>();                     // S and the last tile's dQ
+      fence_regs<32>(sc);
+      fence_regs<HD / 2>(dq_acc);
+      fence_a<4>(sa);
+      if (pending >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(pending));
+      }
+      if (kind == TILE_EDGE)
+        probs<true>(a, sc, l2, scale2, row_a, k0, t);
+      else
+        probs<false>(a, sc, l2, scale2, row_a, k0, t);
+      wgmma_wait<0>();
+      fence_regs<32>(dp);
+#pragma unroll
+      for (int n = 0; n < 32; ++n)         // dS = P (dP - D) scale
+        sc[n] = sc[n] * (dp[n] - Dr[(n >> 1) & 1]) * a.scale;
+      pack_a(sa, sc);
+      wgmma_fence();
+      rs_product<HD>(dq_acc, sa, k_t);     // dQ += dS K
+      wgmma_commit();
+      fence_regs<HD / 2>(dq_acc);
+      pending = s;
+    }
+    wgmma_wait<0>();
+    fence_regs<HD / 2>(dq_acc);
+    if (pending >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(pending));
+    }
+
+    const long long rs = (long long)a.H * HD;
+    store_rows<HD>(dq + ((long long)b * a.S * a.H + h) * HD, rs, dq_acc,
+                   row_a, a.S, t);
   }
 }
 
 // ---------------------------------------------------------------------------
-// launch: D, then dK/dV, then dQ, in order on one stream
+// launch: D (and lse log2 e), then dK/dV, then dQ, in order on one stream
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* D, void* dq, void* dk,
-           void* dv, const Args& a, cudaStream_t st) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  float* D_ = static_cast<float*>(D);
+// cudaFuncSetAttribute for dynamic shared memory above 48 KB, once per
+// kernel instance, device and size (the largest size granted is kept)
+template <auto Kern>
+cudaError_t allow_smem(size_t bytes) {
+  static std::mutex lock;
+  static int granted[64];
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  if (dev < 64 && granted[dev] >= int(bytes)) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(bytes));
+  if (err == cudaSuccess && dev < 64) granted[dev] = int(bytes);
+  return err;
+}
 
+// D = rowsum(do * o) of the fp32 kernels: (B, H, S)
+cudaError_t launch_dot_f32(const void* o, const void* dout, float* D,
+                           const Args& a, int hd, cudaStream_t st) {
   constexpr int ROWS_PER_CTA = 8;          // warps of the D pre-pass
   const long long rows = (long long)a.B * a.S * a.H;
-  flash_bwd_dot_kernel<T><<<unsigned((rows + ROWS_PER_CTA - 1) / ROWS_PER_CTA),
-                            32 * ROWS_PER_CTA, 0, st>>>(
-      static_cast<const T*>(o), do_, D_, a, HD);
+  flash_bwd_dot_kernel<float><<<unsigned((rows + ROWS_PER_CTA - 1) /
+                                         ROWS_PER_CTA),
+                                32 * ROWS_PER_CTA, 0, st>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), D, a,
+      hd);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* D, void* dq, void* dk,
+               void* dv, const Args& a, cudaStream_t st) {
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
+  const float* lse_ = static_cast<const float*>(lse);
+  float* D_ = static_cast<float*>(D);
+  cudaError_t err = launch_dot_f32(o, dout, D_, a, HD, st);
+  if (err != cudaSuccess) return int(err);
+
+  const size_t smem_kv = dkdv_smem_bytes<HD>();
+  err = allow_smem<flash_bwd_dkdv_kernel<HD>>(smem_kv);
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_dkdv_kernel<HD>
+      <<<dim3((a.Sk + BK - 1) / BK, a.KH, a.B), THREADS, smem_kv, st>>>(
+          q_, k_, v_, do_, lse_, D_, static_cast<float*>(dk),
+          static_cast<float*>(dv), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+
+  const size_t smem_q = dq_smem_bytes<HD>();
+  err = allow_smem<flash_bwd_dq_kernel<HD>>(smem_q);
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_dq_kernel<HD>
+      <<<dim3((a.S + BQ - 1) / BQ, a.H, a.B), THREADS, smem_q, st>>>(
+          q_, k_, v_, do_, lse_, D_, static_cast<float*>(dq), a);
+  return int(cudaGetLastError());
+}
+
+// D is the wrapper's scratch of 2 B H s_pad floats: D, then lse log2 e
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const void* lse, void* D, void* dq,
+                void* dk, void* dv, const Args& a, cudaStream_t st) {
+  using C = Cols<HD>;
+  const int s_pad = (a.S + T_ROWS - 1) / T_ROWS * T_ROWS;
+  float* Dd = static_cast<float*>(D);
+  float* L2 = Dd + (size_t)a.B * a.H * s_pad;
+  const long long lanes = 8LL * a.B * a.H * s_pad;
+  flash_bwd_prep_bf16_kernel<<<unsigned((lanes + 255) / 256), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), Dd, L2, a, HD, s_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr size_t smem = mma_smem_bytes<HD>();
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem));
-    if (err != cudaSuccess) return int(err);
-    flash_bwd_dkdv_mma_kernel<HD>
-        <<<dim3((a.Sk + M_ROWS - 1) / M_ROWS, a.KH, a.B), M_THREADS, smem,
-           st>>>(q_, k_, v_, do_, lse_, D_, static_cast<T*>(dk),
-                 static_cast<T*>(dv), a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem));
-    if (err != cudaSuccess) return int(err);
-    flash_bwd_dq_mma_kernel<HD>
-        <<<dim3((a.S + M_ROWS - 1) / M_ROWS, a.H, a.B), M_THREADS, smem,
-           st>>>(q_, k_, v_, do_, lse_, D_, static_cast<T*>(dq), a);
-  } else {
-    const size_t smem_kv = dkdv_smem_bytes<HD>();
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem_kv));
-    if (err != cudaSuccess) return int(err);
-    flash_bwd_dkdv_kernel<HD>
-        <<<dim3((a.Sk + BK - 1) / BK, a.KH, a.B), THREADS, smem_kv, st>>>(
-            q_, k_, v_, do_, lse_, D_, static_cast<T*>(dk),
-            static_cast<T*>(dv), a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-
-    const size_t smem_q = dq_smem_bytes<HD>();
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem_q));
-    if (err != cudaSuccess) return int(err);
-    flash_bwd_dq_kernel<HD>
-        <<<dim3((a.S + BQ - 1) / BQ, a.H, a.B), THREADS, smem_q, st>>>(
-            q_, k_, v_, do_, lse_, D_, static_cast<T*>(dq), a);
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return int(cudaErrorNotSupported);
+  TmaMaps maps;
+  for (int c = 0; c < 2; ++c) {            // block 1 repeats 0 at NB = 1
+    const int w = C::width(c < C::NB ? c : 0);
+    if (!make_map(encode, &maps.q[c], q, HD, a.H, a.S, a.B, a.q_sh, a.q_ss,
+                  a.q_sb, w, T_ROWS) ||
+        !make_map(encode, &maps.dout[c], dout, HD, a.H, a.S, a.B, a.do_sh,
+                  a.do_ss, a.do_sb, w, T_ROWS) ||
+        !make_map(encode, &maps.k[c], k, HD, a.KH, a.Sk, a.B, a.k_sh, a.k_ss,
+                  a.k_sb, w, T_ROWS) ||
+        !make_map(encode, &maps.v[c], v, HD, a.KH, a.Sk, a.B, a.v_sh, a.v_ss,
+                  a.v_sb, w, T_ROWS))
+      return int(cudaErrorInvalidValue);
   }
+  __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
+  __nv_bfloat16* dq_ = static_cast<__nv_bfloat16*>(dq);
+
+  const size_t smem_kv = dkdv_wg_smem_bytes<HD>();
+  err = allow_smem<flash_bwd_dkdv_wgmma_kernel<HD>>(smem_kv);
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_dkdv_wgmma_kernel<HD>
+      <<<dim3((a.Sk + KV_KEYS - 1) / KV_KEYS, a.KH, a.B), KV_THREADS, smem_kv,
+         st>>>(maps, L2, Dd, dk_, dv_, a, s_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+
+  const size_t smem_q = dq_wg_smem_bytes<HD>();
+  err = allow_smem<flash_bwd_dq_wgmma_kernel<HD>>(smem_q);
+  if (err != cudaSuccess) return int(err);
+  flash_bwd_dq_wgmma_kernel<HD>
+      <<<dim3((a.S + T_ROWS - 1) / T_ROWS, a.H, a.B), Q_THREADS, smem_q,
+         st>>>(
+          maps, L2, Dd, dq_, a, s_pad);
   return int(cudaGetLastError());
 }
 
@@ -824,25 +1109,52 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
   a.o_sb = st[9]; a.o_ss = st[10]; a.o_sh = st[11];
   a.do_sb = st[12]; a.do_ss = st[13]; a.do_sh = st[14];
   a.scale = scale; a.causal = causal; a.window = window;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // the tensor-core kernels load q, k, v and do 16 bytes at a time
-    const int vec[] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13, 14};
-    for (int i : vec)
+    // TMA reads q, k, v and do, the pre-pass o and do 16 bytes at a time:
+    // 16-byte aligned base addresses and strides
+    for (int i = 0; i < 15; ++i)
       if (st[i] % 8) return int(cudaErrorMisalignedAddress);
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-         reinterpret_cast<uintptr_t>(v) |
+         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
          reinterpret_cast<uintptr_t>(dout)) % 16)
       return int(cudaErrorMisalignedAddress);
+    switch (hd) {
+      case 32: return launch_bf16<32>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
+      case 64: return launch_bf16<64>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
+      case 80: return launch_bf16<80>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
+      case 128:
+        return launch_bf16<128>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
+      default: return int(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (hd) {
+      case 32: return launch_f32<32>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
+      case 64: return launch_f32<64>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
+      case 80: return launch_f32<80>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
+      case 128:
+        return launch_f32<128>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
+      default: return int(cudaErrorInvalidValue);
+    }
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-    case 80: return launch<T, 80>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-    default: return int(cudaErrorInvalidValue);
-  }
+}
+
+template <int HD>
+int plan_bf16(int* out) {
+  const size_t kv = dkdv_wg_smem_bytes<HD>(), qs = dq_wg_smem_bytes<HD>();
+  out[0] = KV_THREADS;
+  out[1] = int(kv);
+  out[3] = Q_THREADS;
+  out[4] = int(qs);
+  cudaError_t err = allow_smem<flash_bwd_dkdv_wgmma_kernel<HD>>(kv);
+  if (err == cudaSuccess) err = allow_smem<flash_bwd_dq_wgmma_kernel<HD>>(qs);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], flash_bwd_dkdv_wgmma_kernel<HD>, KV_THREADS, kv);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[5], flash_bwd_dq_wgmma_kernel<HD>, Q_THREADS, qs);
+  return int(err);
 }
 
 }  // namespace
@@ -869,6 +1181,35 @@ FLASH_BWD_ENTRY(flash_bwd_bf16, __nv_bfloat16)
 FLASH_BWD_ENTRY(flash_bwd_f32, float)
 
 #undef FLASH_BWD_ENTRY
+
+// the bf16 kernels' CTAs at this head_dim, for reports: out = {dK/dV
+// threads, shared-memory bytes, CTAs an SM can hold; dQ the same}
+int flash_bwd_bf16_plan(int hd, int* out) {
+  switch (hd) {
+    case 32: return plan_bf16<32>(out);
+    case 64: return plan_bf16<64>(out);
+    case 80: return plan_bf16<80>(out);
+    case 128: return plan_bf16<128>(out);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// the tile rule as the bf16 kernels apply it, for tests against
+// ref.tile_kinds: out (ceil(S / nq) x ceil(Sk / nk) bytes, row-major) gets
+// the kind of each tile of nq q rows x nk keys
+int flash_bwd_tile_kinds(int S, int Sk, int nq, int nk, int causal,
+                         int window, signed char* out) {
+  if (S <= 0 || Sk <= 0 || nq <= 0 || nk <= 0)
+    return int(cudaErrorInvalidValue);
+  Args a{};
+  a.S = S; a.Sk = Sk; a.causal = causal; a.window = window;
+  const int tq = (S + nq - 1) / nq, tk = (Sk + nk - 1) / nk;
+  for (int i = 0; i < tq; ++i)
+    for (int j = 0; j < tk; ++j)
+      out[i * tk + j] = static_cast<signed char>(
+          tile_kind(a, i * nq, nq, j * nk, nk));
+  return 0;
+}
 
 const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

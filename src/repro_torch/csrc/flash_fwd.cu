@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BQ = 64;            // fp32: q rows per CTA
@@ -221,184 +223,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: TMA loads into an mbarrier ring, wgmma on the tensor cores
 // ---------------------------------------------------------------------------
 //
-// Fragment layouts (PTX ISA, wgmma .m64nNk16 with .f32 accumulators): warp
-// w of a warpgroup holds rows 16w .. 16w + 15; with g = lane / 4 and
-// t = lane % 4, registers 4j .. 4j + 3 hold (row g, cols 8j + 2t, 8j + 2t +
-// 1) and (row g + 8, the same cols). Two neighbouring 8-key groups of the
-// score accumulator packed to bf16 are exactly the register A fragment of
-// the next product (P @ V), so P never leaves registers.
+// The helpers (TMA, mbarriers, wgmma, column blocks) are csrc/hopper.cuh's.
+// Two neighbouring 8-key groups of the score accumulator packed to bf16
+// are exactly the register A fragment of the next product (P @ V), so P
+// never leaves registers.
 
 constexpr int WG_BK = 64;                  // keys a K/V tile
 constexpr int WG_STAGES = 3;               // K/V tiles in flight
 
-// A head_dim in column blocks, each one TMA box and one swizzle width (a
-// row of 128, 64 or 32 bytes), stored [rows][cols] in its own piece of a
-// tile: hd 32 = 32; 64 = 64; 80 = 64 + 16; 128 = 64 + 64.
-template <int HD> struct Cols {
-  static constexpr int NB = (HD == 80 || HD == 128) ? 2 : 1;
-  __host__ __device__ static constexpr int width(int c) {
-    return HD == 32 ? 32 : (HD == 80 && c == 1) ? 16 : 64;
-  }
-  __host__ __device__ static constexpr int off(int c) { return 64 * c; }
-};
-
 struct TmaMaps {                           // one box shape per column block
   CUtensorMap q[2], k[2], v[2];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma descriptor of a block whose rows are rb (128/64/32) bytes,
-// swizzled as TMA wrote it: 8-row groups rb * 8 bytes apart (K-major A/B
-// of S = Q K^T, and MN-major B of P V, where the 8-row groups step along
-// the keys); the leading offset is unused at these widths
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int rb) {
-  const uint64_t layout = rb == 128 ? 1 : (rb == 64 ? 2 : 3);
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t((8 * rb) >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box (cols, 1, rows, 1) of a (hd, heads, seq, batch) map at
-// (col, head, row, batch); rows past seq arrive as zeros
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 64) = (scale_d ? d : 0) + a (shared, K-major) * b (shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64) += a (registers, 64 x 16) * b (shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 32) += a (registers, 64 x 16) * b (shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 16) += a (registers, 64 x 16) * b (shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
-  else wgmma_rs_n16(d, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 constexpr int WG_ROWS = 64;       // bf16: q rows a CTA (one warpgroup)
 constexpr int WG_THREADS = 128 + 32;
@@ -628,50 +463,6 @@ int launch_f32(void (*kernel)(const float*, const float*, const float*,
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), a);
   return int(cudaGetLastError());
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetched through the
-// runtime, so the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// the (hd, heads, seq, batch) view of a bf16 tensor with element strides
-// (s_h, s_s, s_b), read in boxes of (cols, 1, rows, 1) at offset col0
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd,
-              int heads, int seq, int batch, long long s_h, long long s_s,
-              long long s_b, int cols, int rows) {
-  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(heads),
-                              cuuint64_t(seq), cuuint64_t(batch)};
-  const cuuint64_t strides[3] = {cuuint64_t(s_h) * 2, cuuint64_t(s_s) * 2,
-                                 cuuint64_t(s_b) * 2};
-  const cuuint32_t box[4] = {cuuint32_t(cols), 1, cuuint32_t(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const int rb = cols * 2;
-  const CUtensorMapSwizzle sw = rb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : rb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>

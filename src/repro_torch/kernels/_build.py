@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exports plain C entry points (one per dtype) that
 take device pointers, strides and a stream and return the ``cudaError_t``
 of the launch. At first use the source is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), under a name keyed by a hash of the source and the flags,
-and loaded with ``ctypes``. Nothing is compiled or loaded at import time,
+``.gitignore``), under a name keyed by a hash of the source, the headers
+it includes (``csrc/hopper.cuh``) and the flags, and loaded with
+``ctypes``. Nothing is compiled or loaded at import time,
 so the CPU tests import every module without a CUDA toolkit.
 
 A failed build, a missing ``nvcc`` or a nonzero return from a launch
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -47,8 +49,27 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _source_bytes(path: pathlib.Path, seen: set) -> bytes:
+    """``path``'s bytes, then those of every header it includes with a
+    quoted ``#include`` (found beside the including file), recursively."""
+    seen.add(path)
+    src = path.read_bytes()
+    parts = [src]
+    for inc in _INCLUDE.findall(src):
+        header = path.parent / inc.decode()
+        if header not in seen:
+            parts.append(_source_bytes(header, seen))
+    return b"".join(parts)
+
+
 def lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu`` is built: keyed by a hash of the source,
+    the headers it includes and the flags, so an edit to any of them
+    builds anew."""
+    src = _source_bytes(CSRC / f"{name}.cu", set())
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
         .hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"

@@ -116,12 +116,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     Sk, KH = k.shape[1], k.shape[2]
     _check_qkv("flash_attention_bwd", q, k, v, (o, do))
     if q.dtype == torch.bfloat16:
-        # the tensor-core kernels load q, k, v and do 16 bytes at a time:
-        # an input that is not 16-byte aligned is copied contiguous first
-        q, k, v, do = (t if t.data_ptr() % 16 == 0 and all(
+        # TMA reads q, k, v and do, the pre-pass o and do 16 bytes at a
+        # time: an input that is not 16-byte aligned is copied contiguous
+        # first
+        q, k, v, o, do = (t if t.data_ptr() % 16 == 0 and all(
             st % 8 == 0 for st in t.stride()[:3]) else
             t.clone(memory_format=torch.contiguous_format)
-            for t in (q, k, v, do))
+            for t in (q, k, v, o, do))
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) or \
             not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse must be a contiguous (B, H, S) fp32 tensor "
@@ -132,7 +133,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KH, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Sk, KH, hd), dtype=v.dtype, device=q.device)
-    d_scratch = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # the pre-pass's scratch: D and (bf16) lse·log2 e, each (B, H, S)
+    # padded to whole 64-row tiles, so a tile's rows are one aligned copy
+    s_pad = -(-S // 64) * 64
+    d_scratch = torch.empty((2, B, H, s_pad), dtype=torch.float32,
+                            device=q.device)
     symbol = _BWD_SYMBOLS[q.dtype]
     fn = _build.bind(BWD_SOURCE, symbol, _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -160,3 +165,31 @@ def plan(hd: int) -> dict:
     err = fn(hd, ctypes.cast(out, ctypes.c_void_p))
     _build.check(SOURCE, "flash_fwd_bf16_plan", err)
     return dict(zip(("threads", "smem_bytes", "ctas_per_sm"), out))
+
+
+def plan_bwd(hd: int) -> dict:
+    """The bf16 backward's CTAs at this head_dim: for its dK/dV and its dQ
+    kernel, threads, shared-memory bytes and CTAs an SM holds. Builds the
+    kernel if needed."""
+    fn = _build.bind(BWD_SOURCE, "flash_bwd_bf16_plan",
+                     [ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * 6)()
+    err = fn(hd, ctypes.cast(out, ctypes.c_void_p))
+    _build.check(BWD_SOURCE, "flash_bwd_bf16_plan", err)
+    keys = ("threads", "smem_bytes", "ctas_per_sm")
+    return {"dkdv": dict(zip(keys, out[:3])), "dq": dict(zip(keys, out[3:]))}
+
+
+def tile_kinds(S: int, Sk: int, q_tile: int, k_tile: int, causal: bool,
+               window: int) -> torch.Tensor:
+    """The tile rule as compiled into the bf16 backward kernels
+    (``tile_kind`` in ``csrc/flash_bwd.cu``, run on the host): an (nq, nk)
+    int8 CPU tensor to hold against ``ref.tile_kinds``. Builds the kernel
+    if needed; needs no card."""
+    fn = _build.bind(BWD_SOURCE, "flash_bwd_tile_kinds",
+                     [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    out = torch.empty((-(-S // q_tile), -(-Sk // k_tile)), dtype=torch.int8)
+    err = fn(S, Sk, q_tile, k_tile, int(bool(causal)), int(window),
+             out.data_ptr())
+    _build.check(BWD_SOURCE, "flash_bwd_tile_kinds", err)
+    return out

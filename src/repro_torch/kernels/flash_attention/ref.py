@@ -44,6 +44,38 @@ def block_pairs(nq: int, nk: int, q_chunk: int, k_chunk: int,
     return arr[:, 0], arr[:, 1]
 
 
+TILE_SKIPPED, TILE_INTERIOR, TILE_EDGE = 0, 1, 2
+
+
+def tile_kinds(S: int, Sk: int, q_tile: int, k_tile: int, causal: bool,
+               window: int) -> np.ndarray:
+    """The tile rule of the bf16 backward kernels (``tile_kind`` in
+    ``csrc/flash_bwd.cu``): an (nq, nk) int8 array, one entry per (q tile,
+    k tile) of ``q_tile`` rows x ``k_tile`` keys over S rows and Sk keys.
+    A tile is ``TILE_SKIPPED`` when no (row, key) pair in it is allowed
+    (rows >= S and keys >= Sk never are), ``TILE_INTERIOR`` when every pair
+    is allowed and in range (the kernel tests no mask there) and
+    ``TILE_EDGE`` otherwise (the kernel tests each pair)."""
+    nq, nk = -(-S // q_tile), -(-Sk // k_tile)
+    kinds = np.empty((nq, nk), np.int8)
+    for i in range(nq):
+        q0 = i * q_tile
+        q_last = min(q0 + q_tile, S) - 1
+        for j in range(nk):
+            k0 = j * k_tile
+            k_last = min(k0 + k_tile, Sk) - 1
+            if (causal and k0 > q_last) or (window and
+                                             k_last <= q0 - window):
+                kinds[i, j] = TILE_SKIPPED
+            elif (q0 + q_tile <= S and k0 + k_tile <= Sk
+                  and (not causal or k0 + k_tile - 1 <= q0)
+                  and (not window or k0 > q0 + q_tile - 1 - window)):
+                kinds[i, j] = TILE_INTERIOR
+            else:
+                kinds[i, j] = TILE_EDGE
+    return kinds
+
+
 def _schedule_pairs(schedule, nq, nk, q_chunk, k_chunk, causal,
                     window) -> List[Tuple[int, int]]:
     if schedule == "rect":

@@ -1,23 +1,31 @@
 """The port's flash attention gradient on the CPU: ``FlashAttention`` (the
 plain forward with its lse and the plain block-recompute backward, which
 the CUDA kernels replace on a card) against ``jax.grad`` of the JAX
-package's ``flash_attention`` (its custom VJP), on the same numpy inputs;
-plus the gradient guards of the ops whose kernels have no backward. The
-CUDA backward kernel is held against the plain backward on a card by
-tests/test_torch_gpu.py."""
+package's ``flash_attention`` (its custom VJP), on the same numpy inputs,
+also at the bf16 backward kernels' tile shape; the kernels' tile rule
+(``ref.tile_kinds``) against the mask; plus the gradient guards of the
+ops whose kernels have no backward. The CUDA backward kernel is held
+against the plain backward on a card by tests/test_torch_gpu.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.models.attention import _fwd_blocks as jax_fwd_blocks
 from repro.models.attention import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+from repro_torch.kernels.flash_attention.ref import (TILE_EDGE,
+                                                     TILE_INTERIOR,
+                                                     TILE_SKIPPED, allowed,
+                                                     block_pairs,
+                                                     flash_attention_bwd_ref,
                                                      flash_attention_fwd_ref,
-                                                     reference_attention)
+                                                     reference_attention,
+                                                     tile_kinds)
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as tattn
@@ -36,6 +44,22 @@ def _inputs(seed, B, S, H, KH, hd, Sk=None):
     return q, k, v, w
 
 
+def _check_gradients_match_jax(S, q_chunk, k_chunk, schedule, window,
+                               kv_heads):
+    q, k, v, w = _inputs(3, 2, S, 4, kv_heads, 16)
+    f = lambda *a: (jax_flash(*a, window=window, q_chunk=q_chunk,
+                              k_chunk=k_chunk, schedule=schedule) * w).sum()
+    gj = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv, window=window, q_chunk=q_chunk,
+                                k_chunk=k_chunk, schedule=schedule)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, a, b in zip("qkv", gj, (tq.grad, tk.grad, tv.grad)):
+        assert b.shape == a.shape, name
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("schedule", ["rect", "triangular"])
 @pytest.mark.parametrize("window", [0, 48])
 @pytest.mark.parametrize("kv_heads", [4, 1], ids=["mha", "gqa"])
@@ -43,18 +67,52 @@ def test_flash_gradients_match_jax(schedule, window, kv_heads):
     """Twin of test_models.py::test_flash_gradients_match_reference, over
     both schedules, a sliding window and GQA (4 query heads on 1 KV
     head); the loss weights each output element differently."""
-    q, k, v, w = _inputs(3, 2, 128, 4, kv_heads, 16)
-    f = lambda *a: (jax_flash(*a, window=window, q_chunk=32,
-                              schedule=schedule) * w).sum()
-    gj = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
-    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
-    out = tattn.flash_attention(tq, tk, tv, window=window, q_chunk=32,
-                                schedule=schedule)
-    (out * torch.from_numpy(w)).sum().backward()
-    for name, a, b in zip("qkv", gj, (tq.grad, tk.grad, tv.grad)):
-        assert b.shape == a.shape, name
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=GRAD_TOL,
-                                   rtol=GRAD_TOL, err_msg=f"d{name}")
+    _check_gradients_match_jax(128, 32, 0, schedule, window, kv_heads)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("kv_heads", [4, 1], ids=["mha", "gqa"])
+def test_flash_gradients_match_jax_at_kernel_tiles(window, kv_heads):
+    """More cases of test_flash_gradients_match_jax, at the bf16 backward
+    kernels' tile shape: 64 q rows by 128 keys (its dK/dV CTA). S = 256,
+    since the JAX custom VJP needs S to be a multiple of the chunks."""
+    _check_gradients_match_jax(256, 64, 128, "triangular", window, kv_heads)
+
+
+_TILES = [(64, 64), (64, 128), (128, 64), (16, 32)]
+
+
+@settings(max_examples=150, deadline=None)
+@given(S=st.integers(1, 300), Sk=st.integers(1, 300),
+       tiles=st.sampled_from(_TILES), causal=st.booleans(),
+       window=st.sampled_from([0, 1, 20, 48, 100, 257]))
+def test_tile_kinds_classify_the_mask(S, Sk, tiles, causal, window):
+    """The tile rule of the bf16 backward kernels against the mask pair by
+    pair: a skipped tile holds no allowed pair, an interior tile only
+    allowed pairs in range, an edge tile at least one allowed pair and one
+    that is not (or out of range); so interior and edge tiles cover every
+    allowed pair. Ragged S and Sk, S != Sk, windows, the kernels' tiles."""
+    qt, kt = tiles
+    kinds = tile_kinds(S, Sk, qt, kt, causal, window)
+    assert kinds.shape == (-(-S // qt), -(-Sk // kt))
+    allow = allowed(torch.arange(S), torch.arange(Sk), causal,
+                    window).numpy()
+    for i in range(kinds.shape[0]):
+        for j in range(kinds.shape[1]):
+            blk = allow[i * qt:(i + 1) * qt, j * kt:(j + 1) * kt]
+            full = blk.shape == (qt, kt) and bool(blk.all())
+            if kinds[i, j] == TILE_SKIPPED:
+                assert not blk.any(), (i, j)
+            elif kinds[i, j] == TILE_INTERIOR:
+                assert full, (i, j)
+            else:
+                assert kinds[i, j] == TILE_EDGE
+                assert blk.any() and not full, (i, j)
+    if S % qt == 0 and Sk % kt == 0:
+        # on whole tiles the kept tiles are the triangular schedule's pairs
+        bi, bj = block_pairs(S // qt, Sk // kt, qt, kt, causal, window)
+        assert sorted(zip(bi.tolist(), bj.tolist())) == sorted(
+            zip(*np.nonzero(kinds != TILE_SKIPPED)))
 
 
 @pytest.mark.parametrize("schedule", ["rect", "triangular"])

@@ -9,12 +9,15 @@ imports no JAX, so it runs where only PyTorch is installed:
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
-                                                     flash_attention_fwd_ref)
+                                                     flash_attention_fwd_ref,
+                                                     tile_kinds)
 from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref
@@ -43,6 +46,18 @@ FLASH_BWD_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 513, 4, 1, 128, 0),
                     (2, 128, 8, 8, 32, 64), (1, 200, 4, 2, 80, 48),
                     (2, 130, 4, 4, 64, 0)]
 LSE_TOL = 1e-5
+# the bf16 backward at the edges of its tiles: ragged S around 64-row q
+# tiles and 128-key dK/dV CTAs, Sk != S both ways, windows 48 and 100 with
+# GQA 4:1, hd 80 and 128 (B, S, Sk, H, KH, hd, window)
+FLASH_BWD_EDGES = ([(2, S, S, 4, 2, 64, 0)
+                    for S in (1, 63, 65, 127, 129, 255, 257, 513)]
+                   + [(2, 100, 160, 4, 2, 64, 0), (2, 160, 100, 4, 2, 64, 0),
+                      (1, 129, 300, 4, 4, 64, 0), (1, 300, 129, 4, 4, 64, 0),
+                      (1, 300, 300, 8, 2, 64, 48),
+                      (2, 257, 257, 8, 2, 64, 100),
+                      (2, 257, 257, 8, 2, 80, 0), (1, 300, 300, 4, 2, 80, 48),
+                      (2, 257, 257, 4, 1, 128, 0),
+                      (1, 200, 130, 4, 2, 128, 100)])
 # B, H, KH, hd, page, nblk: both serving shapes (34 pages of 16) and an nblk
 # that is not a multiple of its split (11 pages -> 6 CTAs of 2)
 PERMUTE_SHAPES = [(4, 32, 32, 64, 16, 34), (4, 32, 32, 80, 16, 34),
@@ -189,6 +204,90 @@ def test_flash_backward_is_deterministic(cuda):
     a = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
     b = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KH,hd,win", FLASH_BWD_EDGES)
+def test_flash_bf16_backward_at_tile_edges(cuda, B, S, Sk, H, KH, hd, win):
+    """The TMA + wgmma backward where q rows, keys or the window end inside
+    a 64-row q tile or a 128-key dK/dV CTA, against the plain backward;
+    a second call gives the same bits."""
+    rng = np.random.default_rng(6)
+    dt = torch.bfloat16
+    q, do = (_rand(rng, (B, S, H, hd), dt, cuda) for _ in range(2))
+    k, v = (_rand(rng, (B, Sk, KH, hd), dt, cuda) for _ in range(2))
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, window=win,
+                                              with_lse=True)
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, window=win)
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, window=win,
+                                  q_chunk=64)
+    for a, b in zip(got, ref):
+        _assert_close(a, b, TOLS[dt])
+    again = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, window=win)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("layout", ["rows_hd_plus_8", "rows_hd_plus_4",
+                                    "offset_2_bytes"])
+def test_flash_backward_reads_strided_and_misaligned_inputs(cuda, layout):
+    """bf16 inputs that are views into wider rows (16-byte aligned: read by
+    TMA through their strides; hd + 4: copied first) or start 2 bytes past
+    an aligned address (copied first) give the contiguous call's bits."""
+    rng = np.random.default_rng(7)
+    dt, hd = torch.bfloat16, 64
+    q, do = (_rand(rng, (2, 200, 4, hd), dt, cuda) for _ in range(2))
+    k, v = (_rand(rng, (2, 200, 2, hd), dt, cuda) for _ in range(2))
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True)
+    want = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+
+    def make(t):
+        if layout == "offset_2_bytes":
+            flat = torch.empty(t.numel() + 1, dtype=dt, device=cuda)[1:]
+            return flat.view(t.shape).copy_(t)
+        pad = 8 if layout == "rows_hd_plus_8" else 4
+        wide = torch.zeros((*t.shape[:3], hd + pad), dtype=dt, device=cuda)
+        wide[..., :hd] = t
+        return wide[..., :hd]
+    got = flash_kernel.flash_attention_bwd(make(q), make(k), make(v),
+                                           make(o), lse, make(do))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_backward_is_deterministic_at_training_shape(cuda):
+    """stablelm-1.6b's attention at 2 x 4096 (32 heads of 64, causal):
+    two calls give the same bits."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (_rand(rng, (2, 4096, 32, 64), torch.bfloat16, cuda)
+                   for _ in range(4))
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True)
+    a = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    b = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+def test_flash_backward_plan(cuda, hd):
+    """plan_bwd reports both kernels' CTAs, each of which fits an SM."""
+    plan = flash_kernel.plan_bwd(hd)
+    for kern in ("dkdv", "dq"):
+        assert plan[kern]["threads"] % 32 == 0
+        assert 0 < plan[kern]["smem_bytes"] <= 232448
+        assert plan[kern]["ctas_per_sm"] >= 1
+
+
+@settings(max_examples=200, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(S=st.integers(1, 300), Sk=st.integers(1, 300),
+       tiles=st.sampled_from([(64, 64), (64, 128), (128, 64), (16, 32)]),
+       causal=st.booleans(),
+       window=st.sampled_from([0, 1, 20, 48, 100, 257]))
+def test_flash_backward_tile_rule_matches_ref(cuda, S, Sk, tiles, causal,
+                                              window):
+    """The tile rule as compiled into the bf16 backward kernels equals
+    ref.tile_kinds, which test_torch_flash_grad.py holds against the
+    mask, over the same cases."""
+    got = flash_kernel.tile_kinds(S, Sk, *tiles, causal, window).numpy()
+    np.testing.assert_array_equal(got, tile_kinds(S, Sk, *tiles, causal,
+                                                  window))
 
 
 def test_smoke_train_loop_on_card(cuda, tmp_path):

@@ -133,3 +133,33 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
+
+
+def test_lib_path_follows_included_headers(monkeypatch, tmp_path):
+    """A library is keyed by its source and every header it includes (as
+    the flash sources include csrc/hopper.cuh): editing a header, even one
+    included by a header, gives a new path, so a stale build is never
+    loaded; a header the source does not include changes nothing."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\n'
+                                   "int f() { return g(); }\n")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n'
+                                    "int g() { return h(); }\n")
+    (tmp_path / "b.cuh").write_text("int h() { return 1; }\n")
+    (tmp_path / "other.cuh").write_text("int x;\n")
+    first = _build.lib_path("k")
+    assert _build.lib_path("k") == first
+    (tmp_path / "other.cuh").write_text("int y;\n")
+    assert _build.lib_path("k") == first
+    (tmp_path / "b.cuh").write_text("int h() { return 2; }\n")
+    second = _build.lib_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n'
+                                    "int g() { return h() + 1; }\n")
+    assert _build.lib_path("k") not in (first, second)
+    # the real sources: both flash libraries follow the shared header
+    monkeypatch.undo()
+    assert b"hopper.cuh" in (_build.CSRC / "flash_fwd.cu").read_bytes()
+    src = _build._source_bytes(_build.CSRC / "flash_bwd.cu", set())
+    assert (_build.CSRC / "hopper.cuh").read_bytes() in src
