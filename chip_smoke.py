@@ -7,9 +7,10 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``:
 
 Phases (any failure raises, and the script exits nonzero):
 
-1. the card's name, count and power limit; build the four CUDA kernel
+1. the card's name, count and power limit; build the five CUDA kernel
    sources (flash attention forward and backward, paged attention, the
-   Mamba2 SSD chunk step) from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   Mamba2 SSD chunk step and its backward) from ``src/repro_torch/csrc``
+   (one ``nvcc`` per
    source, in parallel) and print the compiler's register / shared-memory
    / spill report, with the flash backward's CTA shapes at each head dim;
 2. each kernel against its plain PyTorch version on CUDA tensors: the
@@ -29,8 +30,13 @@ Phases (any failure raises, and the script exits nonzero):
    and S = 130; in bf16 also at the edges of its tiles, Sk != S both
    ways, windows with GQA 4:1, and strided and misaligned inputs through
    the wrapper; two calls bit-identical at every shape; the tile rule
-   compiled into its kernels against its mirror in ``ref.py``), and every
-   kernel at the shapes of the serving and training runs;
+   compiled into its kernels against its mirror in ``ref.py``), the SSD
+   backward kernel against its plain explicit backward (bf16 and fp32,
+   four nonzero cotangents, hp 16/32/64 x ns 8..128, a chunk that is not
+   a multiple of 16, ragged 64-row tiles; two calls bit-identical) and
+   the gradient of the full SSD op (an initial state, a padded S) against
+   autograd of the plain chunked SSD, and every kernel at the shapes of
+   the serving and training runs;
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
@@ -40,16 +46,21 @@ Phases (any failure raises, and the script exits nonzero):
    ``mamba2-130m`` (ssm: the SSD kernel in its 24 layers). The launch
    counters, set to 0 just before each run and read just after, must
    equal what that path launches; each model's first decode step is held
-   against a full forward over prompt + token. Then the training path:
-   ``TrainLoop`` on ``stablelm-1.6b`` at full width and full depth (24
-   layers, each rematerialised) for 6 AdamW steps of 2 x 4096 tokens from
-   a ``RingLoader`` over a synthetic corpus (no checkpoint is due in the
-   run: a full-width one is 26 GB); the counters must show 48 forward and
-   24 backward flash launches a step. One step's loss and gradients at
-   full width and 2 layers are held against the same step with attention
-   through autograd of the plain ``reference_attention``; a smoke-size
-   run that crashes at step 8 and restarts from the ring checkpoint of
-   step 5 must end bitwise equal to the uninterrupted run, under
+   against a full forward over prompt + token. Then the training paths:
+   ``TrainLoop`` at full width and full depth, each layer rematerialised,
+   for 6 AdamW steps of 2 x 4096 tokens from a ``RingLoader`` over a
+   synthetic corpus (no checkpoint is due in the run: a full-width one
+   is 26-38 GB), on ``stablelm-1.6b`` (dense: 48 forward and 24 backward
+   flash launches a step), ``zamba2-2.7b`` (hybrid, 2 microbatches: 216
+   SSD chunk and 108 SSD backward launches, 36 flash forward and 18 flash
+   backward a step) and ``mamba2-130m`` (ssm: 48 and 24 SSD launches);
+   the counters must equal what ``train_launches`` derives from each
+   config. For stablelm (2 layers) and zamba2 (one group: 6 Mamba2
+   layers and the tied block), one step's loss and gradients at full
+   width are held against the same step with attention and the SSD
+   through autograd of their plain versions, and a smoke-size run that
+   crashes at step 8 and restarts from the ring checkpoint of step 5
+   must end bitwise equal to the uninterrupted run, under
    ``torch.use_deterministic_algorithms(True)``;
 4. device times (CUDA events over launches queued behind a held stream,
    after warm-up) of each kernel, its plain version, its bound and, where
@@ -59,13 +70,16 @@ Phases (any failure raises, and the script exits nonzero):
    with its CTA shape; the SSD kernel with its plan, also at a decode
    step's chunk of one token, bound at the TF32 tensor-core rate or the
    bytes); each model's prefill and decode times; the train step's time
-   and tokens/s, the flash backward at the training shape beside its
-   bound and the backward of ``scaled_dot_product_attention``, and the
-   flash forward at the training shape;
+   and tokens/s of each training run, the flash backward at the training
+   shape beside its bound and the backward of
+   ``scaled_dot_product_attention``, the flash forward at the training
+   shape, and the SSD chunk kernel and its backward at zamba2's and
+   mamba2's training calls (the backward beside its plain version and
+   its bound; no one PyTorch call computes it);
 5. where the time goes: ``torch.profiler`` over one prefill and eight
-   decode steps of each model, and over one train step (forward and
-   backward, then the optimizer), device busy share and kernel time by
-   kind.
+   decode steps of each model, and over one train step of each training
+   run (forward and backward, then the optimizer), device busy share and
+   kernel time by kind.
 
 The last lines are a JSON object with one entry per kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -110,7 +124,8 @@ from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref  # noqa
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel           # noqa
 from repro_torch.kernels.ssd_scan import ops as ssd_ops                 # noqa
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,         # noqa
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_bwd_ref,     # noqa
+                                              ssd_chunk_ref,
                                               ssd_chunk_split_ref, ssd_ref)
 from repro_torch.launch.steps import (loss_and_grads,        # noqa: E402
                                       make_train_step)
@@ -142,7 +157,8 @@ SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
 KERNELS = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
            "flash_attention_bwd": flash_kernel.flash_attention_bwd,
            "paged_attention": paged_kernel.paged_attention,
-           "ssd_chunk_call": ssd_kernel.ssd_chunk_call}
+           "ssd_chunk_call": ssd_kernel.ssd_chunk_call,
+           "ssd_chunk_bwd": ssd_kernel.ssd_chunk_bwd}
 # the flash backward against the plain block-recompute backward: the same
 # fp32 arithmetic from the same inputs, so TOLS (bf16: one rounding of the
 # outputs); the lse output is fp32 in both (measured <= 9.5e-7)
@@ -163,6 +179,32 @@ FLASH_BWD_EDGES = ([(2, S, S, 4, 2, 64, 0)
                       (2, 257, 257, 4, 1, 128, 0),
                       (1, 200, 130, 4, 2, 128, 100)])
 
+# the SSD backward against its plain version (both fp32 arithmetic from the
+# same inputs, sums of up to 256 terms a chunk in other orders): each
+# gradient within SSD_BWD_TOL of its scale (``grad_scales``: its largest
+# element; for dA_log, a sum over every token of terms that cancel, the
+# sum of their sizes; PERF.md has the measured errors); a bf16 dx/dB/dC
+# may also sit one bf16 ulp (2^-7 relative) from the plain one, the two
+# fp32 sums rounding to neighbours
+SSD_BWD_TOL, BF16_ULP = 1e-4, 2.0 ** -7
+# B, S, nh, hp, ns, cl: the smoke configs' shape (hp 32, ns 16, cl 32), a
+# chunk that is not a multiple of 16 (and of the 64-row tiles), one chunk
+# of 200 in two ragged tiles, and the training calls of zamba2-2.7b (one
+# microbatch of 4096) and mamba2-130m (2 x 4096)
+SSD_BWD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 200, 4, 32, 16, 100),
+                  (2, 96, 3, 16, 8, 48), (1, 200, 2, 64, 64, 200),
+                  (1, 4096, 80, 64, 64, 256), (2, 4096, 24, 64, 128, 256)]
+# slow decay: with tests/test_kernels.py's dt (softplus of N(0, 1), about
+# 0.8) and A about -1, dt·A is about -0.8 a token, so exp(tot) (about
+# 1e-12 at cl 32), w_j away from the chunk's end and L between tiles two
+# apart are too small for an error in them to show. dt scaled by SLOW_DT
+# makes dt·A about -0.008 a token: exp(tot) about 0.1 at cl 256, and every
+# term of the backward the size of the others. The smoke shape, cl 200
+# (ragged tiles) and 256 (four 64-row tiles), then the training calls.
+SLOW_DT = 0.01
+SSD_BWD_SLOW_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 200, 2, 64, 64, 200),
+                       (2, 512, 3, 64, 128, 256)]
+
 # the serving runs: 4 prompts x 512 tokens, 32 new tokens, one per model
 ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m")
 BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
@@ -178,14 +220,16 @@ BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
 LOGIT_TOLS = {"dense": (0.15, 0.05), "hybrid": (0.4, 0.05),
               "ssm": (0.15, 0.05)}
 
-# the training run: stablelm-1.6b at full width and depth, train_4k's
-# sequence (configs/base.py), a global batch cut from 256 to 2
-TRAIN_ARCH = "stablelm-1.6b"
-TRAIN_PATH = "train " + TRAIN_ARCH
+# the training runs: one model of each family at full width and depth,
+# train_4k's sequence (configs/base.py), a global batch cut from 256 to 2
+TRAIN_ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m")
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6
-# one step at full width and 2 layers, flash kernels vs autograd of the
-# plain attention, both bf16 compute: the loss to 2e-3 relative and each
-# gradient leaf to 2e-2 relative L2 (a few bf16 roundings, 2^-8 each)
+# one step at full width and one group of layers (stablelm: 2 layers;
+# zamba2: attn_every Mamba2 layers and the tied block), the kernels vs
+# autograd of the plain attention and the plain chunked SSD, both bf16
+# compute: the loss to 2e-3 relative and each gradient leaf to 2e-2
+# relative L2 (a few bf16 roundings, 2^-8 each)
+GRAD_ARCHS = ("stablelm-1.6b", "zamba2-2.7b")
 GRAD_LOSS_RTOL, GRAD_REL_L2 = 2e-3, 2e-2
 RESTART_STEPS, RESTART_CKPT, RESTART_CRASH = 10, 5, 8
 
@@ -313,10 +357,11 @@ def check_flash(rng, dev, B, S, H, KH, hd, dt, Sk=None, win=0):
     return e
 
 
-def ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype):
-    """tests/test_kernels.py's SSD distributions; x/B/C in ``dtype``."""
+def ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype, dt_scale=1.0):
+    """tests/test_kernels.py's SSD distributions, dt times ``dt_scale``;
+    x/B/C in ``dtype``."""
     x = rand(rng, (B, S, nh, hp), dtype, dev, 0.5)
-    dt = F.softplus(rand(rng, (B, S, nh), torch.float32, dev))
+    dt = F.softplus(rand(rng, (B, S, nh), torch.float32, dev)) * dt_scale
     A_log = rand(rng, (nh,), torch.float32, dev, 0.3)
     Bm = rand(rng, (B, S, ns), dtype, dev, 0.5)
     Cm = rand(rng, (B, S, ns), dtype, dev, 0.5)
@@ -363,6 +408,98 @@ def check_ssd_full(rng, dev, B, S, nh, hp, ns, cl, dtype=torch.float32,
     es = check_close(what + " state", st, sr, SSD_ATOL, SSD_RTOL)
     log(f"{what} vs the plain chunked SSD: max abs err y {ey:.3e} (tol "
         f"{tol[0]}/{tol[1]}), state {es:.3e}")
+
+
+def grad_scales(grads, dt):
+    """What each SSD gradient's tolerance is relative to: its largest
+    element, but for dA_log (third) Σ |ddt| dt, the sizes of its terms."""
+    out = [float(g.float().abs().max()) for g in grads]
+    out[2] = float((grads[1].float().abs() * dt).sum())
+    return out
+
+
+def exp_tot_mean(dt, A_log, cl):
+    """The mean over chunks and heads of exp(tot), the decay across a
+    whole chunk: how much the terms that carry memory across it weigh."""
+    B, S, nh = dt.shape
+    tot = dt.reshape(B, S // cl, cl, nh).sum(2) * -torch.exp(A_log)
+    return float(tot.exp().mean())
+
+
+def check_ssd_bwd(rng, dev, B, S, nh, hp, ns, cl, dtype, dt_scale=1.0):
+    """The backward kernel against ssd_chunk_bwd_ref on the same inputs and
+    four nonzero cotangents, and a second call bit for bit against the
+    first. Returns the largest absolute error."""
+    args = ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype, dt_scale)
+    nc = S // cl
+    cots = [rand(rng, shape, torch.float32, dev) for shape in (
+        (B, nc, cl, nh, hp), (B, nc, nh, hp, ns), (B, nc, cl, nh),
+        (B, nc, nh))]
+    got = ssd_kernel.ssd_chunk_bwd(*args, *cots, chunk=cl)
+    ref = ssd_chunk_bwd_ref(*args, *cots, chunk=cl)
+    what = f"ssd bwd B={B} S={S} nh={nh} hp={hp} ns={ns} cl={cl} " \
+        f"{str(dtype)[6:]} dt x{dt_scale} (mean exp(tot) " \
+        f"{exp_tot_mean(args[1], args[2], cl):.2e})"
+    rel, worst = {}, 0.0
+    for name, a, b, top in zip(("dx", "ddt", "dA_log", "dB", "dC"), got,
+                               ref, grad_scales(ref, args[1])):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{what} {name}: {a.dtype} {tuple(a.shape)}"
+                                 f" vs {b.dtype} {tuple(b.shape)}")
+        rtol = BF16_ULP if a.dtype == torch.bfloat16 else 0.0
+        err = check_close(f"{what} {name}", a, b, SSD_BWD_TOL * top, rtol)
+        rel[name], worst = err / top, max(worst, err)
+    again = ssd_kernel.ssd_chunk_bwd(*args, *cots, chunk=cl)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two calls gave different bits")
+    log(f"{what}: max abs err / scale: "
+        + " ".join(f"{n} {v:.2e}" for n, v in rel.items())
+        + f" (tol {SSD_BWD_TOL}{' + one bf16 ulp' if rtol else ''}); a "
+        f"second call bit-identical")
+    return worst
+
+
+def check_ssd_grad(rng, dev, B, S, nh, hp, ns, cl, dtype, dt_scale=1.0):
+    """The gradient of the full ops.ssd (SSDChunk: the chunk kernel and
+    the backward kernel, plus autograd of the inter-chunk recurrence), from
+    an initial state, against autograd of the plain chunked SSD
+    (ssd_chunked) on the card, for random weights on y and the final
+    state."""
+    x, dt, A_log, Bm, Cm = ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype,
+                                      dt_scale)
+    D = rand(rng, (nh,), torch.float32, dev)
+    st0 = rand(rng, (B, nh, hp, ns), torch.float32, dev, 0.2)
+    wy = rand(rng, (B, S, nh, hp), torch.float32, dev)
+    ws = rand(rng, (B, nh, hp, ns), torch.float32, dev)
+    grads = []
+    before = ssd_kernel.ssd_chunk_bwd.launches
+    for fn in (lambda *a: ssd_ops.ssd(*a[:6], chunk=cl, state=a[6]),
+               lambda *a: ssd_ref(*a[:6], cl, state=a[6])):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, dt, A_log, Bm, Cm, D, st0)]
+        y, st = fn(*leaves)
+        ((y.float() * wy).sum() + (st * ws).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    if ssd_kernel.ssd_chunk_bwd.launches != before + 1:
+        raise AssertionError("ops.ssd's gradient did not launch the SSD "
+                             "backward kernel once")
+    what = f"ssd    grad B={B} S={S} nh={nh} hp={hp} ns={ns} cl={cl} " \
+        f"{str(dtype)[6:]} dt x{dt_scale} +state"
+    rel = {}
+    for name, a, b, top in zip(("x", "dt", "A_log", "B", "C", "D", "state"),
+                               *grads, grad_scales(grads[1], dt)):
+        # a bf16 x, B or C gets two gradients (the chunk pieces' and the
+        # recurrence's or D's), each rounded to bf16, and their bf16 sum,
+        # where the plain op rounds once: roundings of terms up to the
+        # largest gradient's size, one ulp each
+        bf = a.dtype == torch.bfloat16
+        rel[name] = check_close(f"{what} d{name}", a, b,
+                                (BF16_ULP if bf else SSD_BWD_TOL) * top,
+                                BF16_ULP if bf else 0.0) / top
+    log(f"{what} vs autograd of the plain chunked SSD: max abs err / scale: "
+        + " ".join(f"d{n} {v:.2e}" for n, v in rel.items())
+        + f" (tol {SSD_BWD_TOL}; bf16 leaves {BF16_ULP} + {BF16_ULP} "
+        f"relative)")
 
 
 def check_flash_strided(rng, dev):
@@ -615,6 +752,21 @@ def phase_kernels_vs_plain(dev):
     check_ssd_full(rng, dev, 1, 64, 2, 16, 8, 32, state=True)
     check_ssd_full(rng, dev, 2, 100, 4, 32, 16, 32)            # padded S
     check_ssd_full(rng, dev, 2, 5, 4, 16, 8, 1, state=True)    # cl = 1
+    # the SSD backward kernel: the shapes above and the tensor-core
+    # instance's hp x ns sweep, both dtypes, two calls bit-identical; the
+    # full op's gradient (an initial state, a padded S) through it
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SSD_BWD_SHAPES[:-2]:
+            check_ssd_bwd(rng, dev, *shape, dtype)
+        for hp in (16, 32):
+            for ns in (8, 16, 32, 64, 128):
+                check_ssd_bwd(rng, dev, 2, 256, 3, hp, ns, 128, dtype)
+        check_ssd_grad(rng, dev, 2, 100, 4, 32, 16, 32, dtype)
+        check_ssd_grad(rng, dev, 1, 300, 3, 64, 64, 256, dtype)
+        # slow decay: exp(tot), w_j and the far tiles' L of size 0.1 to 1
+        for shape in SSD_BWD_SLOW_SHAPES:
+            check_ssd_bwd(rng, dev, *shape, dtype, SLOW_DT)
+        check_ssd_grad(rng, dev, 1, 600, 3, 64, 64, 256, dtype, SLOW_DT)
 
     # the serving shapes
     errs = {}
@@ -674,6 +826,15 @@ def phase_kernels_vs_plain(dev):
     check_ssd_chunk(rng, dev, BATCH, 1, 24, 64, 128, 1, torch.bfloat16)
     check_ssd_full(rng, dev, BATCH, PROMPT, 80, 64, 64, 256)
     check_ssd_full(rng, dev, BATCH, PROMPT, 24, 64, 128, 256)
+    # the backward at the training calls of zamba2-2.7b and mamba2-130m
+    # (and with slow decay)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_ssd_bwd(rng, dev, *SSD_BWD_SHAPES[-1], dtype)
+        check_ssd_bwd(rng, dev, *SSD_BWD_SHAPES[-1], dtype, SLOW_DT)
+        check_ssd_bwd(rng, dev, *SSD_BWD_SHAPES[-2], dtype, SLOW_DT)
+        e = check_ssd_bwd(rng, dev, *SSD_BWD_SHAPES[-2], dtype)
+    errs["ssd_chunk_bwd"] = e
+    free_card()
     # the training shape: stablelm-1.6b's attention at 2 x 4096
     errs["flash_attention_bwd"] = check_flash_bwd(
         rng, dev, TRAIN_B, TRAIN_S, 32, 32, 64, torch.bfloat16, q_chunk=512)
@@ -689,10 +850,29 @@ def expected_launches(cfg):
     L, steps = cfg.n_layers, NEW - 1
     if cfg.family == "dense":
         return {"flash_attention_fwd": L, "flash_attention_bwd": 0,
-                "paged_attention": L * steps, "ssd_chunk_call": 0}
+                "paged_attention": L * steps, "ssd_chunk_call": 0,
+                "ssd_chunk_bwd": 0}
     G = L // cfg.attn_every if cfg.family == "hybrid" else 0
     return {"flash_attention_fwd": G, "flash_attention_bwd": 0,
-            "paged_attention": G * steps, "ssd_chunk_call": L * (1 + steps)}
+            "paged_attention": G * steps, "ssd_chunk_call": L * (1 + steps),
+            "ssd_chunk_bwd": 0}
+
+
+def train_launches(cfg, steps):
+    """What ``steps`` train steps launch: each microbatch runs every layer's
+    forward once, and again in the backward when the layer is
+    rematerialised, and its backward once; attention is each dense layer,
+    or the tied block after every ``attn_every`` Mamba2 layers."""
+    mb, fwd = max(cfg.microbatches, 1), 2 if cfg.remat else 1
+    L = cfg.n_layers
+    attn_calls = {"dense": L, "hybrid": L // max(cfg.attn_every, 1),
+                  "ssm": 0}[cfg.family]
+    ssd_calls = 0 if cfg.family == "dense" else L
+    n = steps * mb
+    return {"flash_attention_fwd": fwd * attn_calls * n,
+            "flash_attention_bwd": attn_calls * n, "paged_attention": 0,
+            "ssd_chunk_call": fwd * ssd_calls * n,
+            "ssd_chunk_bwd": ssd_calls * n}
 
 
 def phase_main_path(dev, arch):
@@ -782,31 +962,51 @@ def card_batch(corpus, dev):
             for k, v in next(iter(train_loader(corpus))).items()}
 
 
-def phase_train(dev, corpus, ckpt_dir):
-    """TrainLoop on stablelm-1.6b at full width and full depth: the
-    counters, set to 0 just before ``run()`` and read just after, must
-    show 48 forward (remat runs each layer's forward twice) and 24
-    backward flash launches a step; the loss stays finite, the gradient
-    is nonzero and the parameters move."""
-    cfg = get_config(TRAIN_ARCH)
+def watched(cfg, params):
+    """Parameters whose change over the run is checked: the embedding, the
+    final norm, and per family the first and last layers' matrices (a
+    Mamba2 layer's wx and A_log, whose gradient only the SSD backward
+    gives; the tied attention block)."""
+    lay = params["layers"]
+    out = {"embed": params["embed"][:256], "final_norm": params["final_norm"]}
+    if cfg.family == "dense":
+        out.update({"wq[0]": lay["attn"]["wq"][0],
+                    f"w2[{cfg.n_layers - 1}]": lay["mlp"]["w2"][-1]})
+        return out
+    out.update({"wx[0]": lay["wx"][0],
+                f"A_log[{cfg.n_layers - 1}]": lay["A_log"][-1]})
+    if cfg.family == "hybrid":
+        out["shared wq"] = params["shared_attn"]["attn"]["wq"]
+    return out
+
+
+def phase_train(dev, corpus, ckpt_dir, arch):
+    """TrainLoop on ``arch`` at full width and full depth: the counters,
+    set to 0 just before ``run()`` and read just after, must show the
+    launches ``train_launches`` derives from the config; the loss stays
+    finite, the gradient is nonzero and the watched parameters move."""
+    cfg = get_config(arch)
     if not cfg.remat:
-        raise AssertionError(f"{TRAIN_ARCH}: expected remat in its config")
+        raise AssertionError(f"{arch}: expected remat in its config")
     t0 = time.perf_counter()
     loop = TrainLoop(cfg, TrainLoopConfig(total_steps=TRAIN_STEPS,
                                           ckpt_every=TRAIN_STEPS + 1,
                                           ckpt_dir=ckpt_dir, log_every=1),
                      train_loader(corpus), seed=0, device=dev)
     n_par = sum(t.numel() for t in tree_leaves(loop.params))
-    lay = loop.params["layers"]
-    watch = {"embed": loop.params["embed"][:256], "wq[0]": lay["attn"]["wq"][0],
-             "w2[23]": lay["mlp"]["w2"][-1],
-             "final_norm": loop.params["final_norm"]}
+    watch = watched(cfg, loop.params)
     before = {n: t.detach().clone() for n, t in watch.items()}
-    log(f"train[{TRAIN_ARCH}]: {cfg.n_layers}L d_model={cfg.d_model} "
-        f"H={cfg.n_heads} hd={cfg.hd} d_ff={cfg.d_ff} vocab="
-        f"{cfg.vocab_size}: {n_par / 1e9:.3f} B params fp32, AdamW m/v "
-        f"fp32, remat={cfg.remat}, bf16 compute; batch {TRAIN_B} x "
-        f"{TRAIN_S} tokens; built in {time.perf_counter() - t0:.1f} s")
+    shape = (f"H={cfg.n_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
+             if cfg.family != "ssm" else "")
+    if cfg.ssm is not None:
+        shape += (f"ssm heads={cfg.ssm.n_heads(cfg.d_model)} headdim="
+                  f"{cfg.ssm.headdim} d_state={cfg.ssm.d_state} chunk="
+                  f"{cfg.ssm.chunk} ")
+    log(f"train[{arch}]: {cfg.family} {cfg.n_layers}L d_model="
+        f"{cfg.d_model} {shape}vocab={cfg.vocab_size}: {n_par / 1e9:.3f} B "
+        f"params fp32, AdamW m/v fp32, remat={cfg.remat}, microbatches="
+        f"{cfg.microbatches}, bf16 compute; batch {TRAIN_B} x {TRAIN_S} "
+        f"tokens; built in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in KERNELS.values():
@@ -818,33 +1018,32 @@ def phase_train(dev, corpus, ckpt_dir):
     launches = {n: fn.launches for n, fn in KERNELS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in loop.metrics_log:
-        log(f"train[{TRAIN_ARCH}]: step {m['step']}: loss {m['loss']:.6f} "
+        log(f"train[{arch}]: step {m['step']}: loss {m['loss']:.6f} "
             f"grad_norm {m['grad_norm']:.6f} lr {m['lr']:.3e}")
-    log(f"train[{TRAIN_ARCH}]: {TRAIN_STEPS} steps in {run_s:.2f} s "
-        f"(first step included); launches {launches}; peak memory "
-        f"{peak_gb:.2f} GB")
-    L = cfg.n_layers
-    want = {"flash_attention_fwd": 2 * L * TRAIN_STEPS,
-            "flash_attention_bwd": L * TRAIN_STEPS, "paged_attention": 0,
-            "ssd_chunk_call": 0}
+    log(f"train[{arch}]: {TRAIN_STEPS} steps in {run_s:.2f} s (first step "
+        f"included); launches {launches}; peak memory {peak_gb:.2f} GB")
+    want = train_launches(cfg, TRAIN_STEPS)
     if launches != want:
-        raise AssertionError(f"train: launch counts {launches} != {want}")
+        raise AssertionError(f"train {arch}: launch counts {launches} != "
+                             f"{want}")
     if len(loop.metrics_log) != TRAIN_STEPS or not all(
             np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
             for m in loop.metrics_log):
-        raise AssertionError(f"train: non-finite metrics {loop.metrics_log}")
+        raise AssertionError(f"train {arch}: non-finite metrics "
+                             f"{loop.metrics_log}")
     if not all(m["grad_norm"] > 0 for m in loop.metrics_log):
-        raise AssertionError("train: a zero gradient")
+        raise AssertionError(f"train {arch}: a zero gradient")
     moved = {n: float((watch[n].float() - before[n].float()).abs().max())
              for n in watch}
     if not all(v > 0 for v in moved.values()):
-        raise AssertionError(f"train: parameters did not move: {moved}")
-    log(f"train[{TRAIN_ARCH}]: largest change of watched parameters over "
-        f"the run: { {n: f'{v:.3e}' for n, v in moved.items()} }")
+        raise AssertionError(f"train {arch}: parameters did not move: "
+                             f"{moved}")
+    log(f"train[{arch}]: largest change of watched parameters over the "
+        f"run: { {n: f'{v:.3e}' for n, v in moved.items()} }")
     return cfg, loop, launches, peak_gb
 
 
-def phase_train_times(dev, cfg, loop, corpus):
+def phase_train_times(dev, arch, cfg, loop, corpus):
     """The train step's device and host time after the run's warm-up,
     tokens/s, and where its time goes (torch.profiler over one step:
     forward + backward, then the optimizer)."""
@@ -863,7 +1062,7 @@ def phase_train_times(dev, cfg, loop, corpus):
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     step_ms = e0.elapsed_time(e1) / reps
     tok_s = TRAIN_B * TRAIN_S * 1e3 / host_ms
-    log(f"train[{TRAIN_ARCH}]: step {step_ms:.3f} ms by CUDA events "
+    log(f"train[{arch}]: step {step_ms:.3f} ms by CUDA events "
         f"({host_ms:.3f} ms host, mean of {reps}), {tok_s:.1f} tokens/s at "
         f"batch {TRAIN_B} x {TRAIN_S}; loss {float(m['loss']):.6f}")
 
@@ -877,19 +1076,84 @@ def phase_train_times(dev, cfg, loop, corpus):
                              warmup=100, total=loop.lc.total_steps)
         loop.params, loop.opt_state, _ = adamw_update(
             box["lg"][1], loop.opt_state, loop.params, lr=lr)
-    log(f"where the time goes [{TRAIN_PATH}] (torch.profiler, one step):")
+    log(f"where the time goes [train {arch}] (torch.profiler, one step):")
     wall, kern, host = _profile(fwd_bwd)
     _report("forward + backward", wall, kern, host)
     wall_o, kern_o, host_o = _profile(optimizer)
     _report("optimizer (AdamW)", wall_o, kern_o, host_o)
     busy = sum(us for us, _ in kern.values()) / 1e3
     busy_o = sum(us for us, _ in kern_o.values()) / 1e3
+    share = 100 * (busy + busy_o) / (wall + wall_o)
     log(f"  train step: wall {wall + wall_o:.3f} ms, device busy "
-        f"{busy + busy_o:.3f} ms ({100 * (busy + busy_o) / (wall + wall_o):.1f}"
-        f"%), optimizer {busy_o:.3f} ms of it")
+        f"{busy + busy_o:.3f} ms ({share:.1f}%), optimizer {busy_o:.3f} ms "
+        f"of it")
     del box
+    peak_holders(arch, loop, batch)
     return {"step_ms": step_ms, "step_host_ms": host_ms,
-            "tokens_per_s": tok_s}
+            "tokens_per_s": tok_s, "profiled_busy_share": share / 100}
+
+
+def _tensor_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def peak_holders(arch, loop, batch, top=10):
+    """What holds the card's memory at the peak of one train step: the
+    bytes allocated before it (parameters, AdamW's moments) and, from the
+    caching allocator's history over the step, the blocks allocated in it
+    that are live at its peak, grouped by the innermost line of
+    ``repro_torch`` that allocated them."""
+    from torch.cuda import memory as cmem
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cmem._record_memory_history(max_entries=2_000_000, stacks="python")
+    try:
+        loop.params, loop.opt_state, _ = loop.step_fn(loop.params,
+                                                      loop.opt_state, batch)
+        torch.cuda.synchronize()
+        trace = cmem._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        cmem._record_memory_history(enabled=None)
+    peak_stat = torch.cuda.max_memory_allocated()
+
+    def replay(upto):
+        live, cur, peak, at = {}, base, base, -1
+        for i, ev in enumerate(trace[:upto]):
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                cur += ev["size"]
+            elif ev["action"] == "free_completed" and ev["addr"] in live:
+                cur -= live.pop(ev["addr"])["size"]
+            if cur > peak:
+                peak, at = cur, i
+        return live, peak, at
+    _, peak, at = replay(len(trace))
+    live = replay(at + 1)[0]
+    groups = {}
+    for ev in live.values():
+        frames = ev.get("frames", [])
+        where = next((f"{f['filename'].split('/src/')[-1]}:{f['line']} "
+                      f"{f['name']}" for f in frames
+                      if "repro_torch" in f["filename"]),
+                     "(no repro_torch frame: "
+                     + (f"{frames[0]['filename']}:{frames[0]['line']})"
+                        if frames else "no Python frame, e.g. the "
+                        "backward's own thread)"))
+        n, b = groups.get(where, (0, 0))
+        groups[where] = (n + 1, b + ev["size"])
+    par, opt = _tensor_bytes(loop.params), _tensor_bytes(loop.opt_state)
+    log(f"memory at the peak of one train step [{arch}] (allocator history, "
+        f"{len(trace)} events): {peak / 1e9:.3f} GB replayed "
+        f"({peak_stat / 1e9:.3f} GB max_memory_allocated); before the step "
+        f"{base / 1e9:.3f} GB: parameters {par / 1e9:.3f}, AdamW m/v "
+        f"{opt / 1e9:.3f}, other {(base - par - opt) / 1e9:.3f}; allocated "
+        f"in the step and live at its peak {(peak - base) / 1e9:.3f} GB in "
+        f"{len(live)} blocks; largest holders:")
+    for where, (n, b) in sorted(groups.items(), key=lambda kv: -kv[1][1])[
+            :top]:
+        log(f"    {b / 1e9:8.3f} GB  x{n:<5d} {where[:100]}")
 
 
 def _plain_flash(q, k, v, *, causal=True, window=0, q_chunk=512, k_chunk=0,
@@ -898,11 +1162,18 @@ def _plain_flash(q, k, v, *, causal=True, window=0, q_chunk=512, k_chunk=0,
                                     scale=scale)
 
 
-def phase_train_grads(dev, corpus):
-    """One step's loss and every gradient leaf at full width and 2 layers,
-    with the flash kernels, against the same step with attention through
-    autograd of the plain ``reference_attention`` (bf16 compute both)."""
-    cfg = get_config(TRAIN_ARCH).replace(n_layers=2)
+def _plain_ssd(x, dt, A_log, B_, C_, D_, *, chunk=256, state=None):
+    return ssd_ref(x, dt, A_log, B_, C_, D_, chunk, state=state)
+
+
+def phase_train_grads(dev, corpus, arch):
+    """One step's loss and every gradient leaf at full width and one group
+    of layers, through the kernels, against the same step with attention
+    through autograd of the plain ``reference_attention`` and the SSD
+    through autograd of the plain chunked SSD (bf16 compute both)."""
+    full = get_config(arch)
+    cfg = full.replace(n_layers=full.attn_every if full.family == "hybrid"
+                       else 2)
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(1),
                             device=dev)
     batch = card_batch(corpus, dev)
@@ -911,37 +1182,39 @@ def phase_train_grads(dev, corpus):
     loss_k, grads_k = loss_and_grads(cfg, params, batch)
     torch.cuda.synchronize()
     launches = {n: fn.launches for n, fn in KERNELS.items()}
-    kernel_attention = attn.flash_attention
-    attn.flash_attention = _plain_flash
+    kernel_attention, kernel_ssd = attn.flash_attention, ssd_ops.ssd
+    attn.flash_attention, ssd_ops.ssd = _plain_flash, _plain_ssd
     try:
         loss_p, grads_p = loss_and_grads(cfg, params, batch)
         torch.cuda.synchronize()
     finally:
-        attn.flash_attention = kernel_attention
-    want = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers, "paged_attention": 0,
-            "ssd_chunk_call": 0}
+        attn.flash_attention, ssd_ops.ssd = kernel_attention, kernel_ssd
+    want = train_launches(cfg, 1)
     if launches != want:
-        raise AssertionError(f"2-layer step launches {launches} != {want}")
+        raise AssertionError(f"{arch} {cfg.n_layers}-layer step launches "
+                             f"{launches} != {want}")
     if any(fn.launches != launches[n] for n, fn in KERNELS.items()):
         raise AssertionError("the plain step launched a kernel")
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     if not loss_err <= GRAD_LOSS_RTOL:
-        raise AssertionError(f"2-layer loss {float(loss_k)} vs plain "
-                             f"{float(loss_p)}: {loss_err:.3e}")
+        raise AssertionError(f"{arch} {cfg.n_layers}-layer loss "
+                             f"{float(loss_k)} vs plain {float(loss_p)}: "
+                             f"{loss_err:.3e}")
     worst = ("", 0.0)
     names = [n for n, _ in _named_leaves(grads_k)]
     for name, a, b in zip(names, tree_leaves(grads_k), tree_leaves(grads_p)):
         rel = float((a.float() - b.float()).norm() / b.float().norm())
         if not (np.isfinite(rel) and rel <= GRAD_REL_L2):
-            raise AssertionError(f"2-layer gradient {name}: relative L2 "
-                                 f"{rel:.3e} > {GRAD_REL_L2}")
+            raise AssertionError(f"{arch} {cfg.n_layers}-layer gradient "
+                                 f"{name}: relative L2 {rel:.3e} > "
+                                 f"{GRAD_REL_L2}")
         worst = max(worst, (name, rel), key=lambda x: x[1])
-    log(f"train[{TRAIN_ARCH}, 2 layers]: flash kernels vs autograd of the "
-        f"plain attention, one step at {TRAIN_B} x {TRAIN_S}: loss "
-        f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_err:.2e}, "
-        f"tol {GRAD_LOSS_RTOL}); {len(names)} gradient leaves, worst "
-        f"relative L2 {worst[1]:.3e} at {worst[0]} (tol {GRAD_REL_L2})")
+    log(f"train[{arch}, {cfg.n_layers} layers]: kernels vs autograd of the "
+        f"plain attention and SSD, one step at {TRAIN_B} x {TRAIN_S} "
+        f"(launches {launches}): loss {float(loss_k):.6f} vs "
+        f"{float(loss_p):.6f} (rel {loss_err:.2e}, tol {GRAD_LOSS_RTOL}); "
+        f"{len(names)} gradient leaves, worst relative L2 {worst[1]:.3e} at "
+        f"{worst[0]} (tol {GRAD_REL_L2})")
     return worst[1]
 
 
@@ -954,12 +1227,12 @@ def _named_leaves(tree, prefix=""):
             yield prefix + k, v
 
 
-def phase_train_restart(dev, ckpt_dir):
+def phase_train_restart(dev, ckpt_dir, arch):
     """Twin of test_substrate.py::test_train_restart_matches_uninterrupted
-    on the card at smoke size (head_dim 32): crash at step 8, restart from
-    the port's ring checkpoint of step 5, and the final parameters are
-    bitwise those of the uninterrupted run."""
-    cfg = get_smoke_config(TRAIN_ARCH).replace(head_dim=32)
+    on the card at smoke size (head_dim 32, which the flash kernels take):
+    crash at step 8, restart from the port's ring checkpoint of step 5,
+    and the final parameters are bitwise those of the uninterrupted run."""
+    cfg = get_smoke_config(arch).replace(head_dim=32)
     params0 = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
                              device=dev)
     step_fn = make_train_step(cfg, peak_lr=1e-2, warmup=2)
@@ -1003,7 +1276,7 @@ def phase_train_restart(dev, ckpt_dir):
                              f"differ from the uninterrupted run: {differ}; "
                              f"ops without a deterministic CUDA version: "
                              f"{nondet}")
-    log(f"train restart [{TRAIN_ARCH} smoke, hd 32]: crash at step "
+    log(f"train restart [{arch} smoke, hd 32]: crash at step "
         f"{RESTART_CRASH}, restart from the ring checkpoint of step {st}: "
         f"all {len(tree_leaves(p))} parameter leaves bitwise equal to the "
         f"uninterrupted {RESTART_STEPS} steps under "
@@ -1029,6 +1302,25 @@ def ssd_work(B, S, nh, hp, ns, cl, esz):
     flops = (2 * B * nc * tri * ns + 2 * B * nc * nh * tri * hp
              + 3 * B * nc * nh * tri + 2 * B * S * nh * hp * ns
              + 2 * B * S * nh * hp + 2 * B * S * nh)
+    return byt, flops
+
+
+def ssd_bwd_work(B, S, nh, hp, ns, cl, esz):
+    """(bytes, flops) of one ssd_chunk_bwd: each input (x, dt, A_log, B, C
+    and the four fp32 cotangents) read once, each output (dx, ddt, dA_log,
+    dB, dC) written once; the products on the lower triangle of each
+    chunk: s = C Bᵀ, dC and dB from ds once a chunk, g = dy xdtᵀ and
+    dxdt += Pᵀ dy a head, dst B and the states' term of dB a head (FMA =
+    2), plus the elementwise L, P, r and ds and the per-token dx, ddt."""
+    nc = S // cl
+    tri = cl * (cl + 1) // 2
+    byt = (2 * B * S * nh * hp * esz + 2 * B * S * nh * 4 + 2 * nh * 4
+           + 4 * B * S * ns * esz                  # x, dx, dt, ddt, A, B, C
+           + B * S * nh * hp * 4 + B * nc * nh * hp * ns * 4
+           + B * S * nh * 4 + B * nc * nh * 4)     # dy, dst, decs, detot
+    flops = B * nc * (6 * tri * ns + 4 * nh * tri * hp
+                      + 4 * nh * cl * hp * ns + 6 * nh * tri) \
+        + 4 * B * S * nh * hp
     return byt, flops
 
 
@@ -1133,9 +1425,8 @@ def time_paged(rng, dev, H, KH, hd, length):
     return ms, plain_ms, lib_ms, bnd
 
 
-def time_ssd(rng, dev, nh, hp, ns, S, cl, what):
+def time_ssd(rng, dev, nh, hp, ns, S, cl, what, B=BATCH):
     dt = torch.bfloat16
-    B = BATCH
     n_sets = 4
     sets = [ssd_inputs(rng, dev, B, S, nh, hp, ns, dt) for _ in range(n_sets)]
     reps = 50 if S > 1 else 500
@@ -1153,6 +1444,36 @@ def time_ssd(rng, dev, nh, hp, ns, S, cl, what):
         f"{byt / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, "
         f"{flops / 1e9:.3f} GFLOP at the {SSD_RATE[0]}' "
         f"{SSD_RATE[1] / 1e12:.0f} TFLOP/s)")
+    return ms, plain_ms, None, bnd
+
+
+def time_ssd_bwd(rng, dev, B, S, nh, hp, ns, cl, what):
+    """Device ms of the backward kernel at a training call (bf16 x/B/C,
+    fp32 cotangents), its plain version and its bound; no one PyTorch call
+    computes this gradient."""
+    dt = torch.bfloat16
+    nc = S // cl
+    sets = []
+    for _ in range(2):                             # 2 x >= 195 MB > L2
+        args = ssd_inputs(rng, dev, B, S, nh, hp, ns, dt)
+        cots = [rand(rng, shape, torch.float32, dev) for shape in (
+            (B, nc, cl, nh, hp), (B, nc, nh, hp, ns), (B, nc, cl, nh),
+            (B, nc, nh))]
+        sets.append(args + tuple(cots))
+    ms = cuda_ms(lambda i: ssd_kernel.ssd_chunk_bwd(*sets[i], chunk=cl), 2,
+                 10, warmup=2)
+    plain_ms = cuda_ms(lambda i: ssd_chunk_bwd_ref(*sets[i], chunk=cl), 2,
+                       3, warmup=1)
+    byt, flops = ssd_bwd_work(B, S, nh, hp, ns, cl, 2)
+    t_bytes, t_ops = byt / PEAK_BYTES_PER_S, flops / SSD_RATE[1]
+    bnd = (max(t_bytes, t_ops) * 1e3,
+           "bytes" if t_bytes >= t_ops else "operations")
+    log(f"  ssd bwd {what}: x {(B, S, nh, hp)} ns {ns} cl {cl} bf16: kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of its "
+        f"{flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} ms, library none, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}; {byt / 1e6:.1f} MB at "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {flops / 1e9:.3f} GFLOP at the "
+        f"{SSD_RATE[0]}' {SSD_RATE[1] / 1e12:.0f} TFLOP/s)")
     return ms, plain_ms, None, bnd
 
 
@@ -1183,6 +1504,16 @@ def phase_kernel_times(dev):
     time_ssd(rng, dev, 24, 64, 128, PROMPT, 256, "mamba2-130m prefill")
     time_ssd(rng, dev, 80, 64, 64, 1, 1, "zamba2-2.7b decode step")
     time_ssd(rng, dev, 24, 64, 128, 1, 1, "mamba2-130m decode step")
+    free_card()
+    # the training calls: one microbatch of zamba2-2.7b, mamba2-130m's batch
+    time_ssd(rng, dev, 80, 64, 64, TRAIN_S, 256, "zamba2-2.7b train", B=1)
+    time_ssd(rng, dev, 24, 64, 128, TRAIN_S, 256, "mamba2-130m train",
+             B=TRAIN_B)
+    out["ssd_chunk_bwd"] = time_ssd_bwd(rng, dev, 1, TRAIN_S, 80, 64, 64,
+                                        256, "zamba2-2.7b train")
+    free_card()
+    time_ssd_bwd(rng, dev, TRAIN_B, TRAIN_S, 24, 64, 128, 256,
+                 "mamba2-130m train")
     free_card()
     return out
 
@@ -1232,6 +1563,7 @@ def phase_serve_times(dev, arch, cfg, serve, prompts):
 KINDS = (("flash fwd", ("flash_fwd_",)),
          ("flash bwd", ("flash_bwd_",)),
          ("paged kernel", ("paged_split_kernel",)),
+         ("ssd bwd", ("ssd_bwd_",)),
          ("ssd kernel", ("ssd_chunk_kernel", "ssd_chunk_mma_kernel",
                          "ssd_decode_kernel")),
          ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
@@ -1335,26 +1667,32 @@ def main() -> int:
         phase_profile(dev, arch, cfg, serve, prompts)
         del serve
         free_card()
+    train_times = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        cfg = get_config(TRAIN_ARCH)
-        corpus = make_synthetic_corpus(
-            os.path.join(tmp, "tokens.bin"), 64 * TRAIN_B * (TRAIN_S + 1),
-            cfg.vocab_size, seed=0)
-        cfg, loop, launches[TRAIN_PATH], train_peak_gb = phase_train(
-            dev, corpus, os.path.join(tmp, "ckpt_full"))
-        train_times = phase_train_times(dev, cfg, loop, corpus)
-        train_times["peak_memory_gb"] = train_peak_gb
-        del loop
-        free_card()
-        train_times["grad_rel_l2_2_layers"] = phase_train_grads(dev, corpus)
-        free_card()
-        phase_train_restart(dev, os.path.join(tmp, "ckpt_restart"))
-        free_card()
+        for arch in TRAIN_ARCHS:
+            corpus = make_synthetic_corpus(
+                os.path.join(tmp, f"{arch}.bin"),
+                64 * TRAIN_B * (TRAIN_S + 1), get_config(arch).vocab_size,
+                seed=0)
+            cfg, loop, launches[f"train {arch}"], peak_gb = phase_train(
+                dev, corpus, os.path.join(tmp, "ckpt_full"), arch)
+            train_times[arch] = phase_train_times(dev, arch, cfg, loop,
+                                                  corpus)
+            train_times[arch]["peak_memory_gb"] = peak_gb
+            del loop
+            free_card()
+            if arch in GRAD_ARCHS:
+                train_times[arch]["grad_rel_l2_one_group"] = \
+                    phase_train_grads(dev, corpus, arch)
+                free_card()
+                phase_train_restart(dev, os.path.join(tmp, f"ckpt_{arch}"),
+                                    arch)
+                free_card()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     times = phase_kernel_times(dev)
-    paths = ARCHS + (TRAIN_PATH,)
+    paths = ARCHS + tuple(f"train {a}" for a in TRAIN_ARCHS)
     kernels = []
     for kname, src, replaces in (
             ("flash_attention_fwd", "src/repro_torch/csrc/flash_fwd.cu",
@@ -1364,7 +1702,9 @@ def main() -> int:
             ("paged_attention", "src/repro_torch/csrc/paged_attn.cu",
              "src/repro/kernels/paged_attn/kernel.py:70"),
             ("ssd_chunk_call", "src/repro_torch/csrc/ssd_chunk.cu",
-             "src/repro/kernels/ssd_scan/kernel.py:73")):
+             "src/repro/kernels/ssd_scan/kernel.py:73"),
+            ("ssd_chunk_bwd", "src/repro_torch/csrc/ssd_bwd.cu",
+             "src/repro/models/mamba.py:76")):
         ms, plain_ms, lib_ms, (bound_ms, bound_by) = times[kname]
         by_path = {a: launches[a][kname] for a in paths}
         entry = {"name": kname, "route": "cuda", "source": src,

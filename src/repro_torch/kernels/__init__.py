@@ -4,8 +4,10 @@ import torch
 
 
 def needs_grad(*tensors) -> bool:
-    """Whether autograd would differentiate through a call on these: an op
-    whose kernel has no backward raises then, on CUDA tensors, rather than
-    return a result that silently drops the gradient."""
+    """Whether autograd would differentiate through a call on these: the
+    paged decode op, whose kernel has no backward, raises then, on CUDA
+    tensors, rather than return a result that silently drops the gradient
+    (flash attention and the SSD differentiate through their backward
+    kernels)."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)

@@ -1,13 +1,18 @@
-"""Mamba2 SSD intra-chunk step — the hand-written CUDA kernel's wrapper.
+"""Mamba2 SSD intra-chunk step and its gradient — the hand-written CUDA
+kernels' wrappers.
 
-The kernel is ``csrc/ssd_chunk.cu`` (it replaces the Pallas TPU kernel
-``repro/kernels/ssd_scan/kernel.py:ssd_chunk_call``); its header says what
-bounds it and how it is laid out. This wrapper checks its inputs,
-allocates the four fp32 outputs, launches on the current stream and counts
-launches in ``ssd_chunk_call.launches``. It takes CUDA tensors only; the
-plain version is ``ref.ssd_chunk_ref``, and ``ref.ssd_chunk_split_ref`` is
-the split arithmetic of the bf16 tensor-core instance. ``plan`` reports
-which of the source's three kernels a call runs and how it is laid out.
+The forward is ``csrc/ssd_chunk.cu`` (it replaces the Pallas TPU kernel
+``repro/kernels/ssd_scan/kernel.py:ssd_chunk_call``), the backward
+``csrc/ssd_bwd.cu`` (it replaces the gradient ``jax.grad`` takes through
+the jnp ``ssd_chunked`` at ``repro/models/mamba.py:76``; the JAX package
+has no Pallas backward). Each source's header says what bounds it and how
+it is laid out. The wrappers check their inputs, allocate the outputs
+(and the backward's scratch), launch on the current stream and count
+launches in ``ssd_chunk_call.launches`` / ``ssd_chunk_bwd.launches``.
+They take CUDA tensors only; the plain versions are ``ref.ssd_chunk_ref``
+(with ``ref.ssd_chunk_split_ref``, the split arithmetic of the bf16
+tensor-core instance) and ``ref.ssd_chunk_bwd_ref``. ``plan`` reports
+which of the forward's three kernels a call runs and how it is laid out.
 """
 
 from __future__ import annotations
@@ -22,9 +27,36 @@ SOURCE = "ssd_chunk"
 _SYMBOLS = {torch.bfloat16: "ssd_chunk_bf16", torch.float32: "ssd_chunk_f32"}
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 MAX_HP, MAX_NS = 128, 256     # y accumulators a thread; shared-memory tiles
+BWD_SOURCE = "ssd_bwd"
+_BWD_SYMBOLS = {torch.bfloat16: "ssd_bwd_bf16", torch.float32: "ssd_bwd_f32"}
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the backward's tiles: hp and ns a multiple of 4 up to these, cl <= 256
+BWD_MAX_HP, BWD_MAX_NS, BWD_MAX_CL = 64, 128, 256
 PATHS = ("scalar", "mma", "decode")
 _PLAN_KEYS = ("path", "ctas", "threads", "heads_per_cta", "smem_bytes",
               "ctas_per_sm", "registers", "spill_bytes", "sms")
+
+
+def _check_inputs(name, x, dt, A_log, B_, C_, extra=()):
+    B, S, nh, hp = x.shape
+    ns = B_.shape[-1]
+    for t in (x, dt, A_log, B_, C_, *extra):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{name} launches a CUDA kernel: every input "
+                             f"must be on one CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous inputs")
+    if x.dtype not in _SYMBOLS or B_.dtype != x.dtype or C_.dtype != x.dtype:
+        raise TypeError(f"SSD kernels take bf16 or fp32 x/B/C of one dtype, "
+                        f"got {x.dtype}/{B_.dtype}/{C_.dtype}")
+    if dt.dtype != torch.float32 or A_log.dtype != torch.float32:
+        raise TypeError(f"SSD kernels take fp32 dt and A_log, got "
+                        f"{dt.dtype}/{A_log.dtype}")
+    if tuple(dt.shape) != (B, S, nh) or tuple(A_log.shape) != (nh,) \
+            or tuple(B_.shape) != (B, S, ns) or C_.shape != B_.shape:
+        raise ValueError(f"bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
+                         f"A_log{tuple(A_log.shape)} B{tuple(B_.shape)} "
+                         f"C{tuple(C_.shape)}")
 
 
 def ssd_chunk_call(x, dt, A_log, B_, C_, *, chunk: int):
@@ -40,24 +72,7 @@ def ssd_chunk_call(x, dt, A_log, B_, C_, *, chunk: int):
     """
     B, S, nh, hp = x.shape
     ns = B_.shape[-1]
-    for t in (x, dt, A_log, B_, C_):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError("ssd_chunk_call launches a CUDA kernel: every "
-                             "input must be on one CUDA device, got "
-                             + str(t.device))
-        if not t.is_contiguous():
-            raise ValueError("ssd_chunk_call needs contiguous inputs")
-    if x.dtype not in _SYMBOLS or B_.dtype != x.dtype or C_.dtype != x.dtype:
-        raise TypeError(f"SSD kernel takes bf16 or fp32 x/B/C of one dtype, "
-                        f"got {x.dtype}/{B_.dtype}/{C_.dtype}")
-    if dt.dtype != torch.float32 or A_log.dtype != torch.float32:
-        raise TypeError(f"SSD kernel takes fp32 dt and A_log, got "
-                        f"{dt.dtype}/{A_log.dtype}")
-    if tuple(dt.shape) != (B, S, nh) or tuple(A_log.shape) != (nh,) \
-            or tuple(B_.shape) != (B, S, ns) or C_.shape != B_.shape:
-        raise ValueError(f"bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
-                         f"A_log{tuple(A_log.shape)} B{tuple(B_.shape)} "
-                         f"C{tuple(C_.shape)}")
+    _check_inputs("ssd_chunk_call", x, dt, A_log, B_, C_)
     if hp % 4 or hp > MAX_HP or ns > MAX_NS:
         raise ValueError(f"SSD kernel takes hp <= {MAX_HP} (a multiple of 4) "
                          f"and ns <= {MAX_NS}, got hp={hp} ns={ns}")
@@ -83,6 +98,62 @@ def ssd_chunk_call(x, dt, A_log, B_, C_, *, chunk: int):
 
 
 ssd_chunk_call.launches = 0
+
+
+def ssd_chunk_bwd(x, dt, A_log, B_, C_, dy, dst, decs, detot, *,
+                  chunk: int):
+    """The gradient of ``ssd_chunk_call``'s pieces: the forward's inputs
+    (as ``ssd_chunk_call`` takes them, with hp and ns a multiple of 4, hp
+    <= 64, ns <= 128 and cl = min(chunk, S) <= 256) and the four pieces'
+    cotangents, contiguous fp32: dy (B, nc, cl, nh, hp), dst (B, nc, nh,
+    hp, ns), decs (B, nc, cl, nh), detot (B, nc, nh).
+
+    Returns (dx, ddt, dA_log, dB, dC): dx, dB and dC in x's dtype, ddt
+    and dA_log fp32. No atomics: two calls on the same inputs give the
+    same bits."""
+    B, S, nh, hp = x.shape
+    ns = B_.shape[-1]
+    _check_inputs("ssd_chunk_bwd", x, dt, A_log, B_, C_,
+                  (dy, dst, decs, detot))
+    cl = min(chunk, S)
+    if hp % 4 or hp > BWD_MAX_HP or ns % 4 or ns > BWD_MAX_NS \
+            or cl > BWD_MAX_CL:
+        raise ValueError(f"SSD backward kernel takes hp <= {BWD_MAX_HP} and "
+                         f"ns <= {BWD_MAX_NS} (multiples of 4) and chunks "
+                         f"<= {BWD_MAX_CL}, got hp={hp} ns={ns} cl={cl}")
+    if S % cl:
+        raise ValueError(f"S={S} is not a multiple of the chunk {cl}: pad "
+                         f"first (ops.ssd does)")
+    nc = S // cl
+    want = {"dy": (B, nc, cl, nh, hp), "dst": (B, nc, nh, hp, ns),
+            "decs": (B, nc, cl, nh), "detot": (B, nc, nh)}
+    for (name, shape), t in zip(want.items(), (dy, dst, decs, detot)):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"cotangent {name}: want fp32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA_log = torch.empty_like(A_log)
+    dB = torch.empty_like(B_)
+    dC = torch.empty_like(C_)
+    ws = _build.bind(BWD_SOURCE, "ssd_bwd_workspace", [ctypes.c_int] * 4)
+    nbytes = ws(B, S, nh, cl)
+    if nbytes < 0:
+        raise ValueError(f"SSD backward kernel: no scratch layout for B={B} "
+                         f"S={S} nh={nh} cl={cl} (past 2 GB)")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    symbol = _BWD_SYMBOLS[x.dtype]
+    fn = _build.bind(BWD_SOURCE, symbol, _BWD_ARGTYPES)
+    err = fn(*(t.data_ptr() for t in (x, dt, A_log, B_, C_, dy, dst, decs,
+                                      detot, dx, ddt, dA_log, dB, dC,
+                                      scratch)),
+             B, S, nh, hp, ns, cl, _build.stream_handle(x.device))
+    _build.check(BWD_SOURCE, symbol, err)
+    ssd_chunk_bwd.launches += 1
+    return dx, ddt, dA_log, dB, dC
+
+
+ssd_chunk_bwd.launches = 0
 
 
 def plan(B: int, S: int, nh: int, hp: int, ns: int, cl: int, dtype) -> dict:

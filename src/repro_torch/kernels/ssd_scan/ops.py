@@ -1,34 +1,53 @@
-"""Full SSD = the intra-chunk pieces (the CUDA kernel on CUDA tensors, the
-plain version on CPU tensors and on nothing else) + the linear inter-chunk
-recurrence, which stays plain PyTorch as it stays jnp around the Pallas
-kernel (``repro/kernels/ssd_scan/ops.py``).
+"""Full SSD = the intra-chunk pieces (the CUDA kernels on CUDA tensors,
+the plain versions on CPU tensors and on nothing else) + the linear
+inter-chunk recurrence, which stays plain PyTorch as it stays jnp around
+the Pallas kernel (``repro/kernels/ssd_scan/ops.py``) and is
+differentiated by autograd.
 
-The kernel has no backward yet (the JAX package never differentiates its
-Pallas SSD kernel either: it trains with ``use_pallas=False``). A call on
-CUDA tensors that needs a gradient raises ``NotImplementedError`` rather
-than return a tensor that would drop it; on CPU tensors the plain version
-differentiates as it is."""
+``SSDChunk`` differentiates the pieces: on CUDA tensors its forward is
+the chunk kernel ``ssd_chunk_call`` and its backward the hand-written
+``ssd_chunk_bwd`` (``csrc/ssd_bwd.cu``); on CPU tensors ``ssd_chunk_ref``
+and its explicit gradient ``ssd_chunk_bwd_ref``. The forward saves only
+its inputs and the backward recomputes cs and L, as the JAX package's
+``ssd_chunked`` recomputes each chunk under ``jax.checkpoint``."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import needs_grad
-from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_call as _kernel
-from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_bwd, ssd_chunk_call
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
-NO_BACKWARD = ("the SSD chunk kernel has no backward yet: training the ssm "
-               "and hybrid families on the card needs the SSD backward "
-               "kernel of ROADMAP.md Queue 1, item 3")
+
+class SSDChunk(torch.autograd.Function):
+    """apply(x, dt, A_log, B_, C_, chunk) -> (y_diag, states, exp_cs,
+    exp_tot), as ``ssd_chunk_call``. A call that needs no gradient saves
+    nothing and launches the forward kernel alone."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B_, C_, chunk):
+        pieces = ssd_chunk_ref if x.device.type == "cpu" else ssd_chunk_call
+        out = pieces(x, dt, A_log, B_, C_, chunk=chunk)
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(x, dt, A_log, B_, C_)
+            ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dst, decs, detot):
+        x, dt, A_log, B_, C_ = ctx.saved_tensors
+        grad = ssd_chunk_bwd_ref if x.device.type == "cpu" else ssd_chunk_bwd
+        cot = [t.float().contiguous() for t in (dy, dst, decs, detot)]
+        dx, ddt, dA_log, dB, dC = grad(x, dt, A_log, B_, C_, *cot,
+                                       chunk=ctx.chunk)
+        return dx, ddt, dA_log, dB, dC, None
 
 
 def ssd(x, dt, A_log, B_, C_, D_, *, chunk: int = 256, state=None):
     """x: (B, S, nh, hp); dt: (B, S, nh) (post-softplus, fp32); A_log, D_:
     (nh,); B_/C_: (B, S, ns); state: (B, nh, hp, ns) or None.
     Returns (y (B, S, nh, hp) in x's dtype, final_state fp32)."""
-    if x.device.type != "cpu" and needs_grad(x, dt, A_log, B_, C_, D_, state):
-        raise NotImplementedError(NO_BACKWARD)
     B, S, nh, hp = x.shape
     ns = B_.shape[-1]
     cl = min(chunk, S)
@@ -42,9 +61,8 @@ def ssd(x, dt, A_log, B_, C_, D_, *, chunk: int = 256, state=None):
         S = S + pad
     nc = S // cl
 
-    pieces = ssd_chunk_ref if x.device.type == "cpu" else _kernel
-    y_diag, states, exp_cs, exp_tot = pieces(x, dt, A_log.float(), B_, C_,
-                                             chunk=chunk)
+    y_diag, states, exp_cs, exp_tot = SSDChunk.apply(x, dt, A_log.float(),
+                                                     B_, C_, chunk)
 
     if state is None:
         state = torch.zeros((B, nh, hp, ns), dtype=torch.float32,

@@ -17,11 +17,11 @@ block follows every ``attn_every`` Mamba2 layers) runs its SSD through the
 CUDA SSD chunk kernel on the card, at prefill and at decode.
 
 Training differentiates ``forward``: attention through the flash
-kernels' ``FlashAttention`` function, and with ``cfg.remat`` each layer
-is rematerialised in the backward (``_maybe_remat``). On the card only
-the dense family trains: the SSD kernel has no backward yet, and its op
-raises when a gradient is needed (ROADMAP.md Queue 1); on the CPU every
-family differentiates through the plain versions.
+kernels' ``FlashAttention`` function, every Mamba2 layer's SSD through
+``SSDChunk`` (the SSD chunk kernel and its backward kernel), and with
+``cfg.remat`` each layer is rematerialised in the backward
+(``_maybe_remat``). The dense, ssm and hybrid families train on the card
+through the kernels and on the CPU through the plain versions.
 
 The moe, vlm and audio families raise ``NotImplementedError``: they come
 in later slices of the port (ROADMAP.md, Queue 1).

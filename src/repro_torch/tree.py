@@ -6,38 +6,39 @@ so a checkpoint's leaf list is the same in both packages."""
 from __future__ import annotations
 
 
+def _flatten(t, leaves):
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return (dict, tuple(keys), tuple(_flatten(t[k], leaves)
+                                         for k in keys))
+    if isinstance(t, (tuple, list)):                  # NamedTuples too
+        return (type(t), None, tuple(_flatten(x, leaves) for x in t))
+    leaves.append(t)
+    return None
+
+
 def tree_flatten(tree):
-    """(leaves, treedef); everything that is not a container is a leaf."""
+    """(leaves, treedef); everything that is not a container is a leaf.
+    Module-level recursion, not a nested function that calls itself: such
+    a closure is a reference cycle, and it would keep ``leaves`` (whole
+    gradient trees) alive until the garbage collector ran."""
     leaves = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return (dict, tuple(keys), tuple(walk(t[k]) for k in keys))
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return (type(t), None, tuple(walk(x) for x in t))
-        if isinstance(t, (tuple, list)):
-            return (type(t), None, tuple(walk(x) for x in t))
-        leaves.append(t)
-        return None
 
-    return leaves, walk(tree)
+def _build(d, it):
+    if d is None:
+        return next(it)
+    kind, keys, kids = d
+    if kind is dict:
+        return {k: _build(c, it) for k, c in zip(keys, kids)}
+    if hasattr(kind, "_fields"):
+        return kind(*(_build(c, it) for c in kids))
+    return kind(_build(c, it) for c in kids)
 
 
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, keys, kids = d
-        if kind is dict:
-            return {k: build(c) for k, c in zip(keys, kids)}
-        if hasattr(kind, "_fields"):
-            return kind(*(build(c) for c in kids))
-        return kind(build(c) for c in kids)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> list:

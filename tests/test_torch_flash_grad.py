@@ -3,9 +3,10 @@ plain forward with its lse and the plain block-recompute backward, which
 the CUDA kernels replace on a card) against ``jax.grad`` of the JAX
 package's ``flash_attention`` (its custom VJP), on the same numpy inputs,
 also at the bf16 backward kernels' tile shape; the kernels' tile rule
-(``ref.tile_kinds``) against the mask; plus the gradient guards of the
-ops whose kernels have no backward. The CUDA backward kernel is held
-against the plain backward on a card by tests/test_torch_gpu.py."""
+(``ref.tile_kinds``) against the mask; plus the gradient guard of the
+paged op, whose kernel has no backward, and the SSD op's way through its
+``SSDChunk`` function. The CUDA backward kernels are held against the
+plain backwards on a card by tests/test_torch_gpu.py."""
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from repro_torch.kernels.flash_attention.ref import (TILE_EDGE,
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as tattn
+from repro_torch.models import mamba as tmamba
 
 # tests/test_models.py::test_flash_gradients_match_reference
 GRAD_TOL = 5e-5
@@ -178,18 +180,29 @@ def test_no_grad_forward_matches_grad_forward():
     assert torch.equal(a, b.detach())
 
 
-def test_ops_without_a_backward_raise_when_a_gradient_is_needed():
+def test_ops_without_a_backward_raise_when_a_gradient_is_needed(
+        monkeypatch):
     """On a tensor that is not on the CPU (here the ``meta`` device, so no
-    card is needed), the SSD and paged ops refuse a call that autograd
-    would differentiate, rather than return a tensor that drops the
-    gradient; without a gradient they go on to their kernels."""
+    card is needed), the paged op, whose kernel has no backward, refuses a
+    call that autograd would differentiate rather than return a tensor that
+    drops the gradient; without a gradient it goes on to its kernel. The
+    SSD op has a backward kernel: a call that needs a gradient goes through
+    ``SSDChunk`` (on ``meta`` tensors to the kernel's wrapper, which takes
+    CUDA tensors only), and on the CPU its gradient (the plain pieces and
+    their explicit backward) equals autograd through the plain pieces of
+    ``ssd_chunked``, to 1e-5 of each gradient's largest element."""
     meta = torch.device("meta")
     x = torch.empty((1, 8, 2, 16), device=meta, requires_grad=True)
     dt = torch.empty((1, 8, 2), device=meta)
     A_log, D = torch.empty(2, device=meta), torch.empty(2, device=meta)
     Bm = torch.empty((1, 8, 4), device=meta)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
+    calls = []
+    apply = ssd_ops.SSDChunk.apply
+    monkeypatch.setattr(ssd_ops.SSDChunk, "apply",
+                        lambda *a: calls.append(a[-1]) or apply(*a))
+    with pytest.raises(ValueError, match="CUDA"):
         ssd_ops.ssd(x, dt, A_log, Bm, Bm, D, chunk=8)
+    assert calls == [8]
     q = torch.empty((1, 2, 16), device=meta, requires_grad=True)
     pool = torch.empty((2, 16, 2, 16), device=meta)
     table = torch.zeros((1, 2), dtype=torch.int32, device=meta)
@@ -198,10 +211,24 @@ def test_ops_without_a_backward_raise_when_a_gradient_is_needed():
         paged_ops.paged_attention(q, pool, pool, table, lens)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         paged_ops.paged_attention(q, pool, pool, table, lens)
-    # the CPU path differentiates through the plain versions
-    xc = torch.randn((1, 8, 2, 16), requires_grad=True)
-    y, _ = ssd_ops.ssd(xc, torch.rand((1, 8, 2)), torch.zeros(2),
-                       torch.randn((1, 8, 4)), torch.randn((1, 8, 4)),
-                       torch.ones(2), chunk=4)
-    y.sum().backward()
-    assert xc.grad is not None and torch.isfinite(xc.grad).all()
+    # the CPU path: SSDChunk's gradient against autograd of ssd_chunked
+    rng = np.random.default_rng(5)
+    f = np.float32
+    arrs = [rng.standard_normal((1, 10, 2, 16)).astype(f) * 0.5,
+            np.log1p(np.exp(rng.standard_normal((1, 10, 2)))).astype(f),
+            rng.standard_normal(2).astype(f) * 0.3,
+            rng.standard_normal((1, 10, 4)).astype(f) * 0.5,
+            rng.standard_normal((1, 10, 4)).astype(f) * 0.5]
+    grads = []
+    for ssd in (lambda *a: ssd_ops.ssd(*a, torch.ones(2), chunk=4),
+                lambda *a: tmamba.ssd_chunked(*a, torch.ones(2), 4,
+                                              return_state=True)):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in arrs]
+        y, st = ssd(*leaves)
+        (y.sum() + (st * 0.5).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    assert len(calls) == 2
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        tol = 1e-5 * float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)

@@ -23,7 +23,8 @@ from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_ref,
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_bwd_ref,
+                                              ssd_chunk_ref,
                                               ssd_chunk_split_ref, ssd_ref)
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
@@ -75,6 +76,20 @@ SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
               (4, 1, 24, 64, 128, 1),
               (2, 3, 2, 12, 10, 1),                    # ns % 4 != 0 at cl 1
               (1, 64, 3, 12, 20, 32)]                  # scalar-kernel shape
+# the SSD backward (B, S, nh, hp, ns, cl): the smoke configs' head shape,
+# and one of zamba2-2.7b's with a ragged last 64-row tile (cl 200); each
+# gradient within SSD_BWD_TOL of its largest element (for dA_log, a sum
+# of terms that cancel, of Σ |ddt| dt), the same fp32 arithmetic summed in
+# other orders; a bf16 dx/dB/dC may be one bf16 ulp (2^-7 relative) from
+# the plain one
+SSD_BWD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 400, 3, 64, 64, 200)]
+SSD_BWD_TOL = 1e-4
+# slow decay: dt scaled by SLOW_DT makes dt·A about -0.008 a token (not
+# -0.8), so exp(tot), w_j across the chunk and L between tiles two apart
+# are 0.1 to 1 and an error in them shows; cl 200 and 256, zamba2-2.7b's
+# and mamba2-130m's head shapes
+SLOW_DT = 0.01
+SSD_BWD_SLOW_SHAPES = [(1, 400, 3, 64, 64, 200), (2, 512, 3, 64, 128, 256)]
 # the tensor-core instance's head shapes: hp x ns, two chunks of 128
 SSD_HEAD_SWEEP = [(hp, ns) for hp in (16, 32, 64)
                   for ns in (8, 16, 32, 64, 128)]
@@ -426,13 +441,15 @@ def test_paged_kernel_every_decode_length(cuda):
             q, kc, vc, table, lens), TOLS[torch.bfloat16])
 
 
-def _ssd_inputs(dev, B, S, nh, hp, ns, dtype=torch.float32, seed=7):
-    """tests/test_kernels.py's SSD distributions; x/B/C in ``dtype``."""
+def _ssd_inputs(dev, B, S, nh, hp, ns, dtype=torch.float32, seed=7,
+                dt_scale=1.0):
+    """tests/test_kernels.py's SSD distributions, dt times ``dt_scale``;
+    x/B/C in ``dtype``."""
     rng = np.random.default_rng(seed)
     f = np.float32
     x = _rand(rng, (B, S, nh, hp), dtype, dev) * 0.5
     dt = torch.nn.functional.softplus(_rand(rng, (B, S, nh), torch.float32,
-                                            dev))
+                                            dev)) * dt_scale
     A_log = torch.from_numpy((rng.standard_normal(nh) * 0.3).astype(f)) \
         .to(dev)
     Bm = _rand(rng, (B, S, ns), dtype, dev) * 0.5
@@ -500,6 +517,108 @@ def test_ssd_op_on_card_matches_oracle(cuda):
     yr, sr = ssd_ref(x, dt, A_log, Bm, Cm, D, 32, state=st0)
     torch.testing.assert_close(y, yr, atol=SSD_ATOL, rtol=SSD_RTOL)
     torch.testing.assert_close(st, sr, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def _ssd_bwd_inputs(dev, B, S, nh, hp, ns, cl, dtype, seed=11,
+                    dt_scale=1.0):
+    args = _ssd_inputs(dev, B, S, nh, hp, ns, dtype, seed, dt_scale)
+    rng = np.random.default_rng(seed + 1)
+    nc = S // cl
+    cots = [_rand(rng, shape, torch.float32, dev) for shape in (
+        (B, nc, cl, nh, hp), (B, nc, nh, hp, ns), (B, nc, cl, nh),
+        (B, nc, nh))]
+    return args + tuple(cots)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl", SSD_BWD_SHAPES)
+def test_ssd_backward_kernel_matches_plain(cuda, dtype, B, S, nh, hp, ns,
+                                           cl):
+    """dx, ddt, dA_log, dB and dC of the backward kernel against the plain
+    explicit backward (ssd_chunk_bwd_ref) on the same inputs and four
+    nonzero cotangents, in the dtypes of the inputs."""
+    _check_ssd_bwd(cuda, dtype, B, S, nh, hp, ns, cl)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl", SSD_BWD_SLOW_SHAPES)
+def test_ssd_backward_kernel_slow_decay(cuda, dtype, B, S, nh, hp, ns, cl):
+    """The same with slow decay, where exp(tot), w_j and the far tiles'
+    L weigh as much as the other terms."""
+    _, dt, A_log = _ssd_bwd_inputs(cuda, B, S, nh, hp, ns, cl, dtype,
+                                   dt_scale=SLOW_DT)[:3]
+    tot = dt.reshape(B, S // cl, cl, nh).sum(2) * -torch.exp(A_log)
+    assert float(tot.exp().mean()) > 0.05
+    _check_ssd_bwd(cuda, dtype, B, S, nh, hp, ns, cl, SLOW_DT)
+
+
+def _check_ssd_bwd(cuda, dtype, B, S, nh, hp, ns, cl, dt_scale=1.0):
+    args = _ssd_bwd_inputs(cuda, B, S, nh, hp, ns, cl, dtype,
+                           dt_scale=dt_scale)
+    before = ssd_kernel.ssd_chunk_bwd.launches
+    got = ssd_kernel.ssd_chunk_bwd(*args, chunk=cl)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_chunk_bwd.launches == before + 1
+    ref = ssd_chunk_bwd_ref(*args, chunk=cl)
+    for i, (name, a, b) in enumerate(zip(("dx", "ddt", "dA_log", "dB", "dC"),
+                                         got, ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        rtol = 2.0 ** -7 if a.dtype == torch.bfloat16 else 0.0
+        scale = float((ref[1].abs() * args[1]).sum()) if i == 2 \
+            else float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=SSD_BWD_TOL * scale, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_is_deterministic(cuda, dtype):
+    """No atomics: two calls give the same bits."""
+    args = _ssd_bwd_inputs(cuda, *SSD_BWD_SHAPES[1], dtype)
+    a = ssd_kernel.ssd_chunk_bwd(*args, chunk=SSD_BWD_SHAPES[1][-1])
+    b = ssd_kernel.ssd_chunk_bwd(*args, chunk=SSD_BWD_SHAPES[1][-1])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_ssd_backward_refuses_shapes_it_does_not_take(cuda):
+    """hp above 64, ns above 128 or not a multiple of 4, chunks above
+    256: a ValueError, not a silent fallback."""
+    for hp, ns, cl in ((128, 16, 32), (32, 256, 32), (32, 10, 32),
+                       (32, 16, 512)):
+        args = _ssd_bwd_inputs(cuda, 1, 512, 2, hp, ns, cl, torch.float32)
+        with pytest.raises(ValueError, match="SSD backward"):
+            ssd_kernel.ssd_chunk_bwd(*args, chunk=cl)
+
+
+def test_smoke_hybrid_train_on_card(cuda, tmp_path):
+    """Two smoke zamba2-2.7b train steps on the card (remat, 2
+    microbatches): every Mamba2 layer runs the SSD chunk kernel twice and
+    its backward kernel once a microbatch, and the first step's loss is
+    the CPU's within bf16 rounding."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    cfg = get_smoke_config("zamba2-2.7b").replace(remat=True, microbatches=2)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tok),
+             "labels": torch.from_numpy(np.roll(tok, -1, 1))}
+    _, _, cpu_m = make_train_step(cfg)(params, adamw_init(params), batch)
+    card = _to(lm.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu"), cuda)
+    step = make_train_step(cfg)
+    opt = adamw_init(card)
+    f0 = ssd_kernel.ssd_chunk_call.launches
+    b0 = ssd_kernel.ssd_chunk_bwd.launches
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    card, opt, m0 = step(card, opt, card_batch)
+    card, opt, m1 = step(card, opt, card_batch)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_chunk_call.launches - f0 == 2 * 2 * 2 * cfg.n_layers
+    assert ssd_kernel.ssd_chunk_bwd.launches - b0 == 2 * 2 * cfg.n_layers
+    assert np.isfinite(float(m1["loss"])) and float(m1["grad_norm"]) > 0
+    np.testing.assert_allclose(float(m0["loss"]), float(cpu_m["loss"]),
+                               rtol=2e-2)
 
 
 def test_smoke_serve_on_card_matches_cpu(cuda):

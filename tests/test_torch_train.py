@@ -4,9 +4,12 @@ batches, microbatching, remat, and a restart from a checkpoint. JAX
 weights are carried over through numpy (``repro_torch.interop``); the
 flash kernels run their plain versions on CPU tensors."""
 
+import collections
+import gc
 import os
 import shutil
 import tempfile
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +30,8 @@ from repro_torch.launch.steps import loss_and_grads, make_train_step
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.compression import (compress_decompress, ef_init,
                                            wire_bytes)
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_unflatten)
 
 ARCH = "stablelm-1.6b"
 # Train steps against JAX from the same weights and batches. Each step's
@@ -270,11 +274,12 @@ def test_three_train_steps_match_jax(compute_dtype):
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
 def test_train_step_matches_jax_ssm_and_hybrid(arch):
-    """The families the card cannot train yet (no SSD backward kernel)
-    train on the CPU through the plain versions, as JAX trains with
-    ``use_pallas=False``: one fp32 step against JAX (the port sums the SSD
-    decay exponents in fp64, the JAX package in fp32: measured 5.3e-6 on
-    the gradients of mamba2-130m)."""
+    """The ssm and hybrid families, whose every Mamba2 layer runs its SSD
+    through ``SSDChunk`` (on the CPU the plain pieces and their explicit
+    backward, the yardstick of the card's SSD backward kernel), against
+    JAX training its plain ``ssd_chunked`` (``use_pallas=False``): one
+    fp32 step (the port sums the SSD decay exponents in fp64, the JAX
+    package in fp32: measured 5.3e-6 on the gradients of mamba2-130m)."""
     jcfg, tcfg = _cfgs(arch, compute_dtype="float32")
     jp, tp = _weights(jcfg, tcfg)
     b = _batch(jcfg, 0)
@@ -308,6 +313,28 @@ def test_microbatches_two_equal_one():
         assert c.dtype == torch.float32
         err = (c - a).abs().max() / a.abs().max()
         assert err <= 1e-5, err
+
+
+def test_tree_helpers_leave_no_reference_cycle():
+    """A tensor passed through tree_flatten, tree_unflatten and tree_map
+    dies with its last reference, with the garbage collector off: the
+    helpers build no reference cycle that would keep a whole gradient tree
+    (the microbatch accumulator, one microbatch's gradients) alive into
+    the optimizer step."""
+    Pair = collections.namedtuple("Pair", "x y")
+    gc.disable()
+    try:
+        t = torch.zeros(4)
+        ref = weakref.ref(t)
+        tree = {"b": [t, (t,)], "a": Pair(t, {"c": t})}
+        leaves, treedef = tree_flatten(tree)
+        again = tree_unflatten(treedef, leaves)
+        assert tree_leaves(again) == leaves
+        mapped = tree_map(lambda a, b: a + b, tree, again)
+        del tree, leaves, again, mapped, t
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 def test_microbatched_train_step_matches_jax():
