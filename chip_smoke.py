@@ -31,9 +31,11 @@ Phases (any failure raises, and the script exits nonzero):
    ways, windows with GQA 4:1, and strided and misaligned inputs through
    the wrapper; two calls bit-identical at every shape; the tile rule
    compiled into its kernels against its mirror in ``ref.py``), the SSD
-   backward kernel against its plain explicit backward (bf16 and fp32,
-   four nonzero cotangents, hp 16/32/64 x ns 8..128, a chunk that is not
-   a multiple of 16, ragged 64-row tiles; two calls bit-identical) and
+   backward kernel against its plain explicit backward and, in bf16,
+   against the split arithmetic of its tensor-core instance (bf16 and
+   fp32, four nonzero cotangents, fast and slow decay, hp 16/32/64 x ns
+   8..128, a chunk that is not a multiple of 16, ragged 64-row tiles;
+   two calls bit-identical) and
    the gradient of the full SSD op (an initial state, a padded S) against
    autograd of the plain chunked SSD, and every kernel at the shapes of
    the serving and training runs;
@@ -74,12 +76,14 @@ Phases (any failure raises, and the script exits nonzero):
    shape beside its bound and the backward of
    ``scaled_dot_product_attention``, the flash forward at the training
    shape, and the SSD chunk kernel and its backward at zamba2's and
-   mamba2's training calls (the backward beside its plain version and
-   its bound; no one PyTorch call computes it);
+   mamba2's training calls (the backward beside its plain version, its
+   bound and the bf16 products its split issues, with each of its
+   kernels' CTAs, registers and spills; no one PyTorch call computes
+   it);
 5. where the time goes: ``torch.profiler`` over one prefill and eight
    decode steps of each model, and over one train step of each training
-   run (forward and backward, then the optimizer), device busy share and
-   kernel time by kind.
+   run (forward and backward, then the optimizer), device busy share,
+   kernel time by kind and the SSD backward's kernels one by one.
 
 The last lines are a JSON object with one entry per kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -124,7 +128,9 @@ from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref  # noqa
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel           # noqa
 from repro_torch.kernels.ssd_scan import ops as ssd_ops                 # noqa
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_bwd_ref,     # noqa
+from repro_torch.kernels.ssd_scan.ref import (BWD_PIECES,  # noqa: E402
+                                              ssd_chunk_bwd_ref,
+                                              ssd_chunk_bwd_split_ref,
                                               ssd_chunk_ref,
                                               ssd_chunk_split_ref, ssd_ref)
 from repro_torch.launch.steps import (loss_and_grads,        # noqa: E402
@@ -428,8 +434,10 @@ def exp_tot_mean(dt, A_log, cl):
 
 def check_ssd_bwd(rng, dev, B, S, nh, hp, ns, cl, dtype, dt_scale=1.0):
     """The backward kernel against ssd_chunk_bwd_ref on the same inputs and
-    four nonzero cotangents, and a second call bit for bit against the
-    first. Returns the largest absolute error."""
+    four nonzero cotangents and, in bf16, against the split arithmetic of
+    its tensor-core instance (ssd_chunk_bwd_split_ref), at the same
+    tolerance; a second call bit for bit against the first. Returns the
+    largest absolute error against the plain version."""
     args = ssd_inputs(rng, dev, B, S, nh, hp, ns, dtype, dt_scale)
     nc = S // cl
     cots = [rand(rng, shape, torch.float32, dev) for shape in (
@@ -437,25 +445,36 @@ def check_ssd_bwd(rng, dev, B, S, nh, hp, ns, cl, dtype, dt_scale=1.0):
         (B, nc, nh))]
     got = ssd_kernel.ssd_chunk_bwd(*args, *cots, chunk=cl)
     ref = ssd_chunk_bwd_ref(*args, *cots, chunk=cl)
+    refs = {"plain": ref}
+    if dtype == torch.bfloat16:
+        refs["split"] = ssd_chunk_bwd_split_ref(*args, *cots, chunk=cl)
     what = f"ssd bwd B={B} S={S} nh={nh} hp={hp} ns={ns} cl={cl} " \
         f"{str(dtype)[6:]} dt x{dt_scale} (mean exp(tot) " \
         f"{exp_tot_mean(args[1], args[2], cl):.2e})"
     rel, worst = {}, 0.0
-    for name, a, b, top in zip(("dx", "ddt", "dA_log", "dB", "dC"), got,
-                               ref, grad_scales(ref, args[1])):
-        if a.dtype != b.dtype or a.shape != b.shape:
-            raise AssertionError(f"{what} {name}: {a.dtype} {tuple(a.shape)}"
-                                 f" vs {b.dtype} {tuple(b.shape)}")
-        rtol = BF16_ULP if a.dtype == torch.bfloat16 else 0.0
-        err = check_close(f"{what} {name}", a, b, SSD_BWD_TOL * top, rtol)
-        rel[name], worst = err / top, max(worst, err)
+    for kind, other in refs.items():
+        for name, a, b, top in zip(("dx", "ddt", "dA_log", "dB", "dC"), got,
+                                   other, grad_scales(ref, args[1])):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{what} {name}: {a.dtype} "
+                                     f"{tuple(a.shape)} vs {b.dtype} "
+                                     f"{tuple(b.shape)}")
+            rtol = BF16_ULP if a.dtype == torch.bfloat16 else 0.0
+            err = check_close(f"{what} {name} vs {kind}", a, b,
+                              SSD_BWD_TOL * top, rtol)
+            rel[(kind, name)] = err / top
+            if kind == "plain":
+                worst = max(worst, err)
     again = ssd_kernel.ssd_chunk_bwd(*args, *cots, chunk=cl)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{what}: two calls gave different bits")
     log(f"{what}: max abs err / scale: "
-        + " ".join(f"{n} {v:.2e}" for n, v in rel.items())
+        + "; ".join(f"vs {kind} " + " ".join(
+            f"{n} {v:.2e}" for (k, n), v in rel.items() if k == kind)
+            for kind in refs)
         + f" (tol {SSD_BWD_TOL}{' + one bf16 ulp' if rtol else ''}); a "
         f"second call bit-identical")
+    del refs, ref, got, again
     return worst
 
 
@@ -1324,6 +1343,23 @@ def ssd_bwd_work(B, S, nh, hp, ns, cl, esz):
     return byt, flops
 
 
+def ssd_bwd_mma_work(B, S, nh, hp, ns, cl):
+    """bf16 tensor-core FLOPs the bf16 backward kernels issue (FMA = 2),
+    the split passes and the padding of hp and ns to 32 and of the tiles
+    to 64 included (csrc/ssd_bwd.cu): s once a tile pair and head group;
+    dst B_j and x_j · dst a head and key tile; gᵀ and Pᵀ·dy a head and
+    tile pair; dC and dB a tile pair."""
+    pe, pb = BWD_PIECES
+    hpp, nsp = -(-hp // 32) * 32, -(-ns // 32) * 32
+    n_kt = -(-cl // 64)
+    pairs, BC, ngrp = n_kt * (n_kt + 1) // 2, B * (S // cl), -(-nh // 8)
+    tile = 64 * 64 * 2
+    return BC * (ngrp * pairs * tile * nsp
+                 + nh * n_kt * 2 * pe * 64 * hpp * nsp * 2
+                 + nh * pairs * tile * hpp * (pe + pb * (pb + 1) // 2)
+                 + pairs * 2 * pe * tile * nsp)
+
+
 def time_flash(rng, dev, H, KH, hd, B=BATCH, S=PROMPT, with_lse=False):
     """Device ms of the bf16 kernel (writing lse, as training calls it,
     with ``with_lse``), its plain version, SDPA and the bound."""
@@ -1468,12 +1504,23 @@ def time_ssd_bwd(rng, dev, B, S, nh, hp, ns, cl, what):
     t_bytes, t_ops = byt / PEAK_BYTES_PER_S, flops / SSD_RATE[1]
     bnd = (max(t_bytes, t_ops) * 1e3,
            "bytes" if t_bytes >= t_ops else "operations")
+    mma = ssd_bwd_mma_work(B, S, nh, hp, ns, cl)
     log(f"  ssd bwd {what}: x {(B, S, nh, hp)} ns {ns} cl {cl} bf16: kernel "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of its "
-        f"{flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} ms, library none, "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]}; {byt / 1e6:.1f} MB at "
-        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {flops / 1e9:.3f} GFLOP at the "
-        f"{SSD_RATE[0]}' {SSD_RATE[1] / 1e12:.0f} TFLOP/s)")
+        f"{flops / 1e9:.2f} GFLOP; its split issues {mma / 1e9:.2f} GFLOP "
+        f"of bf16 products, {mma / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, library none, bound {bnd[0]:.4f} ms ({bnd[1]}; "
+        f"{byt / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, "
+        f"{flops / 1e9:.3f} GFLOP at the {SSD_RATE[0]}' "
+        f"{SSD_RATE[1] / 1e12:.0f} TFLOP/s)")
+    plan = ssd_kernel.plan_bwd(B, S, nh, hp, ns, cl, dt)
+    log(f"    launches (heads a CTA {plan['heads_per_cta']}, column splits "
+        f"{plan['column_splits']}, {plan['sms']} SMs; "
+        f"cudaFuncGetAttributes):")
+    for name, k in plan["kernels"].items():
+        log(f"      {name}: {k['ctas']} CTAs x {k['threads']}, "
+            f"{k['smem_bytes']} B shared, {k['registers']} registers, "
+            f"{k['spill_bytes']} B local (spills), {k['ctas_per_sm']} a SM")
     return ms, plain_ms, None, bnd
 
 
@@ -1619,6 +1666,13 @@ def _report(what, wall_ms, kernels, host, steps=1):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     for name, (us, n) in top:
         log(f"    {us / 1e3 / steps:8.3f} ms  x{n // steps:<4d} {name[:110]}")
+    bwd = sorted(((name, v) for name, v in kernels.items()
+                  if "ssd_bwd_" in name), key=lambda kv: -kv[1][0])
+    if bwd:
+        log("    the SSD backward by kernel:")
+        for name, (us, n) in bwd:
+            log(f"    {us / 1e3 / steps:8.3f} ms  x{n // steps:<4d} "
+                f"{name[:110]}")
     host_ms = sum(us for us, _ in host.values()) / 1e3
     log(f"    host operators, self CPU {host_ms / steps:.3f} ms; top:")
     for name, (us, n) in sorted(host.items(), key=lambda kv: -kv[1][0])[:8]:

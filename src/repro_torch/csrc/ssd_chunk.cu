@@ -38,7 +38,8 @@
 //
 // * bf16 and cl > 1, hp in {16, 32, 64, 128}, ns a multiple of 8, 16-byte
 //   aligned x/B/C (every serving shape): ssd_chunk_mma_kernel, the chunk
-//   products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums).
+//   products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums;
+//   the helpers, shared with ssd_bwd.cu, are in mma_sync.cuh).
 //   Why that meets the fp32 tolerance:
 //     - C·B^T needs no split: a product of two bf16 values is exact in
 //       fp32, so one bf16 pass with fp32 sums is the fp32 product up to
@@ -92,6 +93,8 @@
 
 #include <atomic>
 #include <type_traits>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -412,75 +415,6 @@ struct Args {
   int n_kt;                       // 64-key (and 64-row) tiles of a chunk
   int n_nt, n_st;                 // state tiles along ns, and in all
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is not read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a b, m16n8k16, bf16 in, fp32 sums (not volatile: the compiler may
-// interleave independent products)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ float lo_f(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float hi_f(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
-
-// (u, v) as three bf16 pairs whose sums are u and v to ~2^-27 relative:
-// each piece is the round-to-nearest bf16 of what the earlier ones left
-// (a value minus its bf16 rounding is exact in fp32)
-__device__ __forceinline__ void split3(float u, float v, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
-  u -= __low2float(h);
-  v -= __high2float(h);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(u, v);
-  u -= __low2float(m);
-  v -= __high2float(m);
-  hi = bits(h);
-  mid = bits(m);
-  lo = bits(__floats2bfloat162_rn(u, v));
-}
 
 // A 64-row tile of 16-byte chunks into shared memory (row stride sstride
 // elements) by cp.async: cpr chunks a row, of which the first cvalid are

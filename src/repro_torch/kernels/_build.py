@@ -5,8 +5,8 @@ take device pointers, strides and a stream and return the ``cudaError_t``
 of the launch. At first use the source is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/repro_torch/`` at the repository root (listed in
 ``.gitignore``), under a name keyed by a hash of the source, the headers
-it includes (``csrc/hopper.cuh``) and the flags, and loaded with
-``ctypes``. Nothing is compiled or loaded at import time,
+it includes (``csrc/hopper.cuh``, ``csrc/mma_sync.cuh``) and the flags,
+and loaded with ``ctypes``. Nothing is compiled or loaded at import time,
 so the CPU tests import every module without a CUDA toolkit.
 
 A failed build, a missing ``nvcc`` or a nonzero return from a launch

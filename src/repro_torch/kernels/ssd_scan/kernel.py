@@ -11,8 +11,10 @@ it is laid out. The wrappers check their inputs, allocate the outputs
 launches in ``ssd_chunk_call.launches`` / ``ssd_chunk_bwd.launches``.
 They take CUDA tensors only; the plain versions are ``ref.ssd_chunk_ref``
 (with ``ref.ssd_chunk_split_ref``, the split arithmetic of the bf16
-tensor-core instance) and ``ref.ssd_chunk_bwd_ref``. ``plan`` reports
-which of the forward's three kernels a call runs and how it is laid out.
+tensor-core instance) and ``ref.ssd_chunk_bwd_ref`` (with
+``ref.ssd_chunk_bwd_split_ref``, the same for the backward). ``plan``
+reports which of the forward's three kernels a call runs and how it is
+laid out, ``plan_bwd`` the backward's launches.
 """
 
 from __future__ import annotations
@@ -110,7 +112,9 @@ def ssd_chunk_bwd(x, dt, A_log, B_, C_, dy, dst, decs, detot, *,
 
     Returns (dx, ddt, dA_log, dB, dC): dx, dB and dC in x's dtype, ddt
     and dA_log fp32. No atomics: two calls on the same inputs give the
-    same bits."""
+    same bits. bf16 runs the tensor-core kernels (an input that is not on
+    16 bytes is copied first), fp32 the FMA kernels; ``plan_bwd`` lists
+    the launches."""
     B, S, nh, hp = x.shape
     ns = B_.shape[-1]
     _check_inputs("ssd_chunk_bwd", x, dt, A_log, B_, C_,
@@ -131,6 +135,10 @@ def ssd_chunk_bwd(x, dt, A_log, B_, C_, dy, dst, decs, detot, *,
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"cotangent {name}: want fp32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if x.dtype == torch.bfloat16:        # 16-byte copies by cp.async
+        x, dt, A_log, B_, C_, dy, dst, decs, detot = (
+            t if t.data_ptr() % 16 == 0 else t.clone()
+            for t in (x, dt, A_log, B_, C_, dy, dst, decs, detot))
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA_log = torch.empty_like(A_log)
@@ -154,6 +162,40 @@ def ssd_chunk_bwd(x, dt, A_log, B_, C_, dy, dst, decs, detot, *,
 
 
 ssd_chunk_bwd.launches = 0
+
+
+BWD_KERNELS = {
+    torch.bfloat16: ("ssd_bwd_scan_kernel", "ssd_bwd_mma_head_kernel",
+                     "ssd_bwd_dsum_kernel", "ssd_bwd_mma_dbc_kernel",
+                     "ssd_bwd_finish_kernel", "ssd_bwd_dalog_kernel"),
+    torch.float32: ("ssd_bwd_head_kernel", "ssd_bwd_ds_kernel",
+                    "ssd_bwd_dbc_kernel", "ssd_bwd_finish_kernel",
+                    "ssd_bwd_dalog_kernel")}
+_BWD_PLAN_KEYS = ("ctas", "threads", "smem_bytes", "registers",
+                  "spill_bytes", "ctas_per_sm")
+
+
+def plan_bwd(B: int, S: int, nh: int, hp: int, ns: int, cl: int,
+             dtype) -> dict:
+    """The launches ``ssd_chunk_bwd`` makes at these shapes: heads a CTA
+    of the bf16 head kernel, column splits of its dC/dB kernel, the
+    card's SMs, and for each kernel in launch order (``kernels``: name ->
+    dict) its CTAs, threads, dynamic shared memory bytes, registers a
+    thread, local-memory (spill) bytes a thread (cudaFuncGetAttributes)
+    and CTAs resident on an SM. Builds the kernels if needed."""
+    fn = _build.bind(BWD_SOURCE, "ssd_bwd_plan", [ctypes.c_int] * 7
+                     + [ctypes.c_void_p])
+    out = (ctypes.c_int * (4 + 6 * 6))()
+    err = fn(B, S, nh, hp, ns, cl, int(dtype == torch.bfloat16),
+             ctypes.cast(out, ctypes.c_void_p))
+    _build.check(BWD_SOURCE, "ssd_bwd_plan", err)
+    names = BWD_KERNELS[dtype]
+    assert out[0] == len(names), (out[0], names)
+    return {"heads_per_cta": out[1], "column_splits": out[2],
+            "sms": out[3],
+            "kernels": {name: dict(zip(_BWD_PLAN_KEYS,
+                                       out[4 + 6 * k:10 + 6 * k]))
+                        for k, name in enumerate(names)}}
 
 
 def plan(B: int, S: int, nh: int, hp: int, ns: int, cl: int, dtype) -> dict:

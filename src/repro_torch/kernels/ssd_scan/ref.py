@@ -1,7 +1,11 @@
 """Plain PyTorch versions of the SSD: the kernel's four per-chunk pieces
 (``ssd_chunk_ref``, the yardstick the CUDA kernel is held against), their
 explicit gradient (``ssd_chunk_bwd_ref``, the yardstick of the backward
-kernel) and the full chunked SSD of the model code (``ssd_ref``)."""
+kernel) and the full chunked SSD of the model code (``ssd_ref``); the
+split arithmetic of the bf16 tensor-core instances
+(``ssd_chunk_split_ref``, ``ssd_chunk_bwd_split_ref``) and the backward
+kernel's rule for head groups and tile pairs (``bwd_head_groups``,
+``bwd_tile_pairs``)."""
 
 from __future__ import annotations
 
@@ -81,8 +85,6 @@ def ssd_chunk_bwd_ref(x, dt, A_log, B_, C_, dy, dst, decs, detot, *,
     f, g, cl, nh, hp, ns = t.f, t.g, t.cl, t.nh, t.hp, t.ns
     dy = dy.to(f).reshape(g, cl, nh, hp)
     dst = dst.to(f).reshape(g, nh, hp, ns)
-    decs = decs.to(f).reshape(g, cl, nh)
-    detot = detot.to(f).reshape(g, nh)
     P = t.sc[..., None] * t.L
     dst_b = torch.einsum("ghpn,gjn->gjhp", dst, t.Bm)
     dxdt = torch.einsum("gijh,gihp->gjhp", P, dy) + t.w[..., None] * dst_b
@@ -91,8 +93,17 @@ def ssd_chunk_bwd_ref(x, dt, A_log, B_, C_, dy, dst, decs, detot, *,
     dC = ds @ t.Bm
     dB = ds.transpose(1, 2) @ t.Cm + torch.einsum("gjh,gjhp,ghpn->gjn", t.w,
                                                   t.xdt, dst)
-    r = P * gg
     u = t.w * (t.xdt * dst_b).sum(-1)                      # (g, j, nh)
+    return _bwd_tail(t, x, dt, B_, C_, P, gg, u, dxdt, dB, dC, decs, detot)
+
+
+def _bwd_tail(t, x, dt, B_, C_, P, gg, u, dxdt, dB, dC, decs, detot):
+    """The decay gradient from r = P ⊙ g and u, and the outputs in their
+    dtypes: the part of the backward that has no matrix product."""
+    f, g, cl, nh = t.f, t.g, t.cl, t.nh
+    decs = decs.to(f).reshape(g, cl, nh)
+    detot = detot.to(f).reshape(g, nh)
+    r = P * gg
     dcs = (r.sum(2).double() - r.sum(1).double() - u.double()
            + (decs * torch.exp(t.cs.to(f))).double())
     dcs[:, -1] += u.sum(1).double() + (detot * torch.exp(
@@ -104,6 +115,96 @@ def ssd_chunk_bwd_ref(x, dt, A_log, B_, C_, dy, dst, decs, detot, *,
     return (dx.reshape(x.shape).to(x.dtype), ddt.reshape(dt.shape), dA_log,
             dB.reshape(B_.shape).to(B_.dtype),
             dC.reshape(C_.shape).to(C_.dtype))
+
+
+# heads a CTA of the bf16 backward's head kernel (csrc/ssd_bwd.cu GROUP)
+BWD_GROUP = 8
+BWD_TILE = 64
+
+
+def bwd_head_groups(nh: int, group: int = BWD_GROUP):
+    """The bf16 backward kernel's head groups: runs of ``group``
+    consecutive heads, the last one ragged. A CTA of its head kernel walks
+    one group's heads in order, summing their ds partial; the groups'
+    partials are then summed in group order."""
+    return [range(h0, min(h0 + group, nh)) for h0 in range(0, nh, group)]
+
+
+def bwd_tile_pairs(cl: int, tile: int = BWD_TILE):
+    """The (row tile it, key tile jt) pairs of a chunk on or below the
+    diagonal, as the kernel's scratch holds them: pair index it (it + 1) /
+    2 + jt, with the rows and keys each tile has (the last tile ragged).
+    Returns a list of (index, it, jt, rows, keys) in index order."""
+    n = (cl + tile - 1) // tile
+    out = [(it * (it + 1) // 2 + jt, it, jt, min(tile, cl - it * tile),
+            min(tile, cl - jt * tile)) for it in range(n)
+           for jt in range(it + 1)]
+    return sorted(out)
+
+
+# the bf16 backward kernel's pieces: (products with one exact bf16
+# operand: the fp32 one split into this many bf16 values; Pᵀ·dy, both
+# operands fp32: each split into this many, and the cross terms of
+# ``_split_mm``). tests/test_torch_ssd_grad.py shows what one fewer of
+# either costs.
+BWD_PIECES = (2, 3)
+
+
+def _split_mm(eq, a, b, pieces):
+    """einsum(eq, a, b) as the bf16 kernel forms it when a and b are both
+    fp32: each split into ``pieces`` bf16 values, and the products of
+    piece m of a with piece n of b summed for m + n < pieces (the terms
+    left out are below 2^(-9·pieces) of |a||b|)."""
+    sa, sb = split_bf16(a, pieces), split_bf16(b, pieces)
+    return sum(torch.einsum(eq, sa[m], sb[n]) for m in range(pieces)
+               for n in range(pieces - m))
+
+
+def _exact_mm(eq, a, b, pieces):
+    """einsum(eq, a, b) with ``a`` bf16-valued (exact in every product)
+    and ``b`` fp32 split into ``pieces`` bf16 values, one pass a piece."""
+    return sum(torch.einsum(eq, a, p) for p in split_bf16(b, pieces))
+
+
+def ssd_chunk_bwd_split_ref(x, dt, A_log, B_, C_, dy, dst, decs, detot, *,
+                            chunk: int, pieces=BWD_PIECES):
+    """``ssd_chunk_bwd_ref`` computed as the bf16 tensor-core instance of
+    ``csrc/ssd_bwd.cu`` decomposes its products. x, B and C are bf16, so
+    exact; ``pieces`` = (e, p), or one number for both:
+
+      * s = C·Bᵀ in one pass (both operands exact);
+      * g_ij = dt_j · (dy_i · x_j): dy split into e pieces, x exact, dt_j
+        applied to the fp32 sum;
+      * dst B_j and x_j · dst (the states' part of dB, scaled by
+        w_j dt_j afterwards): dst split into e pieces, B and x exact;
+      * dC = ds B and the dsᵀ C part of dB: ds split into e pieces, B and
+        C exact;
+      * dxdt_j += Σ_i P_ij dy_i: P and dy each split into p pieces, the
+        cross terms of ``_split_mm``;
+      * ds summed over the heads of each group (``bwd_head_groups``),
+        then over the groups in order.
+
+    As ``ssd_chunk_split_ref`` it emulates the split, not the tensor
+    cores: sums run in the CPU's order. ``pieces=1`` is a single unsplit
+    bf16 pass for every product."""
+    e, p = (pieces, pieces) if isinstance(pieces, int) else pieces
+    t = _chunk_terms(x, dt.float(), A_log, B_, C_, chunk)
+    g, cl, nh, hp, ns = t.g, t.cl, t.nh, t.hp, t.ns
+    dy = dy.float().reshape(g, cl, nh, hp)
+    dst = dst.float().reshape(g, nh, hp, ns)
+    P = t.sc[..., None] * t.L
+    dst_b = _exact_mm("gjn,ghpn->gjhp", t.Bm, dst, e)
+    dxdt = (_split_mm("gijh,gihp->gjhp", P, dy, p)
+            + t.w[..., None] * dst_b)
+    gg = _exact_mm("gjhp,gihp->gijh", t.xf, dy, e) * t.dtf[:, None, :, :]
+    lg = t.L * gg                          # ds: Σ over groups of Σ over heads
+    ds = sum(lg[..., heads].sum(-1) for heads in bwd_head_groups(nh))
+    dC = _exact_mm("gjn,gij->gin", t.Bm, ds, e)
+    xdst = _exact_mm("gjhp,ghpn->gjhn", t.xf, dst, e)
+    dB = (_exact_mm("gin,gij->gjn", t.Cm, ds, e)
+          + ((t.w * t.dtf)[..., None] * xdst).sum(2))
+    u = t.w * t.dtf * (t.xf * dst_b).sum(-1)               # (g, j, nh)
+    return _bwd_tail(t, x, dt, B_, C_, P, gg, u, dxdt, dB, dC, decs, detot)
 
 
 def split_bf16(a, pieces: int = 3):

@@ -23,7 +23,10 @@ from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_bwd_ref,
+from repro_torch.kernels.ssd_scan.ref import (BWD_GROUP, bwd_head_groups,
+                                              bwd_tile_pairs,
+                                              ssd_chunk_bwd_ref,
+                                              ssd_chunk_bwd_split_ref,
                                               ssd_chunk_ref,
                                               ssd_chunk_split_ref, ssd_ref)
 from repro_torch.models import attention as attn
@@ -90,6 +93,17 @@ SSD_BWD_TOL = 1e-4
 # and mamba2-130m's head shapes
 SLOW_DT = 0.01
 SSD_BWD_SLOW_SHAPES = [(1, 400, 3, 64, 64, 200), (2, 512, 3, 64, 128, 256)]
+# every shape the SSD backward was checked at on the card (chip_smoke.py
+# and the tests above): the smoke configs' head shape, a chunk that is not
+# a multiple of 16, ragged 64-row tiles at cl 100 and 200, cl 256 at
+# mamba2-130m's head shape, the hp x ns sweep of the tensor-core instance
+# and the training calls of zamba2-2.7b and mamba2-130m
+SSD_BWD_EVERY = ([(2, 128, 4, 32, 16, 32), (1, 200, 4, 32, 16, 100),
+                  (2, 96, 3, 16, 8, 48), (1, 200, 2, 64, 64, 200),
+                  (1, 400, 3, 64, 64, 200), (2, 512, 3, 64, 128, 256)]
+                 + [(2, 256, 3, hp, ns, 128) for hp in (16, 32)
+                    for ns in (8, 16, 32, 64, 128)]
+                 + [(1, 4096, 80, 64, 64, 256), (2, 4096, 24, 64, 128, 256)])
 # the tensor-core instance's head shapes: hp x ns, two chunks of 128
 SSD_HEAD_SWEEP = [(hp, ns) for hp in (16, 32, 64)
                   for ns in (8, 16, 32, 64, 128)]
@@ -552,22 +566,32 @@ def test_ssd_backward_kernel_slow_decay(cuda, dtype, B, S, nh, hp, ns, cl):
     _check_ssd_bwd(cuda, dtype, B, S, nh, hp, ns, cl, SLOW_DT)
 
 
-def _check_ssd_bwd(cuda, dtype, B, S, nh, hp, ns, cl, dt_scale=1.0):
+def _check_ssd_bwd(cuda, dtype, B, S, nh, hp, ns, cl, dt_scale=1.0,
+                   split=False):
+    """The kernel against ssd_chunk_bwd_ref (and, with ``split``, against
+    the split twin ssd_chunk_bwd_split_ref); returns the first call's
+    outputs and the inputs."""
     args = _ssd_bwd_inputs(cuda, B, S, nh, hp, ns, cl, dtype,
                            dt_scale=dt_scale)
     before = ssd_kernel.ssd_chunk_bwd.launches
     got = ssd_kernel.ssd_chunk_bwd(*args, chunk=cl)
     torch.cuda.synchronize()
     assert ssd_kernel.ssd_chunk_bwd.launches == before + 1
-    ref = ssd_chunk_bwd_ref(*args, chunk=cl)
-    for i, (name, a, b) in enumerate(zip(("dx", "ddt", "dA_log", "dB", "dC"),
-                                         got, ref)):
-        assert a.dtype == b.dtype and a.shape == b.shape, name
-        rtol = 2.0 ** -7 if a.dtype == torch.bfloat16 else 0.0
-        scale = float((ref[1].abs() * args[1]).sum()) if i == 2 \
-            else float(b.float().abs().max())
-        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
-                                   atol=SSD_BWD_TOL * scale, msg=name)
+    refs = {"plain": ssd_chunk_bwd_ref(*args, chunk=cl)}
+    if split:
+        refs["split"] = ssd_chunk_bwd_split_ref(*args, chunk=cl)
+    ref = refs["plain"]
+    for what, other in refs.items():
+        for i, (name, a, b) in enumerate(zip(("dx", "ddt", "dA_log", "dB",
+                                              "dC"), got, other)):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            rtol = 2.0 ** -7 if a.dtype == torch.bfloat16 else 0.0
+            scale = float((ref[1].abs() * args[1]).sum()) if i == 2 \
+                else float(ref[i].float().abs().max())
+            torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                       atol=SSD_BWD_TOL * scale,
+                                       msg=f"{name} vs {what}")
+    return got, args
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -576,6 +600,64 @@ def test_ssd_backward_is_deterministic(cuda, dtype):
     args = _ssd_bwd_inputs(cuda, *SSD_BWD_SHAPES[1], dtype)
     a = ssd_kernel.ssd_chunk_bwd(*args, chunk=SSD_BWD_SHAPES[1][-1])
     b = ssd_kernel.ssd_chunk_bwd(*args, chunk=SSD_BWD_SHAPES[1][-1])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dt_scale", [1.0, SLOW_DT])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl", SSD_BWD_EVERY)
+def test_ssd_backward_at_every_shape(cuda, dtype, B, S, nh, hp, ns, cl,
+                                     dt_scale):
+    """Every checked shape, both dtypes, fast and slow decay: the kernel
+    against the plain explicit backward and, in bf16, against the split
+    arithmetic of its tensor-core instance, each within SSD_BWD_TOL of
+    the gradient's scale (bf16 outputs one ulp more); a second call gives
+    the same bits."""
+    got, args = _check_ssd_bwd(cuda, dtype, B, S, nh, hp, ns, cl, dt_scale,
+                               split=dtype == torch.bfloat16)
+    again = ssd_kernel.ssd_chunk_bwd(*args, chunk=cl)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl", [(1, 4096, 80, 64, 64, 256),
+                                             (2, 4096, 24, 64, 128, 256),
+                                             (2, 256, 3, 32, 16, 128),
+                                             (1, 200, 5, 16, 8, 100)])
+def test_ssd_backward_plan(cuda, B, S, nh, hp, ns, cl):
+    """The bf16 backward's launches: no kernel spills to local memory;
+    the head kernel's CTAs are (key tiles, head groups of BWD_GROUP, batch
+    · chunks) and the dsum kernel's (tile pairs, batch · chunks), as the
+    rule mirrored in ref.bwd_head_groups / bwd_tile_pairs has them; every
+    kernel fits an SM."""
+    p = ssd_kernel.plan_bwd(B, S, nh, hp, ns, cl, torch.bfloat16)
+    assert p["heads_per_cta"] == BWD_GROUP
+    k = p["kernels"]
+    for name, v in k.items():
+        assert v["spill_bytes"] == 0, (name, v)
+        assert v["ctas_per_sm"] >= 1, (name, v)
+    n_kt, BC = -(-cl // 64), B * (S // cl)
+    assert k["ssd_bwd_mma_head_kernel"]["ctas"] == \
+        n_kt * len(bwd_head_groups(nh)) * BC
+    assert k["ssd_bwd_dsum_kernel"]["ctas"] == len(bwd_tile_pairs(cl)) * BC
+    assert k["ssd_bwd_mma_dbc_kernel"]["ctas"] == \
+        2 * n_kt * p["column_splits"] * BC
+    assert k["ssd_bwd_finish_kernel"]["ctas"] == nh * BC
+
+
+def test_ssd_backward_copies_misaligned_bf16_inputs(cuda):
+    """bf16 calls read their inputs by 16-byte cp.async: inputs that do
+    not start on 16 bytes (views one element into a larger buffer) are
+    copied by the wrapper, with the same bits as aligned inputs."""
+    args = _ssd_bwd_inputs(cuda, 2, 128, 4, 32, 16, 32, torch.bfloat16)
+    shifted = []
+    for t in args:
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)
+        v = buf[1:1 + t.numel()].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        shifted.append(v)
+    a = ssd_kernel.ssd_chunk_bwd(*args, chunk=32)
+    b = ssd_kernel.ssd_chunk_bwd(*shifted, chunk=32)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

@@ -7,6 +7,10 @@
   mode, as tests/test_kernels.py runs it; Pallas has no reverse-mode rule,
   so each entry of the VJP is a ``jax.jvp`` along one input direction,
   dotted with the same cotangents);
+* ``ssd_chunk_bwd_split_ref`` (the split bf16 arithmetic of the
+  kernel's tensor-core instance) the same ways, on bf16 x/B/C; what one
+  piece fewer costs against the kernel's tolerance; and, by hypothesis,
+  the kernel's rule for head groups and tile pairs;
 * the gradient of the full ``ops.ssd`` (``SSDChunk`` + the inter-chunk
   recurrence; an initial state, a padded S) against ``jax.grad`` of the
   JAX ``ssd_chunked``, and, over hypothesis-drawn (cl, hp, ns, S mod cl),
@@ -14,8 +18,8 @@
   over every token whose terms cancel, is held relative to the size of
   its terms).
 
-The CUDA kernel is held against ``ssd_chunk_bwd_ref`` on a card by
-tests/test_torch_gpu.py and chip_smoke.py."""
+The CUDA kernel is held against ``ssd_chunk_bwd_ref`` and the split
+twin on a card by tests/test_torch_gpu.py and chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +33,12 @@ from repro.kernels.ssd_scan.kernel import ssd_chunk_call as pk_chunk
 from repro.models.mamba import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
+from repro_torch.kernels.ssd_scan.ref import (BWD_GROUP, BWD_PIECES,
+                                              bwd_head_groups,
+                                              bwd_tile_pairs,
+                                              ssd_chunk_bwd_ref,
+                                              ssd_chunk_bwd_split_ref,
+                                              ssd_chunk_ref)
 from repro_torch.models import mamba as tmamba
 
 GRADS = ("dx", "ddt", "dA_log", "dB", "dC")
@@ -56,6 +65,12 @@ FULL_SHAPES = [(2, 100, 4, 32, 16, 32), (1, 64, 2, 16, 8, 32),
 # 0.1 to 1 at cl 200 and 256 and weigh as much as the other terms
 SLOW_DT = 0.01
 SLOW_SHAPES = [(1, 200, 2, 16, 8, 200), (1, 512, 2, 8, 4, 256)]
+# the split twin (the bf16 kernel's arithmetic) returns dx, dB and dC in
+# bf16: those may also sit one bf16 ulp (2^-7 relative) from the yardstick
+BF16_ULP = 2.0 ** -7
+# the card checks' tolerance for the backward kernel (chip_smoke.py
+# SSD_BWD_TOL): 1e-4 of each gradient's scale (dA_log: of Σ |ddt| dt)
+KERNEL_TOL = 1e-4
 
 
 def _inputs(B, S, nh, hp, ns, seed=0, dt_scale=1.0):
@@ -145,13 +160,9 @@ def test_chunk_backward_keeps_input_dtypes():
                                       torch.bfloat16]
 
 
-@pytest.mark.parametrize("B,S,nh,hp,ns,cl", JAX_SHAPES)
-def test_chunk_backward_matches_jax_pieces(B, S, nh, hp, ns, cl):
-    """Against the VJP of the Pallas pieces (interpret mode), entry by
+def _jax_pieces_vjp(arrs, cots, cl):
+    """The VJP of the Pallas pieces (interpret mode) at ``arrs``, entry by
     entry: the cotangents dotted with ``jax.jvp`` along each input."""
-    arrs = _inputs(B, S, nh, hp, ns, seed=3)
-    cots = _cotangents(B, S, nh, hp, ns, cl, seed=4)
-
     sizes = [a.size for a in arrs]
     cot = jnp.concatenate([jnp.asarray(c).reshape(-1) for c in cots])
     point = jnp.concatenate([jnp.asarray(a).reshape(-1) for a in arrs])
@@ -166,10 +177,142 @@ def test_chunk_backward_matches_jax_pieces(B, S, nh, hp, ns, cl):
         return jnp.dot(cot, jax.jvp(pieces, (point,), (e,))[1])
     flat = np.asarray(jax.jit(lambda eye: jax.lax.map(entry, eye))(
         jnp.eye(point.size, dtype=jnp.float32)))
-    want = [g.reshape(a.shape) for g, a in
+    return [g.reshape(a.shape) for g, a in
             zip(np.split(flat, np.cumsum(sizes)[:-1]), arrs)]
+
+
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl", JAX_SHAPES)
+def test_chunk_backward_matches_jax_pieces(B, S, nh, hp, ns, cl):
+    """Against the VJP of the Pallas pieces (interpret mode), entry by
+    entry: the cotangents dotted with ``jax.jvp`` along each input."""
+    arrs = _inputs(B, S, nh, hp, ns, seed=3)
+    cots = _cotangents(B, S, nh, hp, ns, cl, seed=4)
+    want = _jax_pieces_vjp(arrs, cots, cl)
     got = ssd_chunk_bwd_ref(*map(torch.from_numpy, arrs + cots), chunk=cl)
     _assert_scaled(got, want, JAX_TOL, "vs jax pieces")
+
+
+def _bf16_case(arrs):
+    """x, B and C rounded to bf16 values (the bf16 instance's inputs): as
+    fp32 arrays for JAX and fp64 autograd, and as torch tensors with x, B
+    and C in bf16 for the twin."""
+    rounded = [torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+               if i in (0, 3, 4) else a for i, a in enumerate(arrs)]
+    tensors = [torch.from_numpy(a).to(torch.bfloat16) if i in (0, 3, 4)
+               else torch.from_numpy(a) for i, a in enumerate(rounded)]
+    return rounded, tensors
+
+
+def _assert_twin(got, want, tol, what):
+    """``_assert_scaled``, with one bf16 ulp more for bf16 outputs."""
+    for name, a, b in zip(GRADS, got, want):
+        a64 = a.double().numpy() if isinstance(a, torch.Tensor) else a
+        b64 = np.asarray(b, np.float64)
+        assert a64.shape == b64.shape, (what, name)
+        rtol = BF16_ULP if a.dtype == torch.bfloat16 else 0.0
+        np.testing.assert_allclose(a64, b64, rtol=rtol,
+                                   atol=tol * np.abs(b64).max(),
+                                   err_msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl,dt_scale",
+                         [s + (1.0,) for s in BWD_SHAPES]
+                         + [s + (SLOW_DT,) for s in SLOW_SHAPES])
+def test_split_twin_matches_fp64_autograd(B, S, nh, hp, ns, cl, dt_scale):
+    """The split arithmetic of the bf16 backward kernel
+    (ssd_chunk_bwd_split_ref, its default pieces) on bf16 x/B/C against
+    fp64 autograd of the pieces on the same values, fast and slow decay,
+    to FP32_TOL, as the fp32 explicit backward is held."""
+    arrs, tens = _bf16_case(_inputs(B, S, nh, hp, ns, seed=7,
+                                    dt_scale=dt_scale))
+    cots = _cotangents(B, S, nh, hp, ns, cl, seed=8)
+    want = _autograd_pieces(arrs, cots, cl, torch.float64)
+    got = ssd_chunk_bwd_split_ref(*tens, *map(torch.from_numpy, cots),
+                                  chunk=cl)
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16]
+    _assert_twin(got, want, FP32_TOL, f"twin dt x{dt_scale}")
+
+
+@pytest.mark.parametrize("B,S,nh,hp,ns,cl", JAX_SHAPES)
+def test_split_twin_matches_jax_pieces(B, S, nh, hp, ns, cl):
+    """The split twin against the VJP of the Pallas pieces (interpret
+    mode) on the same bf16-valued inputs, to JAX_TOL."""
+    arrs, tens = _bf16_case(_inputs(B, S, nh, hp, ns, seed=3))
+    cots = _cotangents(B, S, nh, hp, ns, cl, seed=4)
+    want = _jax_pieces_vjp(arrs, cots, cl)
+    got = ssd_chunk_bwd_split_ref(*tens, *map(torch.from_numpy, cots),
+                                  chunk=cl)
+    _assert_twin(got, want, JAX_TOL, "twin vs jax pieces")
+
+
+def _twin_margin(pieces, dt_scale):
+    """Of each gradient, the split twin's largest error beyond one bf16
+    ulp over KERNEL_TOL times its scale, against fp64 autograd: the share
+    of the kernel's tolerance the split uses (cl 256, 3 heads, hp 64,
+    ns 64)."""
+    B, S, nh, hp, ns, cl = 1, 512, 3, 64, 64, 256
+    arrs, tens = _bf16_case(_inputs(B, S, nh, hp, ns, seed=11,
+                                    dt_scale=dt_scale))
+    cots = _cotangents(B, S, nh, hp, ns, cl, seed=12)
+    want = [w.numpy() for w in _autograd_pieces(arrs, cots, cl,
+                                                torch.float64)]
+    got = ssd_chunk_bwd_split_ref(*tens, *map(torch.from_numpy, cots),
+                                  chunk=cl, pieces=pieces)
+    scales = _scales(want, arrs[1])
+    out = []
+    for a, b, scale in zip(got, want, scales):
+        err = np.abs(a.double().numpy() - b)
+        if a.dtype == torch.bfloat16:
+            err = np.maximum(err - BF16_ULP * np.abs(b), 0.0)
+        out.append(float(err.max()) / (KERNEL_TOL * scale))
+    return out
+
+
+@pytest.mark.parametrize("fewer", [(1, BWD_PIECES[1]),
+                                   (BWD_PIECES[0], BWD_PIECES[1] - 1)])
+def test_fewer_bwd_pieces_lose_the_margin(fewer):
+    """Why the backward's pieces are (2, 3): at cl 256, fast and slow
+    decay, the kernel's split uses under 5% of its tolerance on every
+    gradient. One piece beside the exact operands misses the tolerance
+    (dx, ddt, dB, dC); two pieces on Pᵀ·dy leave dx an error beyond its
+    bf16 rounding over four times larger, and at slow decay use over four
+    times as much of the tolerance on ddt."""
+    for dt_scale in (1.0, SLOW_DT):
+        mine = _twin_margin(BWD_PIECES, dt_scale)
+        assert max(mine) < 0.05, (dt_scale, mine)
+        less = _twin_margin(fewer, dt_scale)
+        if fewer[0] == 1:
+            assert max(less) > 2, (dt_scale, less)
+        else:
+            assert less[0] > 4 * mine[0], (dt_scale, less, mine)
+            if dt_scale == SLOW_DT:
+                assert less[1] > 4 * mine[1], (dt_scale, less, mine)
+
+
+@settings(max_examples=60, deadline=None)
+@given(nh=st.integers(1, 200), cl=st.integers(1, 256))
+def test_bwd_head_groups_and_tile_pairs(nh, cl):
+    """The backward kernel's rule for head groups (runs of BWD_GROUP
+    heads in order, only the last ragged) and tile pairs (every (row,
+    key) with key <= row < cl in exactly one pair, indexed it (it + 1) / 2
+    + jt with jt <= it, the last tile ragged)."""
+    groups = bwd_head_groups(nh)
+    assert [h for g in groups for h in g] == list(range(nh))
+    assert all(len(g) == BWD_GROUP for g in groups[:-1])
+    assert 1 <= len(groups[-1]) <= BWD_GROUP
+    pairs = bwd_tile_pairs(cl)
+    n_kt = -(-cl // 64)
+    assert [p[0] for p in pairs] == list(range(n_kt * (n_kt + 1) // 2))
+    cover = np.zeros((cl, cl), np.int64)
+    for _, it, jt, rows, keys in pairs:
+        assert jt <= it < n_kt and 1 <= rows <= 64 and 1 <= keys <= 64
+        assert rows == min(64, cl - 64 * it) and keys == min(64, cl - 64 * jt)
+        cover[64 * it:64 * it + rows, 64 * jt:64 * jt + keys] += 1
+    lower = np.tril(np.ones((cl, cl), np.int64))
+    assert (cover[lower == 1] == 1).all()
+    assert (cover[np.triu(np.ones((cl, cl), bool), 1)] <= 1).all()
 
 
 def _jax_ssd_grads(arrs, D, st0, wy, ws, cl):
