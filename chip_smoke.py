@@ -38,42 +38,59 @@ Phases (any failure raises, and the script exits nonzero):
    two calls bit-identical) and
    the gradient of the full SSD op (an initial state, a padded S) against
    autograd of the plain chunked SSD, and every kernel at the shapes of
-   the serving and training runs;
+   the serving and training runs (qwen2-vl-2b's among them: paged with
+   G = 6 query heads a KV head at hd 128, flash forward and backward at
+   GQA 6:1, hd 128);
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
    prefill, paged at decode), ``zamba2-2.7b`` (hybrid: the SSD kernel in
    each of its 54 Mamba2 layers at prefill and at every decode step, flash
-   and paged in the 9 applications of its tied attention block) and
-   ``mamba2-130m`` (ssm: the SSD kernel in its 24 layers). The launch
-   counters, set to 0 just before each run and read just after, must
-   equal what that path launches; each model's first decode step is held
-   against a full forward over prompt + token. Then the training paths:
-   ``TrainLoop`` at full width and full depth, each layer rematerialised,
-   for 6 AdamW steps of 2 x 4096 tokens from a ``RingLoader`` over a
-   synthetic corpus (no checkpoint is due in the run: a full-width one
-   is 26-38 GB), on ``stablelm-1.6b`` (dense: 48 forward and 24 backward
+   and paged in the 9 applications of its tied attention block),
+   ``mamba2-130m`` (ssm: the SSD kernel in its 24 layers), ``qwen2-vl-2b``
+   (vlm: M-RoPE, GQA 6:1 at hd 128; also a prefill from patch embeddings
+   with a patch-grid pos3, held against the forward) and
+   ``musicgen-large`` (audio: 4 codebook streams, (4, 512, 4) prompts,
+   flash and paged in its 48 layers). The launch counters, set to 0 just
+   before each run and read just after, must equal what that path
+   launches; each model's first decode step is held
+   against a full forward over prompt + token. For stablelm-1.6b and
+   qwen2-vl-2b, the KV pager: the serving run's whole cache (every layer
+   and sequence, 34 pages of 16 tokens each) is put into a ``KVPager``
+   whose frames hold one layer's pages, spilling to its host and cold
+   tiers; layer by layer the pages are refaulted and pinned, and the
+   paged kernel over ``device_pools()`` through the table from
+   ``slot_of`` must give the bits of the kernel over the dense cache
+   (the pager's counters are printed as simulated). Then the training
+   paths: ``TrainLoop`` at full width and full depth, each layer
+   rematerialised, for 6 AdamW steps of 2 x 4096 tokens from a
+   ``RingLoader`` over a synthetic corpus (no checkpoint is due in the
+   run: a full-width one is 26-38 GB), on ``stablelm-1.6b`` (dense: 48 forward and 24 backward
    flash launches a step), ``zamba2-2.7b`` (hybrid, 2 microbatches: 216
    SSD chunk and 108 SSD backward launches, 36 flash forward and 18 flash
-   backward a step) and ``mamba2-130m`` (ssm: 48 and 24 SSD launches);
-   the counters must equal what ``train_launches`` derives from each
-   config. For stablelm (2 layers) and zamba2 (one group: 6 Mamba2
-   layers and the tied block), one step's loss and gradients at full
-   width are held against the same step with attention and the SSD
-   through autograd of their plain versions, and a smoke-size run that
-   crashes at step 8 and restarts from the ring checkpoint of step 5
-   must end bitwise equal to the uninterrupted run, under
-   ``torch.use_deterministic_algorithms(True)``;
+   backward a step), ``mamba2-130m`` (ssm: 48 and 24 SSD launches),
+   ``qwen2-vl-2b`` (on stand-in patch embeddings with a patch-grid pos3
+   and the ring's labels: 56 and 28 flash launches) and
+   ``musicgen-large`` (on (2, 4096, 4) tokens reshaped from ring reads:
+   96 and 48); the counters must equal what ``train_launches`` derives
+   from each config. For stablelm, qwen2-vl and musicgen (2 layers) and
+   zamba2 (one group: 6 Mamba2 layers and the tied block), one step's
+   loss and gradients at full width are held against the same step with
+   attention and the SSD through autograd of their plain versions, and
+   (stablelm, zamba2) a
+   smoke-size run that crashes at step 8 and restarts from the ring
+   checkpoint of step 5 must end bitwise equal to the uninterrupted run,
+   under ``torch.use_deterministic_algorithms(True)``;
 4. device times (CUDA events over launches queued behind a held stream,
    after warm-up) of each kernel, its plain version, its bound and, where
    one PyTorch call computes the same function, that call as a yardstick
    the port never calls, at the serving shapes (paged at the first and
-   last decode lengths, 33 and 34 pages, with its cluster shape; flash
-   with its CTA shape; the SSD kernel with its plan, also at a decode
+   last decode lengths, 33 and 34 pages, with its cluster shape, also at
+   qwen2-vl's G = 6; flash with its CTA shape, also at GQA 6:1, hd 128; the SSD kernel with its plan, also at a decode
    step's chunk of one token, bound at the TF32 tensor-core rate or the
    bytes); each model's prefill and decode times; the train step's time
    and tokens/s of each training run, the flash backward at the training
-   shape beside its bound and the backward of
+   shapes (stablelm's, qwen2-vl's) beside its bound and the backward of
    ``scaled_dot_product_attention``, the flash forward at the training
    shape, and the SSD chunk kernel and its backward at zamba2's and
    mamba2's training calls (the backward beside its plain version, its
@@ -139,7 +156,7 @@ from repro_torch.models import attention as attn               # noqa: E402
 from repro_torch.models import lm                              # noqa: E402
 from repro_torch.optim import (adamw_init, adamw_update,       # noqa: E402
                                cosine_schedule)
-from repro_torch.serve import ServeLoop                        # noqa: E402
+from repro_torch.serve import KVPager, PagerConfig, ServeLoop  # noqa: E402
 from repro_torch.train import TrainLoop, TrainLoopConfig       # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map             # noqa: E402
 
@@ -211,8 +228,10 @@ SLOW_DT = 0.01
 SSD_BWD_SLOW_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 200, 2, 64, 64, 200),
                        (2, 512, 3, 64, 128, 256)]
 
-# the serving runs: 4 prompts x 512 tokens, 32 new tokens, one per model
-ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m")
+# the serving runs: 4 prompts x 512 tokens (musicgen: 4 codebook streams a
+# position), 32 new tokens, one per model
+ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m", "qwen2-vl-2b",
+         "musicgen-large")
 BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
 # first decode step vs a full forward, both bf16 compute through every
 # layer (different GEMM shapes, flash vs paged attention): logits agree to
@@ -224,18 +243,35 @@ BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
 # H100 with the wgmma flash kernel (0.256 with the mma.sync one) against
 # stablelm's 0.078 at <= 5.0
 LOGIT_TOLS = {"dense": (0.15, 0.05), "hybrid": (0.4, 0.05),
-              "ssm": (0.15, 0.05)}
+              "ssm": (0.15, 0.05), "vlm": (0.15, 0.05), "audio": (0.2, 0.05)}
+# families whose every layer is a transformer block: flash at prefill, paged
+# at decode, in each layer
+ATTN_ONLY = ("dense", "vlm", "audio")
+# qwen2-vl-2b's images, one frame of patch tokens then text, M-RoPE ids as
+# in Qwen2-VL (the patch grid's (t, h, w), then text from the grid's largest
+# id + 1): 16 x 16 patches (448 x 448 pixels after its 2 x 2 merge) in a
+# 512-token prompt, 32 x 32 (896 x 896) in a 4096-token training row
+VLM_GRID_SERVE, VLM_GRID_TRAIN = (1, 16, 16), (1, 32, 32)
 
 # the training runs: one model of each family at full width and depth,
 # train_4k's sequence (configs/base.py), a global batch cut from 256 to 2
-TRAIN_ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m")
+TRAIN_ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m", "qwen2-vl-2b",
+               "musicgen-large")
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6
 # one step at full width and one group of layers (stablelm: 2 layers;
 # zamba2: attn_every Mamba2 layers and the tied block), the kernels vs
 # autograd of the plain attention and the plain chunked SSD, both bf16
 # compute: the loss to 2e-3 relative and each gradient leaf to 2e-2
 # relative L2 (a few bf16 roundings, 2^-8 each)
-GRAD_ARCHS = ("stablelm-1.6b", "zamba2-2.7b")
+GRAD_ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "qwen2-vl-2b",
+              "musicgen-large")
+RESTART_ARCHS = ("stablelm-1.6b", "zamba2-2.7b")
+# the pager phase: real bf16 KV of a serving run's cache (every layer, every
+# sequence, 34 pages of 16 tokens) in a KVPager whose frames hold one
+# layer's pages and PAGER_SLACK more, with a host tier smaller than the
+# rest, so that pages spill to both tiers and each layer refaults
+PAGER_ARCHS = ("stablelm-1.6b", "qwen2-vl-2b")
+PAGER_SLACK, PAGER_HOST_SHARE = 16, 0.25
 GRAD_LOSS_RTOL, GRAD_REL_L2 = 2e-3, 2e-2
 RESTART_STEPS, RESTART_CKPT, RESTART_CRASH = 10, 5, 8
 
@@ -649,14 +685,15 @@ def check_paged_permuted(rng, dev, B, H, KH, hd, page, nblk):
         f"permuted table bit-identical; vs split-merge plain {e:.3e}")
 
 
-def check_paged_decode_lengths(rng, dev):
+def check_paged_decode_lengths(rng, dev, H=32, KH=32, hd=64):
     """Every length a serving decode step reads (513 .. 543: 33 and 34
-    pages of 16), stablelm's shape, against both plain versions."""
-    B, H, hd = BATCH, 32, 64
+    pages of 16) at a model's shape (stablelm's by default), against both
+    plain versions. Returns the largest error."""
+    B = BATCH
     q = rand(rng, (B, H, hd), torch.bfloat16, dev)
     n_pages = B * MAX_LEN // lm.PAGE_SIZE
-    kp = rand(rng, (n_pages, lm.PAGE_SIZE, H, hd), torch.bfloat16, dev)
-    vp = rand(rng, (n_pages, lm.PAGE_SIZE, H, hd), torch.bfloat16, dev)
+    kp = rand(rng, (n_pages, lm.PAGE_SIZE, KH, hd), torch.bfloat16, dev)
+    vp = rand(rng, (n_pages, lm.PAGE_SIZE, KH, hd), torch.bfloat16, dev)
     worst = 0.0
     for pos in range(PROMPT, MAX_LEN - 1):
         table, lens = lm.identity_pages(B, MAX_LEN, pos, 0, dev)
@@ -669,8 +706,9 @@ def check_paged_decode_lengths(rng, dev):
                         paged_ops.paged_attention_ref(q, kp, vp, table,
                                                       lens), tol, tol))
     log(f"paged  every decode length {PROMPT + 1}..{MAX_LEN - 1} (B={B} "
-        f"H={H} hd={hd}): max abs err {worst:.3e} against both plain "
-        f"versions")
+        f"H={H} KH={KH} hd={hd}): max abs err {worst:.3e} against both "
+        f"plain versions")
+    return worst
 
 
 def check_tile_rule():
@@ -751,6 +789,11 @@ def phase_kernels_vs_plain(dev):
                   (BATCH, 32, 32, 80, 16, 34), (2, 8, 2, 64, 16, 11)):
         check_paged_permuted(rng, dev, *shape)
     check_paged_decode_lengths(rng, dev)
+    # qwen2-vl-2b's decode: G = 6 query heads a KV head (not a power of
+    # two) at hd 128, 34 pages of 16
+    check_paged_permuted(rng, dev, BATCH, 12, 2, 128, lm.PAGE_SIZE, 34)
+    qwen = {"paged_attention": check_paged_decode_lengths(rng, dev, 12, 2,
+                                                          128)}
 
     # the SSD chunk kernel: the sweep of tests/test_kernels.py, a chunk of
     # one token (each decode step), a ragged 64-row tile, bf16 inputs
@@ -800,6 +843,11 @@ def phase_kernels_vs_plain(dev):
     log(f"flash  serving shape q/k/v {tuple(q.shape)} bf16 causal: max abs "
         f"err {errs['flash_attention_fwd']:.3e}")
     check_flash(rng, dev, BATCH, PROMPT, 32, 32, 80, torch.bfloat16)
+    # qwen2-vl-2b's prefill: GQA 6:1 at hd 128, forward (with and without
+    # lse) and backward
+    qwen["flash_attention_fwd"] = check_flash(rng, dev, BATCH, PROMPT, 12, 2,
+                                              128, torch.bfloat16)
+    check_flash_bwd(rng, dev, BATCH, PROMPT, 12, 2, 128, torch.bfloat16)
     per_seq = MAX_LEN // lm.PAGE_SIZE
     for hd in (hdm, 80):
         qd = rand(rng, (Bm, Hm, hd), torch.bfloat16, dev)
@@ -857,8 +905,14 @@ def phase_kernels_vs_plain(dev):
     # the training shape: stablelm-1.6b's attention at 2 x 4096
     errs["flash_attention_bwd"] = check_flash_bwd(
         rng, dev, TRAIN_B, TRAIN_S, 32, 32, 64, torch.bfloat16, q_chunk=512)
+    free_card()
+    # qwen2-vl-2b's training call: GQA 6:1 at hd 128, 2 x 4096 (its dK/dV
+    # CTAs: 2 KV heads x 32 key tiles x 2 = 128 for 132 SMs, each summing 6
+    # query heads)
+    qwen["flash_attention_bwd"] = check_flash_bwd(
+        rng, dev, TRAIN_B, TRAIN_S, 12, 2, 128, torch.bfloat16, q_chunk=512)
     torch.cuda.synchronize()
-    return errs
+    return errs, qwen
 
 
 # ---------------------------------------------------------------------------
@@ -867,7 +921,7 @@ def phase_kernels_vs_plain(dev):
 
 def expected_launches(cfg):
     L, steps = cfg.n_layers, NEW - 1
-    if cfg.family == "dense":
+    if cfg.family in ATTN_ONLY:
         return {"flash_attention_fwd": L, "flash_attention_bwd": 0,
                 "paged_attention": L * steps, "ssd_chunk_call": 0,
                 "ssd_chunk_bwd": 0}
@@ -884,9 +938,9 @@ def train_launches(cfg, steps):
     or the tied block after every ``attn_every`` Mamba2 layers."""
     mb, fwd = max(cfg.microbatches, 1), 2 if cfg.remat else 1
     L = cfg.n_layers
-    attn_calls = {"dense": L, "hybrid": L // max(cfg.attn_every, 1),
-                  "ssm": 0}[cfg.family]
-    ssd_calls = 0 if cfg.family == "dense" else L
+    attn_calls = {"dense": L, "vlm": L, "audio": L,
+                  "hybrid": L // max(cfg.attn_every, 1), "ssm": 0}[cfg.family]
+    ssd_calls = 0 if cfg.family in ATTN_ONLY else L
     n = steps * mb
     return {"flash_attention_fwd": fwd * attn_calls * n,
             "flash_attention_bwd": attn_calls * n, "paged_attention": 0,
@@ -915,7 +969,7 @@ def phase_main_path(dev, arch):
         f"{shape}vocab={cfg.vocab_size}: {n_par / 1e9:.3f} B params, built "
         f"in {time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+        0, cfg.vocab_size, prompt_shape(cfg, BATCH, PROMPT)).astype(np.int32)
 
     torch.cuda.synchronize()
     for fn in KERNELS.values():
@@ -930,7 +984,7 @@ def phase_main_path(dev, arch):
     want = expected_launches(cfg)
     if launches != want:
         raise AssertionError(f"{arch}: launch counts {launches} != {want}")
-    if tuple(toks.shape) != (BATCH, NEW) or \
+    if tuple(toks.shape) != prompt_shape(cfg, BATCH, NEW) or \
             not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{arch}: generated tokens out of range")
 
@@ -938,7 +992,7 @@ def phase_main_path(dev, arch):
         tokens = torch.from_numpy(prompts).to(dev)
         logits0, cache = serve.prefill(serve.params, {"tokens": tokens})
         full = lm.grow_cache(cfg, cache, MAX_LEN)
-        first = logits0[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+        first = logits0[..., :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
         step_logits, _ = lm.decode_step(cfg, serve.params, full, first, PROMPT)
         seq = torch.cat([tokens, first], dim=1)
         fwd_logits, _, _ = lm.forward(cfg, serve.params, {"tokens": seq})
@@ -950,18 +1004,94 @@ def phase_main_path(dev, arch):
         V = cfg.vocab_size
         atol, rtol = LOGIT_TOLS[cfg.family]
         err = check_close(f"{arch}: first decode step vs forward",
-                          step_logits[:, :V], ref[:, :V], atol, rtol)
-        agree = (step_logits[:, :V].argmax(-1) == ref[:, :V].argmax(-1))
+                          step_logits[..., :V], ref[..., :V], atol, rtol)
+        agree = (step_logits[..., :V].argmax(-1) == ref[..., :V].argmax(-1))
         same_first = bool(torch.equal(first[:, 0], toks[:, 0]))
-        same_second = (step_logits[:, :V].argmax(-1).to(torch.int32)
+        same_second = (step_logits[..., :V].argmax(-1).to(torch.int32)
                        == toks[:, 1])
         del fwd_logits, full, cache
     log(f"main[{arch}]: first decode step vs forward over prompt+token: max "
         f"abs err {err:.3e} (|ref| max {ref.float().abs().max().item():.3f}; "
         f"atol {atol} rtol {rtol}); greedy agreement "
-        f"{int(agree.sum())}/{BATCH}; generate's token 0 reproduced: "
-        f"{same_first}, token 1: {int(same_second.sum())}/{BATCH}")
+        f"{int(agree.sum())}/{agree.numel()}; generate's token 0 reproduced: "
+        f"{same_first}, token 1: {int(same_second.sum())}/"
+        f"{same_second.numel()}")
+    if cfg.family == "vlm":
+        check_vlm_prefill_embeds(dev, arch, cfg, serve)
     return cfg, serve, prompts, launches
+
+
+def prompt_shape(cfg, B, S):
+    """(B, S) token ids, audio (B, S, K): K codebook streams a position."""
+    return (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+
+
+def vlm_pos3(B, S, dev, grid):
+    """(3, B, S) int32 M-RoPE ids: a (t, h, w) patch grid's ids, then text
+    positions from the grid's largest id + 1 on all three streams
+    (Qwen2-VL's layout)."""
+    t, h, w = torch.meshgrid(*(torch.arange(n) for n in grid),
+                             indexing="ij")
+    img = torch.stack([t.flatten(), h.flatten(), w.flatten()])
+    txt = torch.arange(S - img.shape[1]) + img.max() + 1
+    one = torch.cat([img, txt.expand(3, -1)], dim=1)
+    return one[:, None].expand(3, B, S).to(dev, torch.int32).contiguous()
+
+
+def vlm_embeds(cfg, B, S, dev, seed):
+    """Stand-in patch and text embeddings (the vision frontend is a stub
+    in both packages): N(0, 1) in bf16 from a seeded CUDA generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((B, S, cfg.d_model), generator=g,
+                       device=dev).to(torch.bfloat16)
+
+
+def check_vlm_prefill_embeds(dev, arch, cfg, serve):
+    """qwen2-vl-2b's prefill from patch embeddings with a patch-grid pos3
+    (the JAX package's vlm prefill and train input): one flash launch a
+    layer, and its last logits are the forward's on the same input bit
+    for bit; the same embeddings with three equal streams give other
+    logits. Then a decode step at position S (all three M-RoPE streams at
+    S, the JAX package's decode) against a forward over the S inputs and
+    that token's embedding at (S, S, S)."""
+    V = cfg.vocab_size
+    with torch.inference_mode():
+        emb = vlm_embeds(cfg, BATCH, PROMPT, dev, seed=1)
+        pos3 = vlm_pos3(BATCH, PROMPT, dev, VLM_GRID_SERVE)
+        batch = {"embeds": emb, "pos3": pos3}
+        before = flash_kernel.flash_attention_fwd.launches
+        last, cache = serve.prefill(serve.params, batch)
+        torch.cuda.synchronize()
+        n = flash_kernel.flash_attention_fwd.launches - before
+        if n != cfg.n_layers:
+            raise AssertionError(f"{arch}: prefill from embeds launched "
+                                 f"flash {n} times, not {cfg.n_layers}")
+        fwd, _, _ = lm.forward(cfg, serve.params, batch)
+        if not torch.equal(last, fwd[:, -1]):
+            raise AssertionError(f"{arch}: prefill from embeds differs from "
+                                 f"the forward on the same input")
+        plain, _, _ = lm.forward(cfg, serve.params, {"embeds": emb})
+        moved = float((plain[:, -1] - last).float().abs().max())
+        if not moved > 0:
+            raise AssertionError(f"{arch}: the patch-grid pos3 changed no "
+                                 f"logit")
+        full = lm.grow_cache(cfg, cache, MAX_LEN)
+        tok = last[:, :V].argmax(-1).to(torch.int32)[:, None]
+        step, _ = lm.decode_step(cfg, serve.params, full, tok, PROMPT)
+        row = lm.embed_tokens(cfg, serve.params, tok, cfg.compute_dt())
+        at = torch.full((3, BATCH, 1), PROMPT, dtype=torch.int32, device=dev)
+        ref, _, _ = lm.forward(cfg, serve.params, {
+            "embeds": torch.cat([emb, row], 1),
+            "pos3": torch.cat([pos3, at], 2)})
+        atol, rtol = LOGIT_TOLS["vlm"]
+        err = check_close(f"{arch}: decode after an embeds prefill vs "
+                          f"forward", step[:, :V], ref[:, -1, :V], atol, rtol)
+        del full, cache, fwd, plain, ref
+    log(f"main[{arch}]: prefill from embeds {tuple(emb.shape)} with a "
+        f"{VLM_GRID_SERVE} patch-grid pos3: {n} flash launches, last logits "
+        f"bit-identical to the forward's; three equal streams move them by "
+        f"up to {moved:.3f}; a decode step at (S, S, S) vs the forward over "
+        f"S + 1 inputs: max abs err {err:.3e} (atol {atol} rtol {rtol})")
 
 
 def _leaves(tree):
@@ -972,13 +1102,34 @@ def _leaves(tree):
             yield v
 
 
-def train_loader(corpus):
-    return RingLoader(TokenStore(corpus), batch=TRAIN_B, seq=TRAIN_S)
+def corpus_tokens(cfg):
+    """Tokens of a run's synthetic corpus: 64 batches of ring reads."""
+    return 64 * TRAIN_B * (TRAIN_S * (cfg.n_codebooks or 1) + 1)
 
 
-def card_batch(corpus, dev):
+def train_data(cfg, corpus, dev):
+    """The batches a training run reads, through a RingLoader over
+    ``corpus``: tokens and labels; for vlm, stand-in patch embeddings with
+    a patch-grid pos3 and the ring's labels; for audio, (B, S, K) tokens
+    and labels from ring reads of K·S tokens a row, reshaped (driver code:
+    neither package has a codebook loader)."""
+    K = cfg.n_codebooks
+    loader = RingLoader(TokenStore(corpus), batch=TRAIN_B,
+                        seq=TRAIN_S * (K or 1))
+    if cfg.family == "vlm":
+        pos3 = vlm_pos3(TRAIN_B, TRAIN_S, dev, VLM_GRID_TRAIN)
+        return ({"embeds": vlm_embeds(cfg, TRAIN_B, TRAIN_S, dev, 100 + i),
+                 "pos3": pos3, "labels": b["labels"]}
+                for i, b in enumerate(loader))
+    if K:
+        return ({k: v.reshape(TRAIN_B, TRAIN_S, K) for k, v in b.items()}
+                for b in loader)
+    return iter(loader)
+
+
+def card_batch(cfg, corpus, dev):
     return {k: torch.as_tensor(v, device=dev)
-            for k, v in next(iter(train_loader(corpus))).items()}
+            for k, v in next(train_data(cfg, corpus, dev)).items()}
 
 
 def watched(cfg, params):
@@ -988,7 +1139,9 @@ def watched(cfg, params):
     gives; the tied attention block)."""
     lay = params["layers"]
     out = {"embed": params["embed"][:256], "final_norm": params["final_norm"]}
-    if cfg.family == "dense":
+    if cfg.family in ATTN_ONLY:
+        if cfg.family == "vlm":          # trained on embeds: the head moves
+            out["head[:, :256]"] = params["head"][:, :256]
         out.update({"wq[0]": lay["attn"]["wq"][0],
                     f"w2[{cfg.n_layers - 1}]": lay["mlp"]["w2"][-1]})
         return out
@@ -1011,7 +1164,7 @@ def phase_train(dev, corpus, ckpt_dir, arch):
     loop = TrainLoop(cfg, TrainLoopConfig(total_steps=TRAIN_STEPS,
                                           ckpt_every=TRAIN_STEPS + 1,
                                           ckpt_dir=ckpt_dir, log_every=1),
-                     train_loader(corpus), seed=0, device=dev)
+                     train_data(cfg, corpus, dev), seed=0, device=dev)
     n_par = sum(t.numel() for t in tree_leaves(loop.params))
     watch = watched(cfg, loop.params)
     before = {n: t.detach().clone() for n, t in watch.items()}
@@ -1066,7 +1219,7 @@ def phase_train_times(dev, arch, cfg, loop, corpus):
     """The train step's device and host time after the run's warm-up,
     tokens/s, and where its time goes (torch.profiler over one step:
     forward + backward, then the optimizer)."""
-    batch = card_batch(corpus, dev)
+    batch = card_batch(cfg, corpus, dev)
     reps = 3
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -1195,7 +1348,7 @@ def phase_train_grads(dev, corpus, arch):
                        else 2)
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(1),
                             device=dev)
-    batch = card_batch(corpus, dev)
+    batch = card_batch(cfg, corpus, dev)
     for fn in KERNELS.values():
         fn.launches = 0
     loss_k, grads_k = loss_and_grads(cfg, params, batch)
@@ -1222,6 +1375,8 @@ def phase_train_grads(dev, corpus, arch):
     worst = ("", 0.0)
     names = [n for n, _ in _named_leaves(grads_k)]
     for name, a, b in zip(names, tree_leaves(grads_k), tree_leaves(grads_p)):
+        if not b.any() and not a.any():  # vlm's embedding: not read
+            continue
         rel = float((a.float() - b.float()).norm() / b.float().norm())
         if not (np.isfinite(rel) and rel <= GRAD_REL_L2):
             raise AssertionError(f"{arch} {cfg.n_layers}-layer gradient "
@@ -1304,6 +1459,128 @@ def phase_train_restart(dev, ckpt_dir, arch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the KV pager over a serving run's cache
+# ---------------------------------------------------------------------------
+
+def phase_pager(dev, arch, cfg, serve, prompts):
+    """A serving run's real bf16 cache (prefill, then every decode step:
+    543 positions of 544) cut into pages of 16 tokens and put into a
+    KVPager, key (layer * B + sequence, block), whose frames hold one
+    layer's pages and PAGER_SLACK more and whose host tier holds a quarter
+    of the rest, so that pages spill to both tiers. Then, layer by layer:
+    refault and pin the layer's pages in a seeded random order (as the
+    sequences of a batch would touch them; in key order the pool can hand
+    out frames in key order, and the table would be the identity), build
+    the page table from
+    ``slot_of``, upload the frames with ``device_pools()`` and run the
+    paged kernel at the serving q shape through that table: bit-identical
+    to the kernel over the dense cache through the identity table (what
+    decode reads), and within tolerance of the plain version. Returns the
+    kernel launches over the pager's pools (the dense reads compared with
+    them are not counted)."""
+    kinds = {n: 0 for n in KERNELS}
+    with torch.inference_mode():
+        tokens = torch.from_numpy(prompts).to(dev)
+        logits0, cache = serve.prefill(serve.params, {"tokens": tokens})
+        full = lm.grow_cache(cfg, cache, MAX_LEN)
+        del cache
+        nxt = logits0[..., :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+        for pos in range(PROMPT, MAX_LEN - 1):
+            nxt, full = serve.step(serve.params, full, nxt, pos)
+        k_all, v_all = full["k"], full["v"]              # (L, B, Smax, KH, hd)
+        del full
+    L, B, Smax, KH, hd = k_all.shape
+    P, H = lm.PAGE_SIZE, cfg.n_heads
+    nblk, length = Smax // P, MAX_LEN - 1
+    total = L * B * nblk
+    n_frames = B * nblk + PAGER_SLACK
+    pcfg = PagerConfig(n_hbm_pages=n_frames, page_tokens=P, kv_heads=KH,
+                       head_dim=hd,
+                       host_pages=int(PAGER_HOST_SHARE * (total - n_frames)),
+                       nvme_pages=total)
+    pager = KVPager(pcfg)
+    k_cpu = k_all.view(L, B, nblk, P, KH, hd).cpu()
+    v_cpu = v_all.view(L, B, nblk, P, KH, hd).cpu()
+    t0 = time.perf_counter()
+    for layer in range(L):
+        for b in range(B):
+            for j in range(nblk):
+                pager.put_page_sync((layer * B + b, j), k_cpu[layer, b, j],
+                                    v_cpu[layer, b, j])
+    put_s = time.perf_counter() - t0
+    del k_cpu, v_cpu
+    rng = np.random.default_rng(5)
+    q = rand(rng, (B, H, hd), torch.bfloat16, dev)     # the serving q shape
+    ident, lens = lm.identity_pages(B, Smax, length - 1, 0, dev)
+    pools_ms, worst, refault_s = [], 0.0, 0.0
+    for layer in range(L):
+        keys = [(layer * B + b, j) for b in range(B) for j in range(nblk)]
+        t0 = time.perf_counter()
+        pinned = [pager.fix_page_sync(keys[i])
+                  for i in rng.permutation(len(keys))]
+        refault_s += time.perf_counter() - t0
+        table = torch.tensor([[pager.slot_of((layer * B + b, j))
+                               for j in range(nblk)] for b in range(B)],
+                             dtype=torch.int32).to(dev)
+        if torch.equal(table, ident):
+            raise AssertionError(f"pager {arch} layer {layer}: the table is "
+                                 f"the identity")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k_pool, v_pool = pager.device_pools(dev)
+        torch.cuda.synchronize()
+        pools_ms.append((time.perf_counter() - t0) * 1e3)
+        before = {n: fn.launches for n, fn in KERNELS.items()}
+        out = paged_kernel.paged_attention(q, k_pool, v_pool, table, lens)
+        for n, fn in KERNELS.items():
+            kinds[n] += fn.launches - before[n]
+        dense = paged_kernel.paged_attention(
+            q, k_all[layer].view(B * nblk, P, KH, hd),
+            v_all[layer].view(B * nblk, P, KH, hd), ident, lens)
+        if not torch.equal(out, dense):
+            raise AssertionError(f"pager {arch} layer {layer}: the kernel "
+                                 f"over the pager's pools differs from the "
+                                 f"dense read")
+        tol = TOLS[torch.bfloat16]
+        worst = max(worst, check_close(
+            f"pager {arch} layer {layer} vs plain", out,
+            paged_ops.paged_attention_ref(q, k_pool, v_pool, table, lens),
+            tol, tol))
+        for idx in pinned:
+            pager.pool.unfix(idx)
+        del k_pool, v_pool
+    torch.cuda.synchronize()
+    counters = {"writebacks": pager.pool.writebacks,
+                "host_reads": pager.host_reads,
+                "cold_reads": pager.cold_reads}
+    if not all(v > 0 for v in counters.values()):
+        raise AssertionError(f"pager {arch}: a spill tier was not used: "
+                             f"{counters}")
+    if kinds["paged_attention"] != L:
+        raise AssertionError(f"pager {arch}: {kinds} launches, not {L}")
+    log(f"pager[{arch}]: {total} pages of {P} tokens ({pager.page_bytes} B: "
+        f"{L} layers x {B} sequences x {nblk} blocks, KH={KH} hd={hd}) put "
+        f"in {put_s:.2f} s (host); {n_frames} frames, host tier "
+        f"{pcfg.host_pages} pages, cold tier the rest; per layer the table "
+        f"from slot_of (not the identity), device_pools() + upload "
+        f"{np.mean(pools_ms):.3f} ms mean (host, {min(pools_ms):.3f} - "
+        f"{max(pools_ms):.3f}; {n_frames * pager.page_bytes / 1e6:.1f} MB), "
+        f"refault + pin {refault_s / L * 1e3:.1f} ms a layer (host); the "
+        f"kernel at q {tuple(q.shape)}, length {length}, over the pager's "
+        f"pools: bit-identical to the dense read in all {L} layers, vs plain "
+        f"max abs err {worst:.3e}; launches {kinds['paged_attention']}")
+    log(f"pager[{arch}]: SIMULATED (the pager's virtual clock, not the "
+        f"card): writebacks {pager.pool.writebacks}, host reads "
+        f"{pager.host_reads}, cold reads {pager.cold_reads}, faults "
+        f"{pager.pool.faults}, hits {pager.pool.hits}, evictions "
+        f"{pager.pool.evictions}, spilled pages {pager.spilled_pages()}, "
+        f"virtual time {pager.tl.now:.6f} s")
+    del k_all, v_all, pager
+    return kinds, {"device_pools_ms": float(np.mean(pools_ms)),
+                   "max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -1372,29 +1649,32 @@ def time_flash(rng, dev, H, KH, hd, B=BATCH, S=PROMPT, with_lse=False):
     plain_ms = cuda_ms(lambda i: attn.reference_attention(*sets[i]), 4,
                        max(3, reps // 5))
     t_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    gqa = dict(enable_gqa=True) if KH != H else {}
     lib_ms = cuda_ms(
-        lambda i: F.scaled_dot_product_attention(*t_sets[i], is_causal=True),
-        4, reps)
+        lambda i: F.scaled_dot_product_attention(*t_sets[i], is_causal=True,
+                                                 **gqa), 4, reps)
     pairs = S * (S + 1) // 2
     bnd = bound(2 * B * S * H * hd * 2 + 2 * B * S * KH * hd * 2
                 + (B * H * S * 4 if with_lse else 0),
                 4 * B * H * hd * pairs, dt)
-    log(f"  flash  q/k/v {(B, S, H, hd)} bf16 causal"
+    log(f"  flash  q {(B, S, H, hd)} k/v {KH} heads bf16 causal"
         f"{' (+lse)' if with_lse else ''}: kernel {ms:.4f} ms "
         f"({flash_kernel.plan(hd)}), plain {plain_ms:.4f} ms, sdpa "
         f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
     return ms, plain_ms, lib_ms, bnd
 
 
-def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64):
+def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64, KH=None):
     """Device ms of the backward kernel at the training shape (causal,
     bf16), its plain version, the backward of SDPA (causal) and the
-    bound: q/k/v/o/do and lse read once, dq/dk/dv written once; five
-    products over the causal pairs."""
+    bound: q/o/do, k/v (KH heads) and lse read once, dq, dk/dv written
+    once; five products over the causal pairs."""
     dt = torch.bfloat16
+    KH = KH or H
     sets = []
-    for _ in range(2):                               # 2 x 168 MB > L2
-        q, k, v, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(4))
+    for _ in range(2):                               # 2 x >= 64 MB > L2
+        q, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(2))
+        k, v = (rand(rng, (B, S, KH, hd), dt, dev) for _ in range(2))
         o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True)
         sets.append((q, k, v, o, lse, do))
     ms = cuda_ms(lambda i: flash_kernel.flash_attention_bwd(*sets[i]), 2, 5,
@@ -1402,17 +1682,20 @@ def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64):
     plain_ms = cuda_ms(lambda i: flash_attention_bwd_ref(*sets[i]), 2, 2,
                        warmup=1)
     lib = []
+    gqa = dict(enable_gqa=True) if KH != H else {}
     for q, k, v, _, _, do in sets:
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             **gqa)
         lib.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
     lib_ms = cuda_ms(lambda i: torch.autograd.grad(
         lib[i][0], lib[i][1], lib[i][2], retain_graph=True), 2, 10)
     pairs = S * (S + 1) // 2
-    bnd = bound(8 * B * S * H * hd * 2 + B * H * S * 4,
-                5 * 2 * B * H * hd * pairs, dt)
-    log(f"  flash bwd q/k/v/o/do {(B, S, H, hd)} bf16 causal: kernel "
+    bnd = bound(4 * B * S * H * hd * 2 + 4 * B * S * KH * hd * 2
+                + B * H * S * 4, 5 * 2 * B * H * hd * pairs, dt)
+    log(f"  flash bwd q/o/do {(B, S, H, hd)} k/v {KH} heads bf16 causal: "
+        f"kernel "
         f"{ms:.4f} ms ({5 * 2 * B * H * hd * pairs / ms / 1e9:.1f} TFLOP/s "
         f"of the five products; {flash_kernel.plan_bwd(hd)}), plain "
         f"{plain_ms:.4f} ms, backward of sdpa {lib_ms:.4f} ms, bound "
@@ -1540,11 +1823,21 @@ def phase_kernel_times(dev):
     free_card()
     time_flash_bwd(rng, dev, H=16, hd=128)
     free_card()
+    # qwen2-vl-2b: GQA 6:1 at hd 128, prefill, training forward and backward
+    qwen = {"flash_attention_fwd": time_flash(rng, dev, 12, 2, 128)}
+    qwen["flash_attention_fwd train"] = time_flash(
+        rng, dev, 12, 2, 128, B=TRAIN_B, S=TRAIN_S, with_lse=True)
+    free_card()
+    qwen["flash_attention_bwd"] = time_flash_bwd(rng, dev, H=12, hd=128,
+                                                 KH=2)
+    free_card()
     # the first and last decode steps' lengths: 33 and 34 pages
     time_paged(rng, dev, 32, 32, 64, PROMPT + 1)
     out["paged_attention"] = time_paged(rng, dev, 32, 32, 64, MAX_LEN - 1)
     time_paged(rng, dev, 32, 32, 80, PROMPT + 1)      # zamba2-2.7b
     time_paged(rng, dev, 32, 32, 80, MAX_LEN - 1)
+    time_paged(rng, dev, 12, 2, 128, PROMPT + 1)      # qwen2-vl-2b: G = 6
+    qwen["paged_attention"] = time_paged(rng, dev, 12, 2, 128, MAX_LEN - 1)
     free_card()
     out["ssd_chunk_call"] = time_ssd(rng, dev, 80, 64, 64, PROMPT, 256,
                                      "zamba2-2.7b prefill")
@@ -1562,7 +1855,7 @@ def phase_kernel_times(dev):
     time_ssd_bwd(rng, dev, TRAIN_B, TRAIN_S, 24, 64, 128, 256,
                  "mamba2-130m train")
     free_card()
-    return out
+    return out, qwen
 
 
 def phase_serve_times(dev, arch, cfg, serve, prompts):
@@ -1579,7 +1872,7 @@ def phase_serve_times(dev, arch, cfg, serve, prompts):
         prefill_ms = (time.perf_counter() - t0) * 1e3 / reps
         full = lm.grow_cache(cfg, cache, MAX_LEN)
         del cache
-        nxt = logits0[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+        nxt = logits0[..., :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
         serve.step(serve.params, full, nxt, PROMPT)       # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1693,7 +1986,7 @@ def phase_profile(dev, arch, cfg, serve, prompts):
         logits0, cache = box.pop("out")
         full = lm.grow_cache(cfg, cache, MAX_LEN)
         del cache
-        nxt = logits0[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+        nxt = logits0[..., :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
 
         def decode():
             t = nxt
@@ -1712,13 +2005,17 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     name, count, smi_line = phase_card_and_build()
-    errs = phase_kernels_vs_plain(dev)
+    errs, qwen_errs = phase_kernels_vs_plain(dev)
     free_card()
-    launches, serve_times = {}, {}
+    launches, serve_times, pager = {}, {}, {}
     for arch in ARCHS:
         cfg, serve, prompts, launches[arch] = phase_main_path(dev, arch)
         serve_times[arch] = phase_serve_times(dev, arch, cfg, serve, prompts)
         phase_profile(dev, arch, cfg, serve, prompts)
+        if arch in PAGER_ARCHS:
+            free_card()
+            launches[f"pager {arch}"], pager[arch] = phase_pager(
+                dev, arch, cfg, serve, prompts)
         del serve
         free_card()
     train_times = {}
@@ -1727,7 +2024,7 @@ def main() -> int:
         for arch in TRAIN_ARCHS:
             corpus = make_synthetic_corpus(
                 os.path.join(tmp, f"{arch}.bin"),
-                64 * TRAIN_B * (TRAIN_S + 1), get_config(arch).vocab_size,
+                corpus_tokens(get_config(arch)), get_config(arch).vocab_size,
                 seed=0)
             cfg, loop, launches[f"train {arch}"], peak_gb = phase_train(
                 dev, corpus, os.path.join(tmp, "ckpt_full"), arch)
@@ -1740,13 +2037,15 @@ def main() -> int:
                 train_times[arch]["grad_rel_l2_one_group"] = \
                     phase_train_grads(dev, corpus, arch)
                 free_card()
+            if arch in RESTART_ARCHS:
                 phase_train_restart(dev, os.path.join(tmp, f"ckpt_{arch}"),
                                     arch)
                 free_card()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    times = phase_kernel_times(dev)
-    paths = ARCHS + tuple(f"train {a}" for a in TRAIN_ARCHS)
+    times, qwen_times = phase_kernel_times(dev)
+    paths = ARCHS + tuple(f"train {a}" for a in TRAIN_ARCHS) \
+        + tuple(f"pager {a}" for a in PAGER_ARCHS)
     kernels = []
     for kname, src, replaces in (
             ("flash_attention_fwd", "src/repro_torch/csrc/flash_fwd.cu",
@@ -1771,10 +2070,22 @@ def main() -> int:
                 times["flash_attention_fwd train"]
             entry.update(train_ms=t_ms, train_plain_ms=t_plain,
                          train_library_ms=t_lib, train_bound_ms=t_bound)
+        if kname in qwen_times:                  # GQA 6:1 at hd 128
+            q_ms, q_plain, q_lib, (q_bound, q_by) = qwen_times[kname]
+            entry["qwen2_vl"] = {"ms": q_ms, "plain_ms": q_plain,
+                                 "bound_ms": q_bound, "bound_by": q_by,
+                                 "library_ms": q_lib,
+                                 "max_abs_err": qwen_errs[kname]}
+            if kname == "flash_attention_fwd":
+                t_ms, t_plain, t_lib, (t_bound, _) = \
+                    qwen_times["flash_attention_fwd train"]
+                entry["qwen2_vl"].update(
+                    train_ms=t_ms, train_plain_ms=t_plain,
+                    train_library_ms=t_lib, train_bound_ms=t_bound)
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve_times,
-                      "train": train_times}))
+                      "train": train_times, "pager": pager}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -19,7 +19,9 @@ from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def ce_loss(cfg, logits, labels):
-    """Cross-entropy over the (padded) vocab."""
+    """Cross-entropy over the (padded) vocab, the mean over every position
+    (audio: (B, S, K, V) logits and (B, S, K) labels, every codebook's
+    position counted)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     true_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
@@ -33,25 +35,36 @@ def loss_fn(cfg, params, batch):
 
 def _loss_and_grads_one(cfg, params, batch):
     leaves, treedef = tree_flatten(params)
+    # a batch of patch embeddings (vlm) does not read the token embedding:
+    # its gradient is zero, as JAX gives it; every other leaf must be used
+    unread = params["embed"] if "embeds" in batch else None
     with torch.enable_grad():
-        live = [p.detach().requires_grad_() for p in leaves]
+        live = [p.detach().requires_grad_(p is not unread) for p in leaves]
         loss = loss_fn(cfg, tree_unflatten(treedef, live), batch)
-        grads = torch.autograd.grad(loss, live)
-    return loss.detach(), tree_unflatten(treedef, list(grads))
+        grads = iter(torch.autograd.grad(
+            loss, [t for t in live if t.requires_grad]))
+    out = [next(grads) if t.requires_grad else torch.zeros_like(t)
+           for t in live]
+    return loss.detach(), tree_unflatten(treedef, out)
 
 
 def loss_and_grads(cfg, params, batch):
     """(loss, grads) of one batch: grads is a tree like ``params`` (each
     leaf in its parameter's dtype; fp32 when accumulated); ``params``
     themselves are not marked as requiring grad. With cfg.microbatches > 1
-    the batch is split on the leading axis and the gradients of the
+    the batch is split on its batch axis (the leading one; axis 1 of
+    "pos3", whose leading axis is its 3 streams) and the gradients of the
     microbatches are summed in fp32 and averaged (memory ↓, same math as
     the JAX package's scan)."""
     nmb = cfg.microbatches
     if nmb <= 1:
         return _loss_and_grads_one(cfg, params, batch)
     mbs = {k: v.reshape((nmb, v.shape[0] // nmb) + tuple(v.shape[1:]))
-           for k, v in batch.items()}
+           for k, v in batch.items() if k != "pos3"}
+    if "pos3" in batch:
+        p3 = batch["pos3"]
+        mbs["pos3"] = p3.reshape((3, nmb, p3.shape[1] // nmb)
+                                 + tuple(p3.shape[2:])).transpose(0, 1)
     loss = 0.0
     grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=p.device), params)
@@ -100,8 +113,8 @@ def make_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
 
 
 def make_serve_step(cfg):
-    """decode: (params, cache, tokens, pos) -> (next_tokens (B,1), cache);
-    the cache is updated in place."""
+    """decode: (params, cache, tokens, pos) -> (next_tokens (B,1) (audio:
+    (B,1,K)), cache); the cache is updated in place."""
 
     def serve_step(params, cache, tokens, pos):
         logits, cache = lm.decode_step(cfg, params, cache, tokens, pos)
@@ -116,7 +129,8 @@ def make_prefill_step(cfg):
 
     def prefill_step(params, batch):
         logits, _, cache = lm.forward(cfg, params, batch, collect_cache=True)
-        S = batch["tokens"].shape[1]
+        key = "embeds" if "embeds" in batch else "tokens"
+        S = batch[key].shape[1]
         return logits[:, -1], lm.prefill_cache(cfg, cache, S)
 
     return prefill_step

@@ -106,7 +106,7 @@ def mlp_apply(cfg, p, x, dtype):
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (standard + M-RoPE) and sinusoidal positions
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -123,15 +123,47 @@ def rope_cos_sin(positions, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_cos_sin(pos3, head_dim: int, theta: float, sections):
+    """Qwen2-VL M-RoPE. pos3: (3, B, S) temporal/height/width position ids.
+
+    Frequency pairs are split into ``sections`` (t, h, w); each section
+    rotates by its own position stream. Returns cos/sin (B, S, hd/2).
+    """
+    assert sum(sections) == head_dim // 2, (sections, head_dim)
+    cos_t, sin_t = rope_cos_sin(pos3, head_dim, theta)   # (3, B, S, hd/2)
+    cos_p, sin_p, start = [], [], 0
+    for i, sec in enumerate(sections):
+        cos_p.append(cos_t[i, :, :, start:start + sec])
+        sin_p.append(sin_t[i, :, :, start:start + sec])
+        start += sec
+    return torch.cat(cos_p, -1), torch.cat(sin_p, -1)
+
+
 def apply_rope(x, cos, sin):
-    """x: (..., S, H, hd); cos/sin (S, hd/2) — rotate-half split."""
+    """x: (..., S, H, hd); cos/sin (S, hd/2) for text rope or (B, S, hd/2)
+    for M-RoPE — rotate-half split."""
     xf = x.float()
     x1, x2 = xf.chunk(2, dim=-1)
     if cos.ndim == 2:        # (S, hd/2) — text rope
         cos = cos[:, None, :]
         sin = sin[:, None, :]
+    elif cos.ndim == 3:      # (B, S, hd/2) — M-RoPE
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int) -> np.ndarray:
+    """MusicGen-style absolute sinusoidal embedding table (numpy, computed
+    in float64 and stored as float32, as the JAX package's)."""
+    pos = np.arange(n_pos)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :]
+    ang = pos / np.power(10_000, dim / d_model)
+    out = np.zeros((n_pos, d_model), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
 
 
 def padded_vocab(v: int, multiple: int = 128) -> int:

@@ -1,5 +1,5 @@
-"""Model assembly, dense / ssm / hybrid families (``mesh=None`` path of
-``repro.models.lm``).
+"""Model assembly, dense / vlm / audio / ssm / hybrid families (``mesh=None``
+path of ``repro.models.lm``).
 
 ``param_defs(cfg)`` declares the parameter tree with the JAX package's
 shapes (layers stacked on a leading axis); ``forward`` / ``prefill_cache``
@@ -16,15 +16,23 @@ op (the CUDA paged kernel on the card): each layer's dense cache
 block follows every ``attn_every`` Mamba2 layers) runs its SSD through the
 CUDA SSD chunk kernel on the card, at prefill and at decode.
 
+The vlm family (qwen2-vl-2b) is the dense stack with M-RoPE: its forward
+takes token ids or precomputed patch embeddings (``embeds``) with 3-stream
+position ids (``pos3``: temporal, height, width), and a decode step at
+position p rotates all three sections by p, as the JAX package does. The
+audio family (musicgen-large) embeds K codebook streams (their embeddings
+summed), adds an absolute sinusoidal position and has a (d, K·V) head:
+tokens and logits carry a codebook axis, (B, S, K) and (B, S, K, V).
+
 Training differentiates ``forward``: attention through the flash
 kernels' ``FlashAttention`` function, every Mamba2 layer's SSD through
 ``SSDChunk`` (the SSD chunk kernel and its backward kernel), and with
 ``cfg.remat`` each layer is rematerialised in the backward
-(``_maybe_remat``). The dense, ssm and hybrid families train on the card
-through the kernels and on the CPU through the plain versions.
+(``_maybe_remat``). Every ported family trains on the card through the
+kernels and on the CPU through the plain versions.
 
-The moe, vlm and audio families raise ``NotImplementedError``: they come
-in later slices of the port (ROADMAP.md, Queue 1).
+The moe family (MoE and MLA) raises ``NotImplementedError``: it comes in
+later slices of the port (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -42,18 +50,21 @@ from repro_torch.kernels.paged_attn import ops as _paged_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models.layers import (ParamDef, apply_rope, materialize,
-                                       mlp_apply, mlp_defs, padded_vocab,
-                                       rms_norm, rope_cos_sin, tree_map_defs)
+                                       mlp_apply, mlp_defs, mrope_cos_sin,
+                                       padded_vocab, rms_norm, rope_cos_sin,
+                                       sinusoidal_positions, tree_map_defs)
 
 PAGE_SIZE = 16          # tokens per page of the decode op's pool view
 _CONV = ("conv_x", "conv_b", "conv_c")
+# families whose every layer is a transformer block (no Mamba2 layer)
+_ATTN_ONLY = ("dense", "vlm", "audio")
 
-_LATER = "ROADMAP.md Queue 1, item 4 (MoE/MLA/vlm/audio)"
+_LATER = "ROADMAP.md Queue 1, items 4b (MoE) and 4c (MLA)"
 
 
 def _require_ported(cfg):
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.mla is not None \
-            or cfg.moe is not None:
+    if cfg.family not in _ATTN_ONLY + ("ssm", "hybrid") \
+            or cfg.mla is not None or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet; "
             f"see {_LATER}")
@@ -89,13 +100,15 @@ def param_defs(cfg) -> dict:
     _require_ported(cfg)
     d = cfg.d_model
     V = padded_vocab(cfg.vocab_size)
+    K = cfg.n_codebooks
     defs: Dict[str, Any] = {
-        "embed": ParamDef((V, d), ("vocab", "embed")),
+        "embed": ParamDef((K, V, d), (None, "vocab", "embed")) if K
+        else ParamDef((V, d), ("vocab", "embed")),
         "final_norm": ParamDef((d,), ("embed",), init="ones"),
     }
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((d, V), ("embed", "vocab"))
-    if cfg.family == "dense":
+        defs["head"] = ParamDef((d, K * V if K else V), ("embed", "vocab"))
+    if cfg.family in _ATTN_ONLY:
         defs["layers"] = _block_defs(cfg, (cfg.n_layers,))
     else:
         defs["layers"] = mam.mamba_defs(cfg, ll=(cfg.n_layers,))
@@ -177,14 +190,30 @@ def _from_module(mod: nn.Module) -> dict:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params, tokens, dtype):
-    # gather first, then cast: the same values as casting the whole table
-    return params["embed"][tokens.long()].to(dtype)
+    """tokens (B, S) -> (B, S, D); audio (B, S, K) -> the sum over the K
+    codebooks of their embeddings, added left to right in ``dtype`` as the
+    JAX package adds them (a bf16 sum rounds after each add). Rows are
+    gathered first, then cast: the same values as casting the whole
+    table."""
+    emb = params["embed"]
+    if cfg.n_codebooks:
+        x = emb[0][tokens[..., 0].long()].to(dtype)
+        for k in range(1, cfg.n_codebooks):
+            x = x + emb[k][tokens[..., k].long()].to(dtype)
+        return x
+    return emb[tokens.long()].to(dtype)
 
 
 def lm_head(cfg, params, x, dtype):
+    """(B, S, D) -> logits (B, S, V_padded); audio (B, S, K, V_padded)."""
     w = params["embed"].to(dtype).t() if cfg.tie_embeddings \
         else params["head"].to(dtype)
-    return x @ w
+    logits = x @ w
+    if cfg.n_codebooks:
+        B, S = x.shape[:2]
+        return logits.reshape(B, S, cfg.n_codebooks,
+                              padded_vocab(cfg.vocab_size))
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +244,9 @@ def _transformer_block(cfg, p, x, cos, sin, dtype, *,
     q = (h @ pa["wq"].to(dtype)).reshape(B, S, H, hd)
     k = (h @ pa["wk"].to(dtype)).reshape(B, S, KH, hd)
     v = (h @ pa["wv"].to(dtype)).reshape(B, S, KH, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos is not None:                    # audio: absolute positions
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     cache = (k, v) if collect_cache else None
     o = attn.flash_attention(q, k, v, causal=True, window=cfg.swa_window,
                              q_chunk=cfg.attn_q_chunk,
@@ -248,22 +278,37 @@ def _maybe_remat(cfg):
 
 
 def forward(cfg, params, batch, *, collect_cache: bool = False):
-    """batch: dict with 'tokens' (B, S).
+    """batch: dict with 'tokens' (B, S) (audio: (B, S, K)) or 'embeds'
+    (B, S, D), and for vlm optionally 'pos3' (3, B, S) (default: three
+    equal streams 0..S-1).
 
-    Returns (logits (B, S, V_padded), aux_loss, caches_or_None). With
+    Returns (logits (B, S, V_padded), aux_loss, caches_or_None); audio
+    logits are (B, S, K, V_padded). With
     ``collect_cache`` the caches hold "kv": (k, v), each (G, B, S, KH, hd)
     for the G attention applications. The ssm and hybrid families always
     return their per-layer "ssm" (L, B, nh, hp, ns) and "conv_x/b/c"
     (L, B, d_conv-1, C) states (``repro/models/lm.py:381-382``)."""
     _require_ported(cfg)
     dtype = cfg.compute_dt()
-    tokens = batch["tokens"]
-    B, S = tokens.shape[:2]
-    x = embed_tokens(cfg, params, tokens, dtype)
+    if "embeds" in batch:
+        x = batch["embeds"].to(dtype)
+    else:
+        x = embed_tokens(cfg, params, batch["tokens"], dtype)
+    B, S = x.shape[:2]
+    dev = x.device
     fam = cfg.family
     cos = sin = None
-    if fam != "ssm":
-        cos, sin = rope_cos_sin(torch.arange(S, device=x.device), cfg.hd,
+    if fam == "audio":
+        pos_tab = torch.from_numpy(sinusoidal_positions(S, cfg.d_model))
+        x = x + pos_tab.to(dev, dtype)[None]
+    elif fam == "vlm":
+        pos3 = batch.get("pos3")
+        if pos3 is None:
+            pos3 = torch.arange(S, device=dev)[None, None].expand(3, B, S)
+        cos, sin = mrope_cos_sin(pos3, cfg.hd, cfg.rope_theta,
+                                 cfg.mrope_sections)
+    elif fam != "ssm":
+        cos, sin = rope_cos_sin(torch.arange(S, device=dev), cfg.hd,
                                 cfg.rope_theta)
     layers = _layers(params["layers"],
                      dtype if cfg.bf16_stacked_params else None)
@@ -287,7 +332,7 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
         return x + y, st, conv
 
     for i, p_l in enumerate(layers):
-        if fam == "dense":
+        if fam in _ATTN_ONLY:
             x = attend(p_l, x)
             continue
         x, st, conv = run(mamba_body, p_l, x)
@@ -324,7 +369,7 @@ def prefill_cache(cfg, caches, S: int) -> dict:
         out["ssm"] = caches["ssm"].float()
         for n in _CONV:
             out[n] = caches[n].to(torch.bfloat16)
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family != "ssm":
         k, v = caches["kv"]
         out["k"], out["v"] = ring(k), ring(v)
     return out
@@ -357,8 +402,8 @@ def cache_spec_defs(cfg, max_len: int, batch: int) -> dict:
             defs[n] = ParamDef((L, batch, s.d_conv - 1, ns),
                                ("layers", "batch", None, "ssm_state"),
                                dtype="bfloat16")
-    if fam in ("dense", "hybrid"):
-        G = L if fam == "dense" else L // cfg.attn_every
+    if fam != "ssm":
+        G = L // cfg.attn_every if fam == "hybrid" else L
         ax = ("layers", "batch", "kv_seq", "kv_heads", None)
         defs["k"] = ParamDef((G, batch, S, KH, hd), ax, dtype="bfloat16")
         defs["v"] = ParamDef((G, batch, S, KH, hd), ax, dtype="bfloat16")
@@ -417,8 +462,9 @@ def _decode_attn_block(cfg, p, x, kc, vc, pos, cos, sin, dtype, pages):
     q = (h @ pa["wq"].to(dtype)).reshape(B, 1, H, hd)
     k = (h @ pa["wk"].to(dtype)).reshape(B, 1, KH, hd)
     v = (h @ pa["wv"].to(dtype)).reshape(B, 1, KH, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     idx = pos % Smax if cfg.swa_window else pos
     kc[:, idx] = k[:, 0].to(kc.dtype)
     vc[:, idx] = v[:, 0].to(vc.dtype)
@@ -441,9 +487,10 @@ def _decode_ffn(cfg, p, x, dtype):
 
 
 def decode_step(cfg, params, cache, tokens, pos: int):
-    """One decode step. tokens: (B,1) int; pos: the new token's position.
-    Writes the token's K/V and each layer's new SSM and conv state into
-    ``cache`` in place and returns (logits (B, V_padded), cache)."""
+    """One decode step. tokens: (B,1) int (audio: (B,1,K)); pos: the new
+    token's position. Writes the token's K/V and each layer's new SSM and
+    conv state into ``cache`` in place and returns (logits (B, V_padded)
+    (audio: (B, K, V_padded)), cache)."""
     _require_ported(cfg)
     dtype = cfg.compute_dt()
     pos = int(pos)
@@ -451,9 +498,27 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     x = embed_tokens(cfg, params, tokens, dtype)           # (B,1,D)
     dev = x.device
     fam = cfg.family
-    if fam != "ssm":
+    cos = sin = None
+    if fam == "audio":
+        # the absolute sinusoidal row at ``pos``, computed in fp32 here as
+        # the JAX package computes it (its prefill reads the float64 numpy
+        # table instead)
+        ang = torch.tensor(float(pos), dtype=torch.float32, device=dev)
+        dim = torch.arange(0, cfg.d_model, 2, device=dev) / cfg.d_model
+        base = ang / torch.pow(10_000.0, dim)
+        pe = torch.zeros(cfg.d_model, dtype=torch.float32, device=dev)
+        pe[0::2] = torch.sin(base)
+        pe[1::2] = torch.cos(base)
+        x = x + pe.to(dtype)[None, None]
+    elif fam == "vlm":
+        # all three M-RoPE streams at ``pos`` (the JAX package's decode)
+        p3 = torch.full((3, B, 1), pos, device=dev)
+        cos, sin = mrope_cos_sin(p3, cfg.hd, cfg.rope_theta,
+                                 cfg.mrope_sections)
+    elif fam != "ssm":
         cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), cfg.hd,
                                 cfg.rope_theta)
+    if fam != "ssm":
         Smax = cache["k"].shape[2]
         if not cfg.swa_window and not 0 <= pos < Smax:
             raise ValueError(f"position {pos} is outside the cache ({Smax})")
@@ -464,7 +529,7 @@ def decode_step(cfg, params, cache, tokens, pos: int):
                                cos, sin, dtype, pages)
         return _decode_ffn(cfg, p, x, dtype)
 
-    if fam != "dense":
+    if fam not in _ATTN_ONLY:
         # JAX replaces each conv state by the step's output, whose dtype is
         # that of concatenating the cached (bf16) state with the compute
         # dtype: fp32 compute turns the conv states fp32 from the first step
@@ -473,7 +538,7 @@ def decode_step(cfg, params, cache, tokens, pos: int):
             if cache[n].dtype != want:
                 cache[n] = cache[n].to(want)
     for i, p_l in enumerate(_layers(params["layers"])):
-        if fam == "dense":
+        if fam in _ATTN_ONLY:
             x = attend(p_l, x, i)
             continue
         y, st, conv = mam.mamba_decode_block(
@@ -486,5 +551,5 @@ def decode_step(cfg, params, cache, tokens, pos: int):
         if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
             x = attend(params["shared_attn"], x, i // cfg.attn_every)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_head(cfg, params, x, dtype)                # (B,1,V)
+    logits = lm_head(cfg, params, x, dtype)                # (B,1,V[,K])
     return logits[:, 0], cache

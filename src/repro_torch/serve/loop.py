@@ -24,8 +24,9 @@ class ServeLoop:
 
     @torch.inference_mode()
     def generate(self, prompt_tokens, n_new: int):
-        """prompt_tokens: (B, S0) ints. Greedy-decodes ``n_new`` tokens and
-        returns them as a (B, n_new) int32 tensor on the loop's device."""
+        """prompt_tokens: (B, S0) ints (audio: (B, S0, K)). Greedy-decodes
+        ``n_new`` tokens and returns them as a (B, n_new) (audio:
+        (B, n_new, K)) int32 tensor on the loop's device."""
         cfg = self.cfg
         tokens = torch.as_tensor(prompt_tokens, device=self.device) \
             .to(torch.int32)

@@ -30,7 +30,10 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 COPIED = ["core/sqe.py", "core/costs.py", "core/clock.py",
           "core/timeline.py", "core/backends.py", "core/ring.py",
-          "observe/trace.py"]
+          "observe/trace.py", "core/adaptive.py", "core/fibers.py",
+          "core/faults.py", "observe/metrics.py", "observe/slo.py",
+          "observe/advisor.py", "bufferpool/pool.py",
+          "bufferpool/__init__.py"]
 
 
 @pytest.fixture

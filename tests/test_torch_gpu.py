@@ -39,16 +39,19 @@ TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}    # tests/test_kernels.py
 FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
                 (2, 128, 8, 8, 32, 64), (1, 256, 2, 2, 64, 128),
                 (2, 200, 4, 2, 64, 48),                # ragged, windowed
-                (2, 192, 4, 4, 80, 0), (1, 200, 4, 2, 80, 0)]   # zamba2 hd
+                (2, 192, 4, 4, 80, 0), (1, 200, 4, 2, 80, 0),   # zamba2 hd
+                (2, 256, 12, 2, 128, 0), (1, 200, 12, 2, 128, 0)]  # qwen2-vl
 PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
                 (1, 4, 4, 128, 64, 2),
-                (2, 16, 4, 128, 64, 5)]                # GQA, hd 128, pages of 64
+                (2, 16, 4, 128, 64, 5),                # GQA, hd 128, pages of 64
+                (4, 12, 2, 128, 16, 34)]               # qwen2-vl: G 6, hd 128
 # the backward: GQA, hd 32-128, a window, S = 513 and S = 130 (not a
 # multiple of the 64-row tiles); lse is fp32 arithmetic in both kernels
 # (the bf16 kernel keeps its max in log2 units): measured <= 9.5e-7
 FLASH_BWD_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 513, 4, 1, 128, 0),
                     (2, 128, 8, 8, 32, 64), (1, 200, 4, 2, 80, 48),
-                    (2, 130, 4, 4, 64, 0)]
+                    (2, 130, 4, 4, 64, 0),
+                    (2, 300, 12, 2, 128, 0)]           # qwen2-vl: GQA 6:1
 LSE_TOL = 1e-5
 # the bf16 backward at the edges of its tiles: ragged S around 64-row q
 # tiles and 128-key dK/dV CTAs, Sk != S both ways, windows 48 and 100 with
@@ -65,7 +68,8 @@ FLASH_BWD_EDGES = ([(2, S, S, 4, 2, 64, 0)
 # B, H, KH, hd, page, nblk: both serving shapes (34 pages of 16) and an nblk
 # that is not a multiple of its split (11 pages -> 6 CTAs of 2)
 PERMUTE_SHAPES = [(4, 32, 32, 64, 16, 34), (4, 32, 32, 80, 16, 34),
-                  (2, 8, 2, 64, 16, 11)]
+                  (2, 8, 2, 64, 16, 11),
+                  (4, 12, 2, 128, 16, 34)]             # qwen2-vl: G 6
 SSD_ATOL, SSD_RTOL = 2e-5, 2e-4                        # tests/test_kernels.py
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
               (2, 64, 2, 64, 64, 64),                  # tests/test_kernels.py
@@ -412,6 +416,47 @@ def test_paged_kernel_permuted_table_bits_at_split_shapes(cuda, B, H, KH, hd,
                                                  n_split=n_split), tol)
     _assert_close(out, paged_ops.paged_attention(
         *[a.cpu() for a in (q, kp, vp, table, lens)]).to(cuda), tol)
+
+
+@pytest.mark.parametrize("KH,hd", [(32, 64), (2, 128)])
+def test_paged_kernel_over_pager_held_pools(cuda, KH, hd):
+    """Pages of a real-shaped cache put into a KVPager whose frames hold
+    fewer pages than the cache (both spill tiers fill), refaulted and
+    pinned: the kernel over ``device_pools()`` through the table built
+    from ``slot_of`` (not the identity) gives the bits of the kernel over
+    the dense pools through the identity table."""
+    from repro_torch.serve import KVPager, PagerConfig
+    B, H, page, nblk = 4, 32 if KH == 32 else 12, 16, 34
+    q, kp, vp, _, _ = _paged_inputs(cuda, torch.bfloat16, B, H, KH, hd,
+                                    page, nblk, seed=12)
+    kd, vd = kp[:B * nblk], vp[:B * nblk]
+    # frames for two sequences and 8 pages more; sequence 0's pages spill
+    # to the host tier, the others' to the cold tier
+    pager = KVPager(PagerConfig(n_hbm_pages=2 * nblk + 8, page_tokens=page,
+                                kv_heads=KH, head_dim=hd,
+                                host_pages=nblk, nvme_pages=4 * nblk))
+    for i in range(B * nblk):
+        pager.put_page_sync((i // nblk, i % nblk), kd[i], vd[i])
+    rows = (0, 1)                 # evicted by sequences 2 and 3: refaults
+    want = [(b, j) for b in rows for j in range(nblk)]
+    slots = {key: pager.fix_page_sync(key) for key in want}
+    assert pager.pool.writebacks > 0 and pager.host_reads > 0 \
+        and pager.cold_reads > 0
+    k_pool, v_pool = pager.device_pools()
+    table = torch.tensor([[slots[(b, j)] for j in range(nblk)]
+                          for b in rows], dtype=torch.int32, device=cuda)
+    ident = torch.arange(B * nblk, dtype=torch.int32, device=cuda) \
+        .view(B, nblk)[list(rows)].contiguous()
+    assert not torch.equal(table, ident)
+    lens = torch.tensor([nblk * page - 1, nblk * page - 7],
+                        dtype=torch.int32, device=cuda)
+    qr = q[list(rows)].contiguous()
+    out = paged_kernel.paged_attention(qr, k_pool, v_pool, table, lens)
+    dense = paged_kernel.paged_attention(qr, kd, vd, ident, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+    for idx in slots.values():
+        pager.pool.unfix(idx)
 
 
 @pytest.mark.parametrize("hd", [64, 80])

@@ -61,6 +61,43 @@ print("OK")
     assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
 
 
+def test_new_families_and_pager_with_jax_unimportable():
+    """vlm and audio serve, and the KV pager (on its copies of the ring
+    runtime, the buffer pool and the metrics) pages and hands its pools
+    over, while any ``import jax`` raises."""
+    code = """
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import numpy as np, torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import lm
+from repro_torch.serve import KVPager, PagerConfig, ServeLoop
+for arch, shape in (("qwen2-vl-2b", (2, 16)), ("musicgen-large", (2, 16, 4))):
+    cfg = get_smoke_config(arch)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, shape)
+    out = ServeLoop(cfg, params, max_len=32, device="cpu").generate(prompt, 4)
+    assert tuple(out.shape) == (2, 4) + shape[2:]
+p = KVPager(PagerConfig(n_hbm_pages=4, page_tokens=4, kv_heads=2,
+                        head_dim=8, host_pages=4))
+for b in range(12):
+    p.put_page_sync((0, b), torch.randn(4, 2, 8), torch.randn(4, 2, 8))
+assert p.pool.writebacks > 0 and p.spilled_pages() > 0
+k, v = p.device_pools(device="cpu")
+assert k.shape == (4, 4, 2, 8) and k.dtype == torch.bfloat16
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("repro", "jaxlib")
+             or (m.startswith("jax") and sys.modules[m] is not None))
+assert not bad, bad
+print("OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
+
+
 def test_trains_with_jax_unimportable(tmp_path):
     """One smoke ``TrainLoop`` step on the CPU from a ring-backed loader,
     with a ring checkpoint, while any ``import jax`` raises."""
@@ -99,7 +136,7 @@ def _entry_points():
     from repro_torch import interop, resolve_device
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import lm
-    from repro_torch.serve import ServeLoop
+    from repro_torch.serve import KVPager, PagerConfig, ServeLoop
     from repro_torch.train import TrainLoop, TrainLoopConfig
     cfg = get_smoke_config("stablelm-1.6b")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
@@ -112,12 +149,16 @@ def _entry_points():
         "params_from_numpy": lambda: interop.params_from_numpy(
             cfg, {k: v for k, v in params.items()}),
         "TrainLoop": lambda: TrainLoop(cfg, TrainLoopConfig(), iter(())),
+        "KVPager.device_pools": lambda: KVPager(PagerConfig(
+            n_hbm_pages=4, page_tokens=4, kv_heads=2,
+            head_dim=8)).device_pools(),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "init_params",
                                   "init_cache", "ServeLoop",
-                                  "params_from_numpy", "TrainLoop"])
+                                  "params_from_numpy", "TrainLoop",
+                                  "KVPager.device_pools"])
 def test_entry_points_need_a_card_unless_asked_for_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

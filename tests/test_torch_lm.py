@@ -177,8 +177,7 @@ def test_cast_params_changes_no_value_the_model_sees():
         assert torch.equal(a, b), arch
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x22b",
-                                  "qwen2-vl-2b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x22b"])
 def test_other_families_raise_and_name_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.param_defs(torch_smoke(arch))
