@@ -12,7 +12,8 @@ Phases (any failure raises, and the script exits nonzero):
    Mamba2 SSD chunk step and its backward) from ``src/repro_torch/csrc``
    (one ``nvcc`` per
    source, in parallel) and print the compiler's register / shared-memory
-   / spill report, with the flash backward's CTA shapes at each head dim;
+   / spill report (the flash forward's MLA instance, q/k 192 and v 128,
+   among them), with the flash backward's CTA shapes at each head dim;
 2. each kernel against its plain PyTorch version on CUDA tensors: the
    shape sweeps of ``tests/test_kernels.py``, a zero-length decode row, a
    permuted page table (bit-identical output, also at both serving shapes
@@ -40,7 +41,13 @@ Phases (any failure raises, and the script exits nonzero):
    autograd of the plain chunked SSD, and every kernel at the shapes of
    the serving and training runs (qwen2-vl-2b's among them: paged with
    G = 6 query heads a KV head at hd 128, flash forward and backward at
-   GQA 6:1, hd 128);
+   GQA 6:1, hd 128; mixtral-8x22b's: paged at q (4, 48, 128) over 8 KV
+   heads, the flash backward at (2, 4096, 48 heads, 8 KV heads) with its
+   window; deepseek-v2-lite-16b's: the flash forward at q/k 192, v 128
+   in bf16 and fp32 at S = 512, 513 and 130 with its lse, on MLA's
+   layouts, two calls bit-identical); then mixtral's sliding-window ring
+   cache: its smoke model (hd 32, window 64) decoding from a prompt of
+   128 to position 160 through the paged kernel, against the forward;
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
@@ -51,10 +58,16 @@ Phases (any failure raises, and the script exits nonzero):
    (vlm: M-RoPE, GQA 6:1 at hd 128; also a prefill from patch embeddings
    with a patch-grid pos3, held against the forward) and
    ``musicgen-large`` (audio: 4 codebook streams, (4, 512, 4) prompts,
-   flash and paged in its 48 layers). The launch counters, set to 0 just
-   before each run and read just after, must equal what that path
-   launches; each model's first decode step is held
-   against a full forward over prompt + token. For stablelm-1.6b and
+   flash and paged in its 48 layers), ``mixtral-8x22b`` (moe: 12 of its
+   56 layers, bf16 weights, 16 sub-experts, sliding-window GQA 6:1 at hd
+   128: flash and paged in each layer) and ``deepseek-v2-lite-16b`` (moe
+   with MLA, full depth, bf16 weights: flash at q/k 192, v 128 in its 27
+   layers, the absorbed decode in plain torch). The launch counters, set
+   to 0 just before each run and read just after, must equal what that
+   path launches; each model's first decode step is held against a full
+   forward over prompt + token (the moe family's on a drop-free copy in
+   fp32 compute, the forward taking decode's routes for the new token
+   where its own differ by a near-tie). For stablelm-1.6b and
    qwen2-vl-2b, the KV pager: the serving run's whole cache (every layer
    and sequence, 34 pages of 16 tokens each) is put into a ``KVPager``
    whose frames hold one layer's pages, spilling to its host and cold
@@ -72,8 +85,10 @@ Phases (any failure raises, and the script exits nonzero):
    ``qwen2-vl-2b`` (on stand-in patch embeddings with a patch-grid pos3
    and the ring's labels: 56 and 28 flash launches) and
    ``musicgen-large`` (on (2, 4096, 4) tokens reshaped from ring reads:
-   96 and 48); the counters must equal what ``train_launches`` derives
-   from each config. For stablelm, qwen2-vl and musicgen (2 layers) and
+   96 and 48) and ``mixtral-8x22b`` (1 of its 56 layers, one microbatch:
+   2 and 1); the counters must equal what ``train_launches`` derives
+   from each config. For stablelm, qwen2-vl and musicgen (2 layers),
+   mixtral (1 layer; the plain step routes as the kernel step did) and
    zamba2 (one group: 6 Mamba2 layers and the tied block), one step's
    loss and gradients at full width are held against the same step with
    attention and the SSD through autograd of their plain versions, and
@@ -86,11 +101,14 @@ Phases (any failure raises, and the script exits nonzero):
    one PyTorch call computes the same function, that call as a yardstick
    the port never calls, at the serving shapes (paged at the first and
    last decode lengths, 33 and 34 pages, with its cluster shape, also at
-   qwen2-vl's G = 6; flash with its CTA shape, also at GQA 6:1, hd 128; the SSD kernel with its plan, also at a decode
+   qwen2-vl's and mixtral's G = 6; flash with its CTA shape, also at GQA
+   6:1, hd 128, and at deepseek-v2-lite's q/k 192, v 128; the SSD kernel
+   with its plan, also at a decode
    step's chunk of one token, bound at the TF32 tensor-core rate or the
    bytes); each model's prefill and decode times; the train step's time
    and tokens/s of each training run, the flash backward at the training
-   shapes (stablelm's, qwen2-vl's) beside its bound and the backward of
+   shapes (stablelm's, qwen2-vl's, mixtral's) beside its bound and the
+   backward of
    ``scaled_dot_product_attention``, the flash forward at the training
    shape, and the SSD chunk kernel and its backward at zamba2's and
    mamba2's training calls (the backward beside its plain version, its
@@ -100,7 +118,8 @@ Phases (any failure raises, and the script exits nonzero):
 5. where the time goes: ``torch.profiler`` over one prefill and eight
    decode steps of each model, and over one train step of each training
    run (forward and backward, then the optimizer), device busy share,
-   kernel time by kind and the SSD backward's kernels one by one.
+   kernel time by kind, the SSD backward's kernels one by one and the MoE
+   layers' time by stage (router, dispatch, experts, combine, shared).
 
 The last lines are a JSON object with one entry per kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -109,6 +128,7 @@ Without a CUDA device the script prints no result and exits 2.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -151,9 +171,10 @@ from repro_torch.kernels.ssd_scan.ref import (BWD_PIECES,  # noqa: E402
                                               ssd_chunk_ref,
                                               ssd_chunk_split_ref, ssd_ref)
 from repro_torch.launch.steps import (loss_and_grads,        # noqa: E402
-                                      make_train_step)
+                                      make_prefill_step, make_train_step)
 from repro_torch.models import attention as attn               # noqa: E402
 from repro_torch.models import lm                              # noqa: E402
+from repro_torch.models import moe as moe_mod                  # noqa: E402
 from repro_torch.optim import (adamw_init, adamw_update,       # noqa: E402
                                cosine_schedule)
 from repro_torch.serve import KVPager, PagerConfig, ServeLoop  # noqa: E402
@@ -231,8 +252,14 @@ SSD_BWD_SLOW_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 200, 2, 64, 64, 200),
 # the serving runs: 4 prompts x 512 tokens (musicgen: 4 codebook streams a
 # position), 32 new tokens, one per model
 ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m", "qwen2-vl-2b",
-         "musicgen-large")
+         "musicgen-large", "mixtral-8x22b", "deepseek-v2-lite-16b")
 BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
+# depth cut for the card: mixtral-8x22b is 5.008 GB of bf16 weights a layer
+# (16 sub-experts of 3 x 6144 x 8192, attention 88.1 M), 56 layers 281 GB;
+# 12 layers and the embedding and head are 60.9 GB of the 80. The moe
+# family is initialised in bf16 (an fp32 init and a bf16 copy would not
+# fit: deepseek-v2-lite-16b is 63 GB in fp32), served at full width.
+SERVE_LAYERS = {"mixtral-8x22b": 12}
 # first decode step vs a full forward, both bf16 compute through every
 # layer (different GEMM shapes, flash vs paged attention): logits agree to
 # within bf16 rounding carried through the layers, (atol, rtol) per family.
@@ -242,11 +269,40 @@ BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
 # blocks further than stablelm's 24 layers: 0.445 at |logit| <= 4.2 on the
 # H100 with the wgmma flash kernel (0.256 with the mma.sync one) against
 # stablelm's 0.078 at <= 5.0
+#
+# moe: the first decode step of a drop-free copy (drops depend on the
+# dispatch group by design) in fp32 compute. Drop-free is capacity factor
+# ceil(E / k): an expert takes a token at most once, so C >= S slots
+# cannot overflow (tests/test_models.py's 8.0 is not enough at full width
+# with random weights: on the card one of deepseek-v2-lite's 64 experts
+# took 511 of 513 tokens, C 384). fp32, since in
+# bf16 decode and the forward round the residual stream at other places
+# and a router whose k-th and (k+1)-th probabilities are a rounding apart
+# sends the token elsewhere (on the card, smoke mixtral: 3.25 on a row's
+# logits); in fp32 only the bf16 cache rounds, and where a route still
+# differs the forward takes decode's (``MoERoutes``), if the two were
+# within FLIP_GAPS' share of each other (else the check fails). What is
+# left is the bf16 cache's rounding carried through the layers: on the
+# H100, 0.0163 at |logit| <= 4.3 (mixtral, 12 layers) and 0.0142 at <= 5.0
+# (deepseek-v2-lite, 27 layers).
 LOGIT_TOLS = {"dense": (0.15, 0.05), "hybrid": (0.4, 0.05),
-              "ssm": (0.15, 0.05), "vlm": (0.15, 0.05), "audio": (0.2, 0.05)}
-# families whose every layer is a transformer block: flash at prefill, paged
-# at decode, in each layer
-ATTN_ONLY = ("dense", "vlm", "audio")
+              "ssm": (0.15, 0.05), "vlm": (0.15, 0.05), "audio": (0.2, 0.05),
+              "moe": (0.05, 0.05)}
+# the ring cache's decode vs the forward (bf16, smoke mixtral, every token
+# to all experts): on the H100, 0.0508
+RING_TOL = (0.1, 0.03)
+# a route flip between two paths is a near-tie when the router's k-th and
+# (k+1)-th probabilities are this close (relative): in fp32 compute only
+# the bf16 cache parts the paths (gaps seen <= 4.3e-4); in bf16 the
+# residual stream is rounded too, so one bf16 ulp (2^-7; seen 1.08e-3)
+FLIP_GAPS = {"float32": 1e-3, "bfloat16": 2.0 ** -7}
+# rows of the moe check: mixtral's fp32 forward casts a layer's 2.4 G
+# expert weights to fp32 (9.7 GB) beside its 60.9 GB of weights, so it
+# checks 2 of the 4 prompts
+MOE_CHECK_ROWS = {"mixtral-8x22b": 2, "deepseek-v2-lite-16b": 4}
+# families whose every layer is a transformer block: flash at prefill, and
+# at decode paged (MLA: its absorbed decode in plain torch), in each layer
+ATTN_ONLY = ("dense", "vlm", "audio", "moe")
 # qwen2-vl-2b's images, one frame of patch tokens then text, M-RoPE ids as
 # in Qwen2-VL (the patch grid's (t, h, w), then text from the grid's largest
 # id + 1): 16 x 16 patches (448 x 448 pixels after its 2 x 2 merge) in a
@@ -254,9 +310,13 @@ ATTN_ONLY = ("dense", "vlm", "audio")
 VLM_GRID_SERVE, VLM_GRID_TRAIN = (1, 16, 16), (1, 32, 32)
 
 # the training runs: one model of each family at full width and depth,
-# train_4k's sequence (configs/base.py), a global batch cut from 256 to 2
+# train_4k's sequence (configs/base.py), a global batch cut from 256 to 2;
+# mixtral-8x22b at 1 of 56 layers (2.906 G parameters: fp32 params, grads,
+# m and v at 16 B each are 46.5 GB; 2 layers would be 86.6 GB) and in one
+# microbatch (its config's 8 split the global batch of 256)
 TRAIN_ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m", "qwen2-vl-2b",
-               "musicgen-large")
+               "musicgen-large", "mixtral-8x22b")
+TRAIN_LAYERS = {"mixtral-8x22b": 1}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6
 # one step at full width and one group of layers (stablelm: 2 layers;
 # zamba2: attn_every Mamba2 layers and the tied block), the kernels vs
@@ -264,7 +324,8 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6
 # compute: the loss to 2e-3 relative and each gradient leaf to 2e-2
 # relative L2 (a few bf16 roundings, 2^-8 each)
 GRAD_ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "qwen2-vl-2b",
-              "musicgen-large")
+              "musicgen-large", "mixtral-8x22b")
+GRAD_LAYERS = {"mixtral-8x22b": 1}
 RESTART_ARCHS = ("stablelm-1.6b", "zamba2-2.7b")
 # the pager phase: real bf16 KV of a serving run's cache (every layer, every
 # sequence, 34 pages of 16 tokens) in a KVPager whose frames hold one
@@ -378,6 +439,8 @@ def phase_card_and_build():
                 log(f"  ptxas[{src}] {line.strip()[:200]}")
     for hd in flash_kernel.HEAD_DIMS:
         log(f"  flash bwd bf16 CTAs at hd {hd}: {flash_kernel.plan_bwd(hd)}")
+    log(f"  flash fwd bf16 CTA at MLA's q/k 192, v 128: "
+        f"{flash_kernel.plan(*flash_kernel.MLA_DIMS)}")
     return name, count, smi_line
 
 
@@ -578,12 +641,65 @@ def check_flash_strided(rng, dev):
         f"misaligned rows refused")
 
 
+def check_flash_mla(rng, dev, B, S, dt, H=16):
+    """The forward at MLA's head dims (q/k 192, v 128; causal, scale
+    1/sqrt(192)): output and lse against the plain version, a second call
+    bit-identical. Returns the output's max abs error."""
+    hd, hdv = flash_kernel.MLA_DIMS
+    q, k = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(2))
+    v = rand(rng, (B, S, H, hdv), dt, dev)
+    scale = hd ** -0.5
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, scale=scale,
+                                              with_lse=True)
+    ref, lse_ref = flash_attention_fwd_ref(q, k, v, scale=scale, q_chunk=64)
+    what = f"flash  MLA B={B} S={S} H={H} q/k {hd} v {hdv} {str(dt)[6:]}"
+    e = check_close(what, o, ref, TOLS[dt], TOLS[dt])
+    e_lse = check_close(what + " lse", lse, lse_ref, LSE_TOL, LSE_TOL)
+    if not torch.equal(o, flash_kernel.flash_attention_fwd(q, k, v,
+                                                           scale=scale)):
+        raise AssertionError(f"{what}: two calls gave different bits")
+    log(f"{what}: max abs err {e:.3e} (tol {TOLS[dt]}), lse {e_lse:.3e} "
+        f"(tol {LSE_TOL}); a second call bit-identical")
+    return e
+
+
+def check_flash_mla_layouts(rng, dev, B=BATCH, S=PROMPT, H=16):
+    """q/k/v at deepseek-v2-lite's prefill shape laid out as ``mla_prefill``
+    makes them (k a cat of the per-head nope part and the broadcast rope
+    part, v a reshape of the latent's up-projection) and as views into
+    wider rows: bit for bit the kernel on contiguous copies, and within
+    TOLS of the plain version. Returns the max abs error."""
+    dt = torch.bfloat16
+    kn = rand(rng, (B, S, H, 128), dt, dev)
+    kr = rand(rng, (B, S, 1, 64), dt, dev)
+    k = torch.cat([kn, kr.expand(B, S, H, 64)], -1)
+    lat = rand(rng, (B, S, 512), dt, dev)
+    v = (lat @ rand(rng, (512, H * 128), dt, dev, 512 ** -0.5)) \
+        .reshape(B, S, H, 128)
+    q = rand(rng, (B, S, H, 192 + 8), dt, dev)[..., :192]
+    wide_v = torch.zeros((B, S, H, 136), dtype=dt, device=dev)
+    wide_v[..., :128] = v
+    want = flash_kernel.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                            v.contiguous())
+    for what, args in (("views", (q, k, v)), ("v rows of 136",
+                                              (q, k, wide_v[..., :128]))):
+        if not torch.equal(flash_kernel.flash_attention_fwd(*args), want):
+            raise AssertionError(f"flash MLA layouts ({what}): not the "
+                                 f"contiguous call's bits")
+    e = check_close("flash MLA layouts", want,
+                    flash_attention_fwd_ref(q, k, v)[0], TOLS[dt], TOLS[dt])
+    log(f"flash  MLA layouts q/k {(B, S, H, 192)} v 128 (k a cat with the "
+        f"broadcast rope part, v a reshape, q rows of 200, v rows of 136): "
+        f"bit-identical to contiguous copies; vs plain max abs err {e:.3e}")
+    return e
+
+
 def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64,
                     Sk=None):
-    """The forward's lse output against the plain forward's, then the
+    """The forward's output and lse against the plain forward's, then the
     backward kernel against the plain block-recompute backward on the
     same (q, k, v, o, lse, do), and a second call bit for bit against the
-    first. Returns the backward's max abs error."""
+    first. Returns the forward's and the backward's max abs errors."""
     Sk = Sk or S
     q, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(2))
     k, v = (rand(rng, (B, Sk, KH, hd), dt, dev) for _ in range(2))
@@ -592,11 +708,13 @@ def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64,
     if not torch.equal(o, flash_kernel.flash_attention_fwd(q, k, v,
                                                            window=win)):
         raise AssertionError("flash forward: writing lse changed the output")
-    _, lse_ref = flash_attention_fwd_ref(q, k, v, window=win,
-                                         q_chunk=q_chunk)
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, window=win,
+                                             q_chunk=q_chunk)
     what = f"flash bwd B={B} S={S} Sk={Sk} H={H} KH={KH} hd={hd} " \
         f"win={win} {str(dt)[6:]}"
+    e_o = check_close(what + " forward", o, o_ref, TOLS[dt], TOLS[dt])
     e_lse = check_close(what + " lse", lse, lse_ref, LSE_TOL, LSE_TOL)
+    del o_ref
     got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, window=win)
     ref = flash_attention_bwd_ref(q, k, v, o, lse, do, window=win,
                                   q_chunk=q_chunk)
@@ -605,10 +723,11 @@ def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64,
     again = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, window=win)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{what}: two calls gave different bits")
-    log(f"{what}: max abs err lse {e_lse:.3e} (atol = rtol = {LSE_TOL}); "
-        f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (atol = rtol = "
-        f"{TOLS[dt]}); a second call bit-identical")
-    return max(errs)
+    log(f"{what}: max abs err forward {e_o:.3e}, lse {e_lse:.3e} (atol = "
+        f"rtol = {LSE_TOL}); dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+        f"{errs[2]:.3e} (atol = rtol = {TOLS[dt]}); a second call "
+        f"bit-identical")
+    return e_o, max(errs)
 
 
 def check_flash_bwd_strided(rng, dev):
@@ -794,6 +913,19 @@ def phase_kernels_vs_plain(dev):
     check_paged_permuted(rng, dev, BATCH, 12, 2, 128, lm.PAGE_SIZE, 34)
     qwen = {"paged_attention": check_paged_decode_lengths(rng, dev, 12, 2,
                                                           128)}
+    # mixtral-8x22b's decode: 48 query heads over 8 KV heads (G = 6) at hd
+    # 128, 34 pages of 16
+    check_paged_permuted(rng, dev, BATCH, 48, 8, 128, lm.PAGE_SIZE, 34)
+    mixtral = {"paged_attention": check_paged_decode_lengths(rng, dev, 48, 8,
+                                                             128)}
+    # deepseek-v2-lite's prefill: the flash forward at q/k 192, v 128 (16
+    # heads), bf16 and fp32, ragged last tiles, MLA's layouts
+    for dt in (torch.float32, torch.bfloat16):
+        for B, S in ((1, 512), (1, 513), (2, 130)):
+            check_flash_mla(rng, dev, B, S, dt)
+    mla = {"flash_attention_fwd": max(check_flash_mla(rng, dev, BATCH, PROMPT,
+                                                      torch.bfloat16),
+                                      check_flash_mla_layouts(rng, dev))}
 
     # the SSD chunk kernel: the sweep of tests/test_kernels.py, a chunk of
     # one token (each decode step), a ragged 64-row tile, bf16 inputs
@@ -847,6 +979,10 @@ def phase_kernels_vs_plain(dev):
     # lse) and backward
     qwen["flash_attention_fwd"] = check_flash(rng, dev, BATCH, PROMPT, 12, 2,
                                               128, torch.bfloat16)
+    # mixtral-8x22b's prefill: GQA 6:1 over 8 KV heads at hd 128, window
+    # 4096
+    mixtral["flash_attention_fwd"] = check_flash(
+        rng, dev, BATCH, PROMPT, 48, 8, 128, torch.bfloat16, win=4096)
     check_flash_bwd(rng, dev, BATCH, PROMPT, 12, 2, 128, torch.bfloat16)
     per_seq = MAX_LEN // lm.PAGE_SIZE
     for hd in (hdm, 80):
@@ -903,16 +1039,23 @@ def phase_kernels_vs_plain(dev):
     errs["ssd_chunk_bwd"] = e
     free_card()
     # the training shape: stablelm-1.6b's attention at 2 x 4096
-    errs["flash_attention_bwd"] = check_flash_bwd(
-        rng, dev, TRAIN_B, TRAIN_S, 32, 32, 64, torch.bfloat16, q_chunk=512)
+    errs["flash_attention_fwd train"], errs["flash_attention_bwd"] = \
+        check_flash_bwd(rng, dev, TRAIN_B, TRAIN_S, 32, 32, 64,
+                        torch.bfloat16, q_chunk=512)
     free_card()
     # qwen2-vl-2b's training call: GQA 6:1 at hd 128, 2 x 4096 (its dK/dV
     # CTAs: 2 KV heads x 32 key tiles x 2 = 128 for 132 SMs, each summing 6
     # query heads)
-    qwen["flash_attention_bwd"] = check_flash_bwd(
-        rng, dev, TRAIN_B, TRAIN_S, 12, 2, 128, torch.bfloat16, q_chunk=512)
+    qwen["flash_attention_fwd train"], qwen["flash_attention_bwd"] = \
+        check_flash_bwd(rng, dev, TRAIN_B, TRAIN_S, 12, 2, 128,
+                        torch.bfloat16, q_chunk=512)
+    free_card()
+    # mixtral-8x22b's training call: GQA 6:1 at hd 128, window 4096
+    mixtral["flash_attention_fwd train"], mixtral["flash_attention_bwd"] = \
+        check_flash_bwd(rng, dev, TRAIN_B, TRAIN_S, 48, 8, 128,
+                        torch.bfloat16, win=4096, q_chunk=512)
     torch.cuda.synchronize()
-    return errs, qwen
+    return errs, {"qwen2_vl": qwen, "mixtral": mixtral, "deepseek_mla": mla}
 
 
 # ---------------------------------------------------------------------------
@@ -923,8 +1066,8 @@ def expected_launches(cfg):
     L, steps = cfg.n_layers, NEW - 1
     if cfg.family in ATTN_ONLY:
         return {"flash_attention_fwd": L, "flash_attention_bwd": 0,
-                "paged_attention": L * steps, "ssd_chunk_call": 0,
-                "ssd_chunk_bwd": 0}
+                "paged_attention": 0 if cfg.mla else L * steps,
+                "ssd_chunk_call": 0, "ssd_chunk_bwd": 0}
     G = L // cfg.attn_every if cfg.family == "hybrid" else 0
     return {"flash_attention_fwd": G, "flash_attention_bwd": 0,
             "paged_attention": G * steps, "ssd_chunk_call": L * (1 + steps),
@@ -938,7 +1081,7 @@ def train_launches(cfg, steps):
     or the tied block after every ``attn_every`` Mamba2 layers."""
     mb, fwd = max(cfg.microbatches, 1), 2 if cfg.remat else 1
     L = cfg.n_layers
-    attn_calls = {"dense": L, "vlm": L, "audio": L,
+    attn_calls = {"dense": L, "vlm": L, "audio": L, "moe": L,
                   "hybrid": L // max(cfg.attn_every, 1), "ssm": 0}[cfg.family]
     ssd_calls = 0 if cfg.family in ATTN_ONLY else L
     n = steps * mb
@@ -948,8 +1091,100 @@ def train_launches(cfg, steps):
             "ssd_chunk_bwd": ssd_calls * n}
 
 
-def phase_main_path(dev, arch):
+def phase_ring_cache(dev):
+    """mixtral's sliding-window ring cache through the paged kernel's
+    identity table: the smoke config (window 64; head_dim 32, since the
+    kernels take no 16) in bf16, a prompt of 128 tokens, then decode steps
+    to position 160, past the window, each within RING_TOL of a full
+    forward. Every token goes to all 4 experts at capacity 8.0: with top-2
+    routing a near-tie that bf16 rounds one way in decode and the other in
+    the forward moves a token to another expert (on the card: 3.25 on one
+    row's logits), which says nothing of the ring.
+    ``tests/test_torch_gpu.py`` runs this function too."""
+    cfg = get_smoke_config("mixtral-8x22b").replace(head_dim=32)
+    cfg = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, top_k=cfg.moe.n_experts, capacity_factor=8.0))
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    S0, S1 = 128, 161
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S1)).astype(np.int32)).to(dev)
+    atol, rtol = RING_TOL
+    before = {n: fn.launches for n, fn in KERNELS.items()}
+    with torch.inference_mode():
+        full, _, _ = lm.forward(cfg, params, {"tokens": toks})
+        cache = lm.forward(cfg, params, {"tokens": toks[:, :S0]},
+                           collect_cache=True)[2]
+        cache = lm.grow_cache(cfg, lm.prefill_cache(cfg, cache, S0), S1)
+        if cache["k"].shape[2] != cfg.swa_window:
+            raise AssertionError(f"ring cache of {cache['k'].shape[2]} "
+                                 f"slots, not {cfg.swa_window}")
+        worst = 0.0
+        for pos in range(S0, S1):
+            lg, cache = lm.decode_step(cfg, params, cache,
+                                       toks[:, pos:pos + 1], pos)
+            worst = max(worst, check_close(
+                f"ring cache: decode at {pos} vs forward", lg,
+                full[:, pos], atol, rtol))
+    torch.cuda.synchronize()
+    n = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+    want = (2 * cfg.n_layers, cfg.n_layers * (S1 - S0))
+    if (n["flash_attention_fwd"], n["paged_attention"]) != want:
+        raise AssertionError(f"ring cache: launches {n}, not {want}")
+    log(f"ring cache [mixtral-8x22b smoke, hd 32, window {cfg.swa_window}, "
+        f"top-{cfg.moe.top_k} of {cfg.moe.n_experts}, bf16]: prompt {S0}, "
+        f"decode steps {S0}..{S1 - 1} over the {cfg.swa_window}-slot ring "
+        f"through the paged kernel: max abs err vs the forward {worst:.3e} "
+        f"(atol {atol} rtol {rtol}); launches flash {want[0]}, paged "
+        f"{want[1]}")
+
+
+def serve_config(arch):
+    """The served config: full width; the moe family with bf16 weights,
+    mixtral at SERVE_LAYERS' depth."""
     cfg = get_config(arch)
+    if cfg.family == "moe":
+        cfg = cfg.replace(param_dtype="bfloat16",
+                          n_layers=SERVE_LAYERS.get(arch, cfg.n_layers))
+    return cfg
+
+
+def train_config(arch):
+    """The trained config: full width; mixtral at TRAIN_LAYERS' depth in
+    one microbatch."""
+    cfg = get_config(arch)
+    if arch in TRAIN_LAYERS:
+        cfg = cfg.replace(n_layers=TRAIN_LAYERS[arch], microbatches=1)
+    return cfg
+
+
+def describe(cfg):
+    """The config's widths, for the log."""
+    out = (f"H={cfg.n_heads} KH={cfg.n_kv_heads} hd={cfg.hd} "
+           f"d_ff={cfg.d_ff} " if cfg.family != "ssm" else "")
+    if cfg.swa_window:
+        out += f"window={cfg.swa_window} "
+    if cfg.mla is not None:
+        m = cfg.mla
+        out += (f"MLA lora={m.kv_lora_rank} q/k {m.qk_nope_head_dim}+"
+                f"{m.qk_rope_head_dim} v {m.v_head_dim} ")
+    if cfg.moe is not None:
+        m = cfg.moe
+        out += (f"MoE {m.n_experts} experts top-{m.top_k} d_ff_expert="
+                f"{m.d_ff_expert} (split {moe_mod.expert_split(cfg)}) shared="
+                f"{m.n_shared} first_k_dense={m.first_k_dense} capacity="
+                f"{m.capacity_factor} ")
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        out += (f"ssm heads={s.n_heads(cfg.d_model)} headdim={s.headdim} "
+                f"d_state={s.d_state} chunk={s.chunk} ")
+    if cfg.family == "hybrid":
+        out += f"attn_every={cfg.attn_every} "
+    return out
+
+
+def phase_main_path(dev, arch):
+    cfg = serve_config(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, gen, device=dev)
@@ -957,17 +1192,13 @@ def phase_main_path(dev, arch):
     del params
     free_card()
     n_par = sum(t.numel() for t in _leaves(serve.params))
-    shape = (f"H={cfg.n_heads} KH={cfg.n_kv_heads} hd={cfg.hd} "
-             f"d_ff={cfg.d_ff} " if cfg.family != "ssm" else "")
-    if cfg.ssm is not None:
-        s = cfg.ssm
-        shape += (f"ssm heads={s.n_heads(cfg.d_model)} headdim={s.headdim} "
-                  f"d_state={s.d_state} chunk={s.chunk} ")
-    if cfg.family == "hybrid":
-        shape += f"attn_every={cfg.attn_every} "
-    log(f"main[{arch}]: {cfg.family} {cfg.n_layers}L d_model={cfg.d_model} "
-        f"{shape}vocab={cfg.vocab_size}: {n_par / 1e9:.3f} B params, built "
-        f"in {time.perf_counter() - t0:.1f} s")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(serve.params))
+    cut = f" (of {get_config(arch).n_layers})" if arch in SERVE_LAYERS \
+        else ""
+    log(f"main[{arch}]: {cfg.family} {cfg.n_layers}L{cut}"
+        f" d_model={cfg.d_model} {describe(cfg)}vocab={cfg.vocab_size}: "
+        f"{n_par / 1e9:.3f} B params ({cfg.param_dtype}, {n_bytes / 1e9:.2f} "
+        f"GB), built in {time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, prompt_shape(cfg, BATCH, PROMPT)).astype(np.int32)
 
@@ -987,6 +1218,9 @@ def phase_main_path(dev, arch):
     if tuple(toks.shape) != prompt_shape(cfg, BATCH, NEW) or \
             not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{arch}: generated tokens out of range")
+    if cfg.family == "moe":
+        check_moe_first_decode(dev, arch, cfg, serve, prompts)
+        return cfg, serve, prompts, launches
 
     with torch.inference_mode():
         tokens = torch.from_numpy(prompts).to(dev)
@@ -1019,6 +1253,125 @@ def phase_main_path(dev, arch):
     if cfg.family == "vlm":
         check_vlm_prefill_embeds(dev, arch, cfg, serve)
     return cfg, serve, prompts, launches
+
+
+class MoERoutes:
+    """While active, records the router's probabilities and top-k of every
+    ``moe_ffn`` call (it wraps the port's ``moe._top_k``): ``calls`` holds
+    one (probs fp32, ids) a call, in order, the ids the router chose. With
+    ``force``, a function (i, probs, ids) -> ids, the i-th call routes by
+    the ids it returns instead (its gates the probabilities there)."""
+
+    def __init__(self, force=None):
+        self.force = force
+
+    def __enter__(self):
+        self.calls, self._real = [], moe_mod._top_k
+
+        def route(probs, k):
+            vals, ids = self._real(probs, k)
+            self.calls.append((probs.detach().float(), ids.detach()))
+            if self.force is not None:
+                ids = self.force(len(self.calls) - 1, probs, ids)
+                vals = torch.gather(probs, -1, ids)
+            return vals, ids
+        moe_mod._top_k = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._top_k = self._real
+
+
+def _top_gap(probs, k):
+    """The relative gap of the k-th and (k+1)-th largest of ``probs``."""
+    top = torch.topk(probs, k + 1).values
+    return float((top[k - 1] - top[k]) / top[k - 1])
+
+
+def route_flips(own, forced, k, where, gap_tol):
+    """Where a run's own routes (``own``: MoERoutes.calls) differ from the
+    ones it was forced to take (``forced``: (n, k) ids a call), as (call,
+    row, relative gap of its k-th and (k+1)-th probabilities); ``where``
+    picks the n rows of a call's probs and ids to compare. A gap above
+    ``gap_tol`` is a route the rounding cannot explain: it raises."""
+    flips = []
+    for i, ((probs, ids), b) in enumerate(zip(own, forced)):
+        p, a = where(probs), where(ids)
+        for n in range(a.shape[0]):
+            if set(a[n].tolist()) != set(b[n].tolist()):
+                gap = _top_gap(p[n], k)
+                if gap > gap_tol:
+                    raise AssertionError(
+                        f"call {i} row {n}: routed to {a[n].tolist()}, "
+                        f"forced to {b[n].tolist()}, {gap:.2e} apart")
+                flips.append((i, n, gap))
+    return flips
+
+
+def check_moe_first_decode(dev, arch, cfg, serve, prompts):
+    """The first decode step after a prefill against a full forward over
+    prompt + token, on a copy of the config with capacity factor
+    ceil(E / k) (no slot drops, which the forward's recorded routes
+    confirm) and fp32 compute (LOGIT_TOLS' note), on MOE_CHECK_ROWS[arch]
+    of the prompts. The forward routes the new token as the decode step
+    did, layer by layer (``MoERoutes``), where its own route differs only
+    by a near-tie (FLIP_GAPS); a wider difference fails."""
+    rows = MOE_CHECK_ROWS[arch]
+    factor = float(-(-cfg.moe.n_experts // cfg.moe.top_k))
+    ccfg = cfg.replace(compute_dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    V, K = cfg.vocab_size, cfg.moe.top_k
+    split = moe_mod.expert_split(cfg)
+
+    with torch.inference_mode():
+        tokens = torch.from_numpy(prompts[:rows]).to(dev)
+        logits0, cache = make_prefill_step(ccfg)(serve.params,
+                                                 {"tokens": tokens})
+        full = lm.grow_cache(ccfg, cache, MAX_LEN)
+        del cache
+        first = logits0[:, :V].argmax(-1).to(torch.int32)[:, None]
+        with MoERoutes() as dec:
+            step, _ = lm.decode_step(ccfg, serve.params, full, first, PROMPT)
+        del full
+
+        def as_decoded(i, probs, ids):
+            ids = ids.clone()
+            ids[:, 0, PROMPT] = dec.calls[i][1][0, 0]
+            return ids
+        with MoERoutes(force=as_decoded) as fwd:
+            ref = lm.forward(ccfg, serve.params, {"tokens": torch.cat(
+                [tokens, first], dim=1)})[0][:, PROMPT]
+        torch.cuda.synchronize()
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    if not len(dec.calls) == len(fwd.calls) == n_moe:
+        raise AssertionError(f"{arch}: {len(dec.calls)} / {len(fwd.calls)} "
+                             f"routed layers, not {n_moe}")
+    C = moe_mod.capacity(ccfg, PROMPT + 1)
+    most = max(int(torch.bincount(ids[b].flatten()).max())
+               for _, ids in fwd.calls for b in range(rows))
+    if most > C:
+        raise AssertionError(f"{arch}: an expert got {most} slots > {C}")
+    gap_tol = FLIP_GAPS[ccfg.compute_dtype]
+    flips = route_flips(fwd.calls, [ids[0, 0] for _, ids in dec.calls], K,
+                        lambda t: t[:, 0, PROMPT], gap_tol)
+    for what, t in (("prefill", logits0), ("decode", step), ("forward", ref)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{arch}: {what} logits are not finite")
+    atol, rtol = LOGIT_TOLS["moe"]
+    err = check_close(f"{arch}: first decode step vs forward (fp32, "
+                      f"capacity {factor})", step[:, :V], ref[:, :V], atol,
+                      rtol)
+    same = (step[:, :V].argmax(-1) == ref[:, :V].argmax(-1))
+    subs = f", each of its {split} sub-experts" if split > 1 else ""
+    log(f"main[{arch}]: first decode step vs forward over prompt+token, "
+        f"{rows} rows, fp32 compute, capacity {factor} (C {C}, the forward's "
+        f"most-loaded expert {most} slots a row{subs}); the forward's own "
+        f"routes for the new token differ from decode's in "
+        f"{len(flips)} of {n_moe * rows} (layer, row) pairs, all near-ties "
+        f"(relative gaps {[f'{g:.1e}' for _, _, g in flips]} <= "
+        f"{gap_tol}), and it takes decode's: max abs err {err:.3e} (|ref| "
+        f"max {ref[:, :V].abs().max().item():.3f}; atol {atol} rtol "
+        f"{rtol}); greedy agreement {int(same.sum())}/{rows}")
 
 
 def prompt_shape(cfg, B, S):
@@ -1142,8 +1495,11 @@ def watched(cfg, params):
     if cfg.family in ATTN_ONLY:
         if cfg.family == "vlm":          # trained on embeds: the head moves
             out["head[:, :256]"] = params["head"][:, :256]
+        ffn = "moe" if cfg.family == "moe" else "mlp"
         out.update({"wq[0]": lay["attn"]["wq"][0],
-                    f"w2[{cfg.n_layers - 1}]": lay["mlp"]["w2"][-1]})
+                    f"{ffn} w2[{cfg.n_layers - 1}]": lay[ffn]["w2"][-1]})
+        if cfg.family == "moe":
+            out[f"router[{cfg.n_layers - 1}]"] = lay["moe"]["router"][-1]
         return out
     out.update({"wx[0]": lay["wx"][0],
                 f"A_log[{cfg.n_layers - 1}]": lay["A_log"][-1]})
@@ -1157,7 +1513,7 @@ def phase_train(dev, corpus, ckpt_dir, arch):
     set to 0 just before ``run()`` and read just after, must show the
     launches ``train_launches`` derives from the config; the loss stays
     finite, the gradient is nonzero and the watched parameters move."""
-    cfg = get_config(arch)
+    cfg = train_config(arch)
     if not cfg.remat:
         raise AssertionError(f"{arch}: expected remat in its config")
     t0 = time.perf_counter()
@@ -1168,14 +1524,11 @@ def phase_train(dev, corpus, ckpt_dir, arch):
     n_par = sum(t.numel() for t in tree_leaves(loop.params))
     watch = watched(cfg, loop.params)
     before = {n: t.detach().clone() for n, t in watch.items()}
-    shape = (f"H={cfg.n_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
-             if cfg.family != "ssm" else "")
-    if cfg.ssm is not None:
-        shape += (f"ssm heads={cfg.ssm.n_heads(cfg.d_model)} headdim="
-                  f"{cfg.ssm.headdim} d_state={cfg.ssm.d_state} chunk="
-                  f"{cfg.ssm.chunk} ")
-    log(f"train[{arch}]: {cfg.family} {cfg.n_layers}L d_model="
-        f"{cfg.d_model} {shape}vocab={cfg.vocab_size}: {n_par / 1e9:.3f} B "
+    cut = f" (of {get_config(arch).n_layers})" if arch in TRAIN_LAYERS \
+        else ""
+    log(f"train[{arch}]: {cfg.family} {cfg.n_layers}L{cut} d_model="
+        f"{cfg.d_model} {describe(cfg)}vocab={cfg.vocab_size}: "
+        f"{n_par / 1e9:.3f} B "
         f"params fp32, AdamW m/v fp32, remat={cfg.remat}, microbatches="
         f"{cfg.microbatches}, bf16 compute; batch {TRAIN_B} x {TRAIN_S} "
         f"tokens; built in {time.perf_counter() - t0:.1f} s")
@@ -1342,25 +1695,45 @@ def phase_train_grads(dev, corpus, arch):
     """One step's loss and every gradient leaf at full width and one group
     of layers, through the kernels, against the same step with attention
     through autograd of the plain ``reference_attention`` and the SSD
-    through autograd of the plain chunked SSD (bf16 compute both)."""
-    full = get_config(arch)
+    through autograd of the plain chunked SSD (bf16 compute both). In the
+    moe family the plain step routes every token as the kernel step did
+    (``MoERoutes``; its own routes may differ only by near-ties): a route
+    that a bf16 rounding flips moves a whole token to other experts, which
+    says nothing of the kernels."""
+    full = train_config(arch)
     cfg = full.replace(n_layers=full.attn_every if full.family == "hybrid"
-                       else 2)
+                       else GRAD_LAYERS.get(arch, 2))
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(1),
                             device=dev)
     batch = card_batch(cfg, corpus, dev)
     for fn in KERNELS.values():
         fn.launches = 0
-    loss_k, grads_k = loss_and_grads(cfg, params, batch)
-    torch.cuda.synchronize()
+    with MoERoutes() as kernel_routes:
+        loss_k, grads_k = loss_and_grads(cfg, params, batch)
+        torch.cuda.synchronize()
     launches = {n: fn.launches for n, fn in KERNELS.items()}
     kernel_attention, kernel_ssd = attn.flash_attention, ssd_ops.ssd
     attn.flash_attention, ssd_ops.ssd = _plain_flash, _plain_ssd
     try:
-        loss_p, grads_p = loss_and_grads(cfg, params, batch)
-        torch.cuda.synchronize()
+        with MoERoutes(force=lambda i, probs, ids:
+                       kernel_routes.calls[i][1]) as plain_routes:
+            loss_p, grads_p = loss_and_grads(cfg, params, batch)
+            torch.cuda.synchronize()
     finally:
         attn.flash_attention, ssd_ops.ssd = kernel_attention, kernel_ssd
+    gap_tol = FLIP_GAPS[cfg.compute_dtype]
+    flips = route_flips(plain_routes.calls,
+                        [ids.reshape(-1, ids.shape[-1])
+                         for _, ids in kernel_routes.calls],
+                        cfg.moe.top_k if cfg.moe else 0,
+                        lambda t: t.reshape(-1, t.shape[-1]), gap_tol)
+    n_routed = sum(ids[..., 0].numel() for _, ids in kernel_routes.calls)
+    routed = "" if cfg.moe is None else (
+        f"; the plain step took the kernel step's routes in "
+        f"{len(kernel_routes.calls)} router calls, its own differing in "
+        f"{len(flips)} of {n_routed} tokens, all near-ties (largest "
+        f"relative gap {max((g for _, _, g in flips), default=0.0):.1e} <= "
+        f"{gap_tol:.1e})")
     want = train_launches(cfg, 1)
     if launches != want:
         raise AssertionError(f"{arch} {cfg.n_layers}-layer step launches "
@@ -1388,7 +1761,7 @@ def phase_train_grads(dev, corpus, arch):
         f"(launches {launches}): loss {float(loss_k):.6f} vs "
         f"{float(loss_p):.6f} (rel {loss_err:.2e}, tol {GRAD_LOSS_RTOL}); "
         f"{len(names)} gradient leaves, worst relative L2 {worst[1]:.3e} at "
-        f"{worst[0]} (tol {GRAD_REL_L2})")
+        f"{worst[0]} (tol {GRAD_REL_L2}){routed}")
     return worst[1]
 
 
@@ -1637,30 +2010,46 @@ def ssd_bwd_mma_work(B, S, nh, hp, ns, cl):
                  + pairs * 2 * pe * tile * nsp)
 
 
-def time_flash(rng, dev, H, KH, hd, B=BATCH, S=PROMPT, with_lse=False):
+def time_flash(rng, dev, H, KH, hd, B=BATCH, S=PROMPT, with_lse=False,
+               hdv=None, window=0):
     """Device ms of the bf16 kernel (writing lse, as training calls it,
-    with ``with_lse``), its plain version, SDPA and the bound."""
+    with ``with_lse``), its plain version, SDPA and the bound; v's head dim
+    is ``hdv`` (default ``hd``). A ``window`` must be no shorter than S,
+    so that SDPA's causal mask and the bound hold. Where SDPA takes no
+    call of these shapes, its time is None and the error is logged."""
+    if window and window < S:
+        raise ValueError(f"window {window} < S {S}: SDPA's causal mask "
+                         f"would not be the same function")
     dt = torch.bfloat16
-    sets = [tuple(rand(rng, (B, S, n, hd), dt, dev) for n in (H, KH, KH))
+    hdv = hdv or hd
+    sets = [tuple(rand(rng, (B, S, n, d), dt, dev)
+                  for n, d in ((H, hd), (KH, hd), (KH, hdv)))
             for _ in range(4)]                       # 4 x >= 33.5 MB > L2
     reps = max(5, 50 * PROMPT * PROMPT // (S * S))
+    scale = hd ** -0.5
     ms = cuda_ms(lambda i: flash_kernel.flash_attention_fwd(
-        *sets[i], with_lse=with_lse), 4, reps)
-    plain_ms = cuda_ms(lambda i: attn.reference_attention(*sets[i]), 4,
-                       max(3, reps // 5))
+        *sets[i], scale=scale, with_lse=with_lse, window=window), 4, reps)
+    plain_ms = cuda_ms(lambda i: attn.reference_attention(
+        *sets[i], scale=scale, window=window), 4, max(3, reps // 5))
     t_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
     gqa = dict(enable_gqa=True) if KH != H else {}
-    lib_ms = cuda_ms(
-        lambda i: F.scaled_dot_product_attention(*t_sets[i], is_causal=True,
-                                                 **gqa), 4, reps)
+    try:
+        lib_ms, lib_note = cuda_ms(
+            lambda i: F.scaled_dot_product_attention(
+                *t_sets[i], is_causal=True, scale=scale, **gqa), 4, reps), ""
+    except RuntimeError as exc:           # no backend takes the shapes
+        lib_ms, lib_note = None, f" ({str(exc).splitlines()[0][:120]})"
     pairs = S * (S + 1) // 2
-    bnd = bound(2 * B * S * H * hd * 2 + 2 * B * S * KH * hd * 2
-                + (B * H * S * 4 if with_lse else 0),
-                4 * B * H * hd * pairs, dt)
-    log(f"  flash  q {(B, S, H, hd)} k/v {KH} heads bf16 causal"
+    bnd = bound(B * S * H * hd * 2 + B * S * KH * (hd + hdv) * 2
+                + B * S * H * hdv * 2 + (B * H * S * 4 if with_lse else 0),
+                2 * B * H * (hd + hdv) * pairs, dt)
+    dims = f"q/k {hd} v {hdv}" if hdv != hd else f"hd {hd}"
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"  flash  q {(B, S, H)} {dims}, k/v {KH} heads bf16 causal"
+        f"{f' window {window}' if window else ''}"
         f"{' (+lse)' if with_lse else ''}: kernel {ms:.4f} ms "
-        f"({flash_kernel.plan(hd)}), plain {plain_ms:.4f} ms, sdpa "
-        f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        f"({flash_kernel.plan(hd, hdv)}), plain {plain_ms:.4f} ms, sdpa "
+        f"{lib}{lib_note}, bound {bnd[0]:.4f} ms ({bnd[1]})")
     return ms, plain_ms, lib_ms, bnd
 
 
@@ -1838,6 +2227,22 @@ def phase_kernel_times(dev):
     time_paged(rng, dev, 32, 32, 80, MAX_LEN - 1)
     time_paged(rng, dev, 12, 2, 128, PROMPT + 1)      # qwen2-vl-2b: G = 6
     qwen["paged_attention"] = time_paged(rng, dev, 12, 2, 128, MAX_LEN - 1)
+    # mixtral-8x22b's decode (G = 6 over 8 KV heads), its prefill and its
+    # training call's forward (window 4096 >= S); deepseek-v2-lite's
+    # prefill at q/k 192, v 128
+    time_paged(rng, dev, 48, 8, 128, PROMPT + 1)
+    mixtral = {"paged_attention": time_paged(rng, dev, 48, 8, 128,
+                                             MAX_LEN - 1),
+               "flash_attention_fwd": time_flash(rng, dev, 48, 8, 128,
+                                                 window=4096)}
+    mixtral["flash_attention_fwd train"] = time_flash(
+        rng, dev, 48, 8, 128, B=TRAIN_B, S=TRAIN_S, with_lse=True,
+        window=4096)
+    mla = {"flash_attention_fwd": time_flash(rng, dev, 16, 16, 192,
+                                             hdv=128)}
+    free_card()
+    mixtral["flash_attention_bwd"] = time_flash_bwd(rng, dev, H=48, hd=128,
+                                                    KH=8)
     free_card()
     out["ssd_chunk_call"] = time_ssd(rng, dev, 80, 64, 64, PROMPT, 256,
                                      "zamba2-2.7b prefill")
@@ -1855,7 +2260,7 @@ def phase_kernel_times(dev):
     time_ssd_bwd(rng, dev, TRAIN_B, TRAIN_S, 24, 64, 128, 256,
                  "mamba2-130m train")
     free_card()
-    return out, qwen
+    return out, {"qwen2_vl": qwen, "mixtral": mixtral, "deepseek_mla": mla}
 
 
 def phase_serve_times(dev, arch, cfg, serve, prompts):
@@ -1920,9 +2325,16 @@ def _kind(name):
     return "other"
 
 
+MOE_STAGES = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine",
+              "moe_shared")
+
+
 def _profile(fn):
     """Host wall ms of ``fn``, its device kernels (name -> (us, n)) and the
-    host operators by self CPU time (name -> (us, n))."""
+    host operators by self CPU time (name -> (us, n)); the MoE stages'
+    ranges (``moe_ffn``'s ``record_function``s) appear among the host
+    operators with the device time of the kernels they launched as a third
+    number."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1933,12 +2345,14 @@ def _profile(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.name not in MOE_STAGES:        # not the ranges' GPU marks
             us, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     if not kernels:
         raise AssertionError("torch.profiler recorded no device kernels")
     host = {e.key: (e.self_cpu_time_total, e.count)
+            + ((e.device_time_total,) if e.key in MOE_STAGES else ())
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU}
     return wall_ms, kernels, host
@@ -1966,9 +2380,18 @@ def _report(what, wall_ms, kernels, host, steps=1):
         for name, (us, n) in bwd:
             log(f"    {us / 1e3 / steps:8.3f} ms  x{n // steps:<4d} "
                 f"{name[:110]}")
-    host_ms = sum(us for us, _ in host.values()) / 1e3
+    stages = {n: host[n][2] for n in MOE_STAGES if n in host}
+    if stages:
+        flash, paged = (by_kind.get(k, 0.0) / steps
+                        for k in ("flash fwd", "paged kernel"))
+        log("    the MoE layers by stage (device ms of the kernels each "
+            "range launched): " + ", ".join(
+                f"{n[4:]} {us / 1e3 / steps:.3f}" for n, us in stages.items())
+            + f"; attention kernels: flash {flash:.3f}, paged {paged:.3f}")
+    host_ms = sum(v[0] for v in host.values()) / 1e3
     log(f"    host operators, self CPU {host_ms / steps:.3f} ms; top:")
-    for name, (us, n) in sorted(host.items(), key=lambda kv: -kv[1][0])[:8]:
+    for name, (us, n, *_) in sorted(host.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
         log(f"    {us / 1e3 / steps:8.3f} ms  x{n // steps:<4d} {name[:60]}")
 
 
@@ -2005,7 +2428,9 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     name, count, smi_line = phase_card_and_build()
-    errs, qwen_errs = phase_kernels_vs_plain(dev)
+    errs, extra_errs = phase_kernels_vs_plain(dev)
+    free_card()
+    phase_ring_cache(dev)
     free_card()
     launches, serve_times, pager = {}, {}, {}
     for arch in ARCHS:
@@ -2043,7 +2468,7 @@ def main() -> int:
                 free_card()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    times, qwen_times = phase_kernel_times(dev)
+    times, extra_times = phase_kernel_times(dev)
     paths = ARCHS + tuple(f"train {a}" for a in TRAIN_ARCHS) \
         + tuple(f"pager {a}" for a in PAGER_ARCHS)
     kernels = []
@@ -2069,19 +2494,26 @@ def main() -> int:
             t_ms, t_plain, t_lib, (t_bound, _) = \
                 times["flash_attention_fwd train"]
             entry.update(train_ms=t_ms, train_plain_ms=t_plain,
-                         train_library_ms=t_lib, train_bound_ms=t_bound)
-        if kname in qwen_times:                  # GQA 6:1 at hd 128
-            q_ms, q_plain, q_lib, (q_bound, q_by) = qwen_times[kname]
-            entry["qwen2_vl"] = {"ms": q_ms, "plain_ms": q_plain,
-                                 "bound_ms": q_bound, "bound_by": q_by,
-                                 "library_ms": q_lib,
-                                 "max_abs_err": qwen_errs[kname]}
-            if kname == "flash_attention_fwd":
-                t_ms, t_plain, t_lib, (t_bound, _) = \
-                    qwen_times["flash_attention_fwd train"]
-                entry["qwen2_vl"].update(
-                    train_ms=t_ms, train_plain_ms=t_plain,
-                    train_library_ms=t_lib, train_bound_ms=t_bound)
+                         train_library_ms=t_lib, train_bound_ms=t_bound,
+                         train_max_abs_err=errs[f"{kname} train"])
+        # the other serving and training shapes: qwen2-vl's and mixtral's
+        # GQA 6:1 at hd 128, deepseek-v2-lite's MLA head dims
+        for label, tms in extra_times.items():
+            sub = {}
+            if kname in tms:
+                k_ms, k_plain, k_lib, (k_bound, k_by) = tms[kname]
+                sub.update(ms=k_ms, plain_ms=k_plain, bound_ms=k_bound,
+                           bound_by=k_by, library_ms=k_lib)
+            if f"{kname} train" in tms:
+                t_ms, t_plain, t_lib, (t_bound, _) = tms[f"{kname} train"]
+                sub.update(train_ms=t_ms, train_plain_ms=t_plain,
+                           train_library_ms=t_lib, train_bound_ms=t_bound)
+            if kname in extra_errs[label]:
+                sub["max_abs_err"] = extra_errs[label][kname]
+            if f"{kname} train" in extra_errs[label]:
+                sub["train_max_abs_err"] = extra_errs[label][f"{kname} train"]
+            if sub:
+                entry[label] = sub
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve_times,

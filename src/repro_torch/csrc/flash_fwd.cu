@@ -4,9 +4,11 @@
 //           (Pallas body _flash_fwd_kernel).
 //
 // Computes causal and/or sliding-window attention with GQA: query head h
-// reads KV head h / (H / KH). q is (B, S, H, hd), k and v are (B, Sk, KH, hd),
-// all read through their strides (the last dim must be contiguous), so the
-// caller needs no transpose copies. Softmax is the Pallas kernel's fp32
+// reads KV head h / (H / KH). q is (B, S, H, hd), k is (B, Sk, KH, hd) and v
+// (B, Sk, KH, hd_v), all read through their strides (the last dim must be
+// contiguous), so the caller needs no transpose copies; the output is
+// (B, S, H, hd_v). hd_v = hd, or MLA's pair hd = 192 (128 nope + 64 rope),
+// hd_v = 128 (deepseek-v2-lite's prefill). Softmax is the Pallas kernel's fp32
 // online softmax: masked scores are -1e30, the running sum l is clamped to
 // 1e-30 at the end, and the output is written in q's dtype. Where the
 // caller passes an lse pointer (training), each row's log-sum-exp of the
@@ -25,17 +27,21 @@
 //         from the tensors' own strides, 4-D (hd, heads, seq, batch), so
 //         nothing is transposed; a box is (cols, 1, rows, 1). TMA fills rows
 //         past S or Sk with zeros (the masks still apply). hd 32 is one
-//         64-byte-swizzled block, hd 64 one 128-byte block, hd 128 two, and
-//         hd 80 (a 160-byte row, wider than the 128-byte swizzle) a 128-byte
-//         block of 64 columns beside a 32-byte block of 16.
-//       - A producer warp keeps a ring of WG_STAGES K/V tiles (64 keys
-//         each) in flight, each stage with a "full" mbarrier the copies
-//         complete and an "empty" one the consumer warps release.
+//         64-byte-swizzled block, hd 64 one 128-byte block, hd 128 two,
+//         hd 192 three, and hd 80 (a 160-byte row, wider than the 128-byte
+//         swizzle) a 128-byte block of 64 columns beside a 32-byte block of
+//         16. q and K take the q/k head dim's blocks, V the v head dim's.
+//       - A producer warp keeps a ring of K/V tiles (64 keys each) in
+//         flight, each stage with a "full" mbarrier the copies complete and
+//         an "empty" one the consumer warps release: 3 stages, 2 at MLA's
+//         pair, whose stage is 40 KB (K 24 + V 16), so that two CTAs of
+//         104 KB fit an SM where three stages (144 KB) fit one (PERF.md).
 //       - Consumer warpgroups of 64 q rows each run S = Q K^T as wgmma
 //         m64n64k16 with Q and K from shared memory (K-major, one
-//         instruction per 16 columns of hd), then O += P V with P packed to
-//         bf16 in registers (the A operand) and V read MN-major from shared
-//         memory (one instruction per column block per 16 keys).
+//         instruction per 16 columns of hd: 12 at hd 192), then O += P V
+//         with P packed to bf16 in registers (the A operand) and V read
+//         MN-major from shared memory (one instruction per column block of
+//         hd_v per 16 keys); the accumulator is hd_v / 2 floats a thread.
 //       - A CTA is one consumer warpgroup (64 q rows) and the producer
 //         warp: 160 threads, ~3 CTAs an SM. A 128-row tile (two consumer
 //         warpgroups) was slower at every head dim (PERF.md).
@@ -55,8 +61,8 @@
 //   * ragged edges are masked in the kernel: q rows >= S are not stored,
 //     keys >= Sk are treated as masked (score -1e30, V row zero);
 //   * heavy (late) causal q tiles are launched first to shorten the tail;
-//   * head dims 32, 64, 80 (zamba2-2.7b) and 128. The fp32 tiles take
-//     ~79 KB at hd 80.
+//   * head dims 32, 64, 80 (zamba2-2.7b) and 128, and (192, 128). The fp32
+//     tiles take ~79 KB at hd 80 and ~146 KB at (192, 128).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -108,14 +114,15 @@ constexpr int F32_THREADS = 256;
 constexpr int COLS_PER_T = BK / 4;
 constexpr int PS_STRIDE = BK + 4;  // conflict-free rows of the P tile
 
-template <int HD>
+// HD: the q/k head dim; HDV: the v head dim
+template <int HD, int HDV>
 constexpr size_t f32_smem_bytes() {
   return sizeof(float) *
-         (size_t(BQ) * (HD + 1) + size_t(BK) * (HD + 1) + size_t(BK) * HD +
+         (size_t(BQ) * (HD + 1) + size_t(BK) * (HD + 1) + size_t(BK) * HDV +
           size_t(BQ) * PS_STRIDE);
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
@@ -123,8 +130,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ float smem[];
   float* Qs = smem;                        // [BQ][HD + 1]
   float* Ks = Qs + BQ * (HD + 1);          // [BK][HD + 1]
-  float* Vs = Ks + BK * (HD + 1);          // [BK][HD]
-  float* Ps = Vs + BK * HD;                // [BQ][PS_STRIDE]
+  float* Vs = Ks + BK * (HD + 1);          // [BK][HDV]
+  float* Ps = Vs + BK * HDV;               // [BQ][PS_STRIDE]
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;                  // q row in the tile
@@ -148,9 +155,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   k_tile_range(a, q0, BQ, BK, j_lo, j_hi);
 
   float m = NEG_INF, l = 0.f;
-  float acc[HD / 4];
+  float acc[HDV / 4];
 #pragma unroll
-  for (int j = 0; j < HD / 4; ++j) acc[j] = 0.f;
+  for (int j = 0; j < HDV / 4; ++j) acc[j] = 0.f;
 
   for (int jt = j_lo; jt <= j_hi; ++jt) {
     const int k0 = jt * BK;
@@ -158,9 +165,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BK * HD; i += F32_THREADS) {
       const int rr = i / HD, d = i % HD;
       const int g = k0 + rr;
-      const bool in = g < a.Sk;
-      Ks[rr * (HD + 1) + d] = in ? kb[g * a.k_ss + d] : 0.f;
-      Vs[rr * HD + d] = in ? vb[g * a.v_ss + d] : 0.f;
+      Ks[rr * (HD + 1) + d] = g < a.Sk ? kb[g * a.k_ss + d] : 0.f;
+    }
+    for (int i = tid; i < BK * HDV; i += F32_THREADS) {
+      const int rr = i / HDV, d = i % HDV;
+      const int g = k0 + rr;
+      Vs[rr * HDV + d] = g < a.Sk ? vb[g * a.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -199,13 +209,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();                          // the row's P is written
 
 #pragma unroll
-    for (int j = 0; j < HD / 4; ++j) acc[j] *= corr;
+    for (int j = 0; j < HDV / 4; ++j) acc[j] *= corr;
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
       const float p = Ps[r * PS_STRIDE + c];
 #pragma unroll
-      for (int j = 0; j < HD / 4; ++j)
-        acc[j] = fmaf(p, Vs[c * HD + c4 + 4 * j], acc[j]);
+      for (int j = 0; j < HDV / 4; ++j)
+        acc[j] = fmaf(p, Vs[c * HDV + c4 + 4 * j], acc[j]);
     }
   }
 
@@ -213,7 +223,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
     float* ob = o + b * a.o_sb + gq * a.o_ss + h * a.o_sh;
 #pragma unroll
-    for (int j = 0; j < HD / 4; ++j) ob[c4 + 4 * j] = acc[j] * inv;
+    for (int j = 0; j < HDV / 4; ++j) ob[c4 + 4 * j] = acc[j] * inv;
     if (lse != nullptr && c4 == 0)         // natural-log units here
       lse[(size_t(b) * a.H + h) * a.S + gq] = m + logf(fmaxf(l, 1e-30f));
   }
@@ -230,39 +240,53 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int WG_BK = 64;                  // keys a K/V tile
 constexpr int WG_STAGES = 3;               // K/V tiles in flight
+#ifndef FLASH_MLA_STAGES                   // -D to time another count
+#define FLASH_MLA_STAGES 2
+#endif
+constexpr int WG_STAGES_MLA = FLASH_MLA_STAGES;  // ... at q/k head dim 192
+
+template <int HD>
+__host__ __device__ constexpr int wg_stages() {
+  return HD == 192 ? WG_STAGES_MLA : WG_STAGES;
+}
 
 struct TmaMaps {                           // one box shape per column block
-  CUtensorMap q[2], k[2], v[2];
+  CUtensorMap q[3], k[3], v[2];
 };
 
 constexpr int WG_ROWS = 64;       // bf16: q rows a CTA (one warpgroup)
 constexpr int WG_THREADS = 128 + 32;
 
-template <int HD>
+// HD: the q/k head dim; HDV: the v head dim
+template <int HD, int HDV>
 constexpr size_t bf16_smem_bytes() {
-  return size_t(WG_ROWS) * HD * 2 + size_t(WG_STAGES) * 2 * WG_BK * HD * 2 +
-         8 * (2 * WG_STAGES + 1) + 1024;   // + barriers, + 1024 alignment
+  return size_t(WG_ROWS) * HD * 2 +
+         size_t(wg_stages<HD>()) * WG_BK * (HD + HDV) * 2 +
+         8 * (2 * wg_stages<HD>() + 1) + 1024;  // + barriers, + alignment
 }
 
 // one consumer warpgroup (64 q rows) and one producer warp
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                       const Args a) {
-  using C = Cols<HD>;
+  using C = Cols<HD>;                      // q and K
+  using CV = Cols<HDV>;                    // V and the output
+  constexpr int STAGES = wg_stages<HD>();
   constexpr int Q_BYTES = WG_ROWS * HD * 2;
-  constexpr int KV_BYTES = WG_BK * HD * 2; // one K (or V) tile
-  constexpr int STAGE = 2 * KV_BYTES;
+  constexpr int K_BYTES = WG_BK * HD * 2;  // one K tile
+  constexpr int STAGE = K_BYTES + WG_BK * HDV * 2;
   constexpr int NT = WG_BK / 8;            // 8-key groups a tile
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  // (every tile and column block is a whole number of 1024 bytes)
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t kv_s = q_s + Q_BYTES;     // [stage][K tile | V tile]
-  const uint32_t bars = kv_s + WG_STAGES * STAGE;
-  const uint32_t q_bar = bars + 16 * WG_STAGES;
+  const uint32_t bars = kv_s + STAGES * STAGE;
+  const uint32_t q_bar = bars + 16 * STAGES;
   auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (WG_STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -274,7 +298,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
   k_tile_range(a, q0, WG_ROWS, WG_BK, j_lo, j_hi);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 4);              // one arrival a consumer warp
     }
@@ -292,17 +316,18 @@ flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
         tma_load_4d(q_s + WG_ROWS * C::off(c) * 2, &maps.q[c], q_bar,
                     C::off(c), h, q0, b);
       for (int jt = j_lo, i = 0; jt <= j_hi; ++jt, ++i) {
-        const int s = i % WG_STAGES;
-        if (i >= WG_STAGES) mbar_wait(empty(s), ((i / WG_STAGES) - 1) & 1);
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
         mbar_expect_tx(full(s), STAGE);
-        const uint32_t kd = kv_s + s * STAGE, vd = kd + KV_BYTES;
+        const uint32_t kd = kv_s + s * STAGE, vd = kd + K_BYTES;
 #pragma unroll
-        for (int c = 0; c < C::NB; ++c) {
+        for (int c = 0; c < C::NB; ++c)
           tma_load_4d(kd + WG_BK * C::off(c) * 2, &maps.k[c], full(s),
                       C::off(c), kh, jt * WG_BK, b);
-          tma_load_4d(vd + WG_BK * C::off(c) * 2, &maps.v[c], full(s),
-                      C::off(c), kh, jt * WG_BK, b);
-        }
+#pragma unroll
+        for (int c = 0; c < CV::NB; ++c)
+          tma_load_4d(vd + WG_BK * CV::off(c) * 2, &maps.v[c], full(s),
+                      CV::off(c), kh, jt * WG_BK, b);
       }
     }
     return;
@@ -314,19 +339,19 @@ flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
   const int row_a = q0 + warp * 16 + g;   // this thread's two q rows
   const int row_b = row_a + 8;
 
-  float acc[HD / 2];
+  float acc[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   mbar_wait(q_bar, 0);
   __syncwarp();
 
   for (int jt = j_lo, i = 0; jt <= j_hi; ++jt, ++i) {
-    const int s = i % WG_STAGES;
+    const int s = i % STAGES;
     const int k0 = jt * WG_BK;
-    mbar_wait(full(s), (i / WG_STAGES) & 1);
+    mbar_wait(full(s), (i / STAGES) & 1);
     __syncwarp();                          // wgmma wants converged warps
-    const uint32_t kd = kv_s + s * STAGE, vd = kd + KV_BYTES;
+    const uint32_t kd = kv_s + s * STAGE, vd = kd + K_BYTES;
 
     // S = Q K^T, 64 rows x 64 keys, 16 columns of hd a step
     float sc[4 * NT];
@@ -388,7 +413,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
       l[r] = l[r] * corr[r] + sum[r];
     }
 #pragma unroll
-    for (int i2 = 0; i2 < HD / 2; ++i2) acc[i2] *= corr[(i2 >> 1) & 1];
+    for (int i2 = 0; i2 < HDV / 2; ++i2) acc[i2] *= corr[(i2 >> 1) & 1];
 
     // acc += P V: P packed to bf16 in registers, V read MN-major
     uint32_t pa[WG_BK / 16][4];
@@ -404,16 +429,16 @@ flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < WG_BK / 16; ++kc) {
-      constexpr int rb0 = C::width(0) * 2, rb1 = C::width(1) * 2;
-      wgmma_rs<C::width(0)>(acc, pa[kc],
-                            gmma_desc(vd + 16 * kc * rb0, rb0));
-      if constexpr (C::NB == 2)
-        wgmma_rs<C::width(1)>(
-            acc + C::off(1) / 2, pa[kc],
-            gmma_desc(vd + WG_BK * C::off(1) * 2 + 16 * kc * rb1, rb1));
+      constexpr int rb0 = CV::width(0) * 2, rb1 = CV::width(1) * 2;
+      wgmma_rs<CV::width(0)>(acc, pa[kc],
+                             gmma_desc(vd + 16 * kc * rb0, rb0));
+      if constexpr (CV::NB == 2)
+        wgmma_rs<CV::width(1)>(
+            acc + CV::off(1) / 2, pa[kc],
+            gmma_desc(vd + WG_BK * CV::off(1) * 2 + 16 * kc * rb1, rb1));
     }
     wgmma_commit_and_wait();
-    fence_regs<HD / 2>(acc);
+    fence_regs<HDV / 2>(acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));  // the stage may be refilled
   }
@@ -430,11 +455,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ TmaMaps maps,
   }
   __nv_bfloat16* ob = o + b * a.o_sb + h * a.o_sh + 2 * t;
 #pragma unroll
-  for (int c = 0; c < C::NB; ++c) {
+  for (int c = 0; c < CV::NB; ++c) {
 #pragma unroll
-    for (int j = 0; j < C::width(c) / 8; ++j) {
-      const float* r = acc + C::off(c) / 2 + 4 * j;
-      const int col = C::off(c) + 8 * j;
+    for (int j = 0; j < CV::width(c) / 8; ++j) {
+      const float* r = acc + CV::off(c) / 2 + 4 * j;
+      const int col = CV::off(c) + 8 * j;
       if (row_a < a.S)
         *reinterpret_cast<__nv_bfloat162*>(ob + row_a * a.o_ss + col) =
             __floats2bfloat162_rn(r[0] * inv_a, r[1] * inv_a);
@@ -465,30 +490,35 @@ int launch_f32(void (*kernel)(const float*, const float*, const float*,
   return int(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, const Args& a, cudaStream_t stream) {
   using C = Cols<HD>;
+  using CV = Cols<HDV>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   TmaMaps maps;
-  for (int c = 0; c < 2; ++c) {            // block 1 repeats 0 at NB = 1
+  for (int c = 0; c < 3; ++c) {            // blocks past NB repeat block 0
     const int w = C::width(c < C::NB ? c : 0);
     if (!make_map(encode, &maps.q[c], q, HD, a.H, a.S, B, a.q_sh, a.q_ss,
                   a.q_sb, w, WG_ROWS) ||
         !make_map(encode, &maps.k[c], k, HD, a.KH, a.Sk, B, a.k_sh, a.k_ss,
-                  a.k_sb, w, WG_BK) ||
-        !make_map(encode, &maps.v[c], v, HD, a.KH, a.Sk, B, a.v_sh, a.v_ss,
-                  a.v_sb, w, WG_BK))
+                  a.k_sb, w, WG_BK))
       return int(cudaErrorInvalidValue);
   }
-  const size_t smem = bf16_smem_bytes<HD>();
+  for (int c = 0; c < 2; ++c) {
+    const int w = CV::width(c < CV::NB ? c : 0);
+    if (!make_map(encode, &maps.v[c], v, HDV, a.KH, a.Sk, B, a.v_sh,
+                  a.v_ss, a.v_sb, w, WG_BK))
+      return int(cudaErrorInvalidValue);
+  }
+  const size_t smem = bf16_smem_bytes<HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<HD>,
+      flash_fwd_bf16_kernel<HD, HDV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid((a.S + WG_ROWS - 1) / WG_ROWS, a.H, B);
-  flash_fwd_bf16_kernel<HD><<<grid, WG_THREADS, smem, stream>>>(
+  flash_fwd_bf16_kernel<HD, HDV><<<grid, WG_THREADS, smem, stream>>>(
       maps, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), a);
   return int(cudaGetLastError());
 }
@@ -516,8 +546,10 @@ bool bad_shape(int B, int S, int Sk, int H, int KH) {
 
 extern "C" {
 
+// hd: the q/k head dim; hd_v: the v head dim (hd, or 128 at hd 192)
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int S, int Sk, int H, int KH, int hd,
+                   int hd_v,
                    long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
                    long long v_sb, long long v_ss, long long v_sh,
@@ -538,17 +570,21 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal,
                            window);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 192 && hd_v == 128)
+    return launch_bf16<192, 128>(q, k, v, o, lse, B, a, st);
+  if (hd != hd_v) return int(cudaErrorInvalidValue);
   switch (hd) {
-    case 32: return launch_bf16<32>(q, k, v, o, lse, B, a, st);
-    case 64: return launch_bf16<64>(q, k, v, o, lse, B, a, st);
-    case 80: return launch_bf16<80>(q, k, v, o, lse, B, a, st);
-    case 128: return launch_bf16<128>(q, k, v, o, lse, B, a, st);
+    case 32: return launch_bf16<32, 32>(q, k, v, o, lse, B, a, st);
+    case 64: return launch_bf16<64, 64>(q, k, v, o, lse, B, a, st);
+    case 80: return launch_bf16<80, 80>(q, k, v, o, lse, B, a, st);
+    case 128: return launch_bf16<128, 128>(q, k, v, o, lse, B, a, st);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   void* lse, int B, int S, int Sk, int H, int KH, int hd,
+                  int hd_v,
                   long long q_sb, long long q_ss, long long q_sh,
                   long long k_sb, long long k_ss, long long k_sh,
                   long long v_sb, long long v_ss, long long v_sh,
@@ -559,27 +595,31 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal,
                            window);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 192 && hd_v == 128)
+    return launch_f32(flash_fwd_f32_kernel<192, 128>,
+                      f32_smem_bytes<192, 128>(), q, k, v, o, lse, B, a, st);
+  if (hd != hd_v) return int(cudaErrorInvalidValue);
   switch (hd) {
     case 32:
-      return launch_f32(flash_fwd_f32_kernel<32>, f32_smem_bytes<32>(), q, k,
-                        v, o, lse, B, a, st);
+      return launch_f32(flash_fwd_f32_kernel<32, 32>, f32_smem_bytes<32, 32>(),
+                        q, k, v, o, lse, B, a, st);
     case 64:
-      return launch_f32(flash_fwd_f32_kernel<64>, f32_smem_bytes<64>(), q, k,
-                        v, o, lse, B, a, st);
+      return launch_f32(flash_fwd_f32_kernel<64, 64>, f32_smem_bytes<64, 64>(),
+                        q, k, v, o, lse, B, a, st);
     case 80:
-      return launch_f32(flash_fwd_f32_kernel<80>, f32_smem_bytes<80>(), q, k,
-                        v, o, lse, B, a, st);
+      return launch_f32(flash_fwd_f32_kernel<80, 80>, f32_smem_bytes<80, 80>(),
+                        q, k, v, o, lse, B, a, st);
     case 128:
-      return launch_f32(flash_fwd_f32_kernel<128>, f32_smem_bytes<128>(), q,
-                        k, v, o, lse, B, a, st);
+      return launch_f32(flash_fwd_f32_kernel<128, 128>,
+                        f32_smem_bytes<128, 128>(), q, k, v, o, lse, B, a, st);
     default:
       return int(cudaErrorInvalidValue);
   }
 }
 
-// the bf16 kernel's CTA at this head_dim, for reports: out = {threads,
+// the bf16 kernel's CTA at this head_dim pair, for reports: out = {threads,
 // shared-memory bytes, CTAs an SM can hold}
-int flash_fwd_bf16_plan(int hd, int* out) {
+int flash_fwd_bf16_plan(int hd, int hd_v, int* out) {
   int err = int(cudaErrorInvalidValue);
   auto fill = [&](auto kernel, size_t smem) {
     out[0] = WG_THREADS;
@@ -590,12 +630,23 @@ int flash_fwd_bf16_plan(int hd, int* out) {
       err = int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &out[2], kernel, WG_THREADS, smem));
   };
-  switch (hd) {
-    case 32: fill(flash_fwd_bf16_kernel<32>, bf16_smem_bytes<32>()); break;
-    case 64: fill(flash_fwd_bf16_kernel<64>, bf16_smem_bytes<64>()); break;
-    case 80: fill(flash_fwd_bf16_kernel<80>, bf16_smem_bytes<80>()); break;
-    case 128: fill(flash_fwd_bf16_kernel<128>, bf16_smem_bytes<128>()); break;
-  }
+  if (hd == 192 && hd_v == 128)
+    fill(flash_fwd_bf16_kernel<192, 128>, bf16_smem_bytes<192, 128>());
+  else if (hd == hd_v)
+    switch (hd) {
+      case 32:
+        fill(flash_fwd_bf16_kernel<32, 32>, bf16_smem_bytes<32, 32>());
+        break;
+      case 64:
+        fill(flash_fwd_bf16_kernel<64, 64>, bf16_smem_bytes<64, 64>());
+        break;
+      case 80:
+        fill(flash_fwd_bf16_kernel<80, 80>, bf16_smem_bytes<80, 80>());
+        break;
+      case 128:
+        fill(flash_fwd_bf16_kernel<128, 128>, bf16_smem_bytes<128, 128>());
+        break;
+    }
   return err;
 }
 

@@ -23,9 +23,10 @@ namespace {
 
 // A head_dim in column blocks, each one TMA box and one swizzle width (a
 // row of 128, 64 or 32 bytes), stored [rows][cols] in its own piece of a
-// tile: hd 32 = 32; 64 = 64; 80 = 64 + 16; 128 = 64 + 64.
+// tile: hd 32 = 32; 64 = 64; 80 = 64 + 16; 128 = 64 + 64; 192 (MLA's
+// q/k) = 64 + 64 + 64.
 template <int HD> struct Cols {
-  static constexpr int NB = (HD == 80 || HD == 128) ? 2 : 1;
+  static constexpr int NB = HD == 192 ? 3 : (HD == 80 || HD == 128) ? 2 : 1;
   __host__ __device__ static constexpr int width(int c) {
     return HD == 32 ? 32 : (HD == 80 && c == 1) ? 16 : 64;
   }

@@ -48,11 +48,12 @@ def params_from_numpy(cfg, tree: dict, *, device="cuda") -> dict:
 def cache_from_numpy(cfg, tree: dict, *, device="cuda") -> dict:
     """A ``repro.models.lm`` decode cache with numpy leaves -> the port's
     cache (the keys of ``lm.cache_spec_defs``: "k"/"v" (G, B, Smax, KH, hd)
-    bf16 where the family attends, "ssm" and "conv_x/b/c" where it has
-    Mamba2 layers). Batch and length are read from the leaves present."""
-    if "k" in tree:
-        k = np.asarray(tree["k"])
-        batch, length = k.shape[1], k.shape[2]
+    bf16 where the family attends, MLA's "ckv"/"kr" (L, B, Smax, ·), "ssm"
+    and "conv_x/b/c" where it has Mamba2 layers). Batch and length are read
+    from the leaves present."""
+    seq = next((n for n in ("k", "ckv") if n in tree), None)
+    if seq is not None:
+        batch, length = np.asarray(tree[seq]).shape[1:3]
     else:                      # attention-free: no sequence axis
         batch, length = np.asarray(tree["ssm"]).shape[1], 0
     defs = lm.cache_spec_defs(cfg, length, batch)

@@ -12,6 +12,10 @@ outputs, launch on the current stream and count launches in
 take CUDA tensors only; the plain versions are in ``ref.py``
 (``reference_attention``, ``flash_attention_fwd_ref`` with its lse,
 ``flash_attention_bwd_ref``).
+
+Head dims: q, k and v of one head dim in ``HEAD_DIMS``; the forward also
+takes MLA's pair (``MLA_DIMS``: q/k 192, v 128, deepseek-v2-lite's
+prefill), the backward does not yet (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from repro_torch.kernels import _build
 
 SOURCE = "flash_fwd"
 _SYMBOLS = {torch.bfloat16: "flash_fwd_bf16", torch.float32: "flash_fwd_f32"}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_int64] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 BWD_SOURCE = "flash_bwd"
@@ -36,14 +40,16 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
 HEAD_DIMS = (32, 64, 80, 128)
+MLA_DIMS = (192, 128)          # (q/k head dim, v head dim): forward only
 
 
-def _check_qkv(name, q, k, v, extra=()):
-    """q: (B, S, H, hd) and ``extra`` like it; k/v: (B, Sk, KH, hd),
-    H % KH == 0; all CUDA tensors of one dtype (bf16 or fp32) on one
-    device with a contiguous last dim."""
+def _check_qkv(name, q, k, v, extra=(), pairs=()):
+    """q: (B, S, H, hd) and ``extra`` like it; k: (B, Sk, KH, hd), v:
+    (B, Sk, KH, hd_v), H % KH == 0, with hd_v == hd in ``HEAD_DIMS`` or
+    (hd, hd_v) in ``pairs``; all CUDA tensors of one dtype (bf16 or fp32)
+    on one device with a contiguous last dim."""
     B, S, H, hd = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
+    Sk, KH, hdv = k.shape[1], k.shape[2], v.shape[-1]
     for t in (q, k, v, *extra):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} launches a CUDA kernel: every input "
@@ -53,25 +59,28 @@ def _check_qkv(name, q, k, v, extra=()):
                             f"dtype, got {q.dtype}/{t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError("flash kernels need a contiguous head dim")
-    if k.shape != (B, Sk, KH, hd) or v.shape != k.shape or H % KH or any(
-            t.shape != q.shape for t in extra):
+    if k.shape != (B, Sk, KH, hd) or v.shape != (B, Sk, KH, hdv) \
+            or H % KH or any(t.shape != q.shape for t in extra):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} "
                          f"{[tuple(t.shape) for t in extra]}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash kernels support hd in {HEAD_DIMS}, got {hd}")
+    if not ((hd == hdv and hd in HEAD_DIMS) or (hd, hdv) in pairs):
+        raise ValueError(f"{name} takes hd in {HEAD_DIMS} for q, k and v"
+                         f"{f' or (q/k, v) in {pairs}' if pairs else ''}, "
+                         f"got q/k {hd}, v {hdv}")
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         scale: float | None = None, with_lse: bool = False):
-    """q: (B, S, H, hd); k/v: (B, Sk, KH, hd), H % KH == 0, all CUDA
+    """q: (B, S, H, hd); k: (B, Sk, KH, hd), v: (B, Sk, KH, hd_v),
+    H % KH == 0, hd_v == hd or (hd, hd_v) == ``MLA_DIMS``; all CUDA
     tensors of one dtype (bf16 or fp32) with a contiguous last dim.
-    Returns a new contiguous (B, S, H, hd) tensor in q's dtype and, with
+    Returns a new contiguous (B, S, H, hd_v) tensor in q's dtype and, with
     ``with_lse``, the (B, H, S) fp32 log-sum-exp of the scaled scores
     that the backward reads (without it the kernel writes none)."""
     B, S, H, hd = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
-    _check_qkv("flash_attention_fwd", q, k, v)
+    Sk, KH, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    _check_qkv("flash_attention_fwd", q, k, v, pairs=(MLA_DIMS,))
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
             for t in (q, k, v)):
@@ -79,14 +88,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                          "need 16-byte aligned pointers and strides")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
     symbol = _SYMBOLS[q.dtype]
     fn = _build.bind(SOURCE, symbol, _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr() if with_lse else None,
-             B, S, Sk, H, KH, hd,
+             B, S, Sk, H, KH, hd, hdv,
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
@@ -156,13 +165,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 flash_attention_bwd.launches = 0
 
 
-def plan(hd: int) -> dict:
-    """The bf16 kernel's CTA at this head_dim: threads, shared-memory
-    bytes and CTAs an SM holds. Builds the kernel if needed."""
+def plan(hd: int, hd_v: int | None = None) -> dict:
+    """The bf16 kernel's CTA at this head_dim (q/k ``hd``, v ``hd_v``,
+    by default ``hd``): threads, shared-memory bytes and CTAs an SM holds.
+    Builds the kernel if needed."""
     fn = _build.bind(SOURCE, "flash_fwd_bf16_plan",
-                     [ctypes.c_int, ctypes.c_void_p])
+                     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = (ctypes.c_int * 3)()
-    err = fn(hd, ctypes.cast(out, ctypes.c_void_p))
+    err = fn(hd, hd if hd_v is None else hd_v,
+             ctypes.cast(out, ctypes.c_void_p))
     _build.check(SOURCE, "flash_fwd_bf16_plan", err)
     return dict(zip(("threads", "smem_bytes", "ctas_per_sm"), out))
 

@@ -114,8 +114,9 @@ def _repeat_kv(t, G):
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
                             scale: float | None = None, q_chunk: int = 512,
                             k_chunk: int = 0, schedule: str = "triangular"):
-    """q: (B, S, H, hd); k/v: (B, Sk, KH, hd). Returns (o (B, S, H, hd) in
-    q's dtype, lse (B, H, S) fp32): lse is the natural log of the softmax
+    """q: (B, S, H, hd); k: (B, Sk, KH, hd), v: (B, Sk, KH, hd_v). Returns
+    (o (B, S, H, hd_v) in q's dtype, lse (B, H, S) fp32): lse is the
+    natural log of the softmax
     denominator of the *scaled* scores, m + log(max(l, 1e-30)), as
     ``repro/models/attention.py:147-150`` defines it."""
     B, S, H, hd = q.shape
@@ -155,7 +156,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             q_chunk: int = 512, k_chunk: int = 0,
                             schedule: str = "triangular"):
     """The block-recompute backward: from (q, k, v, o, lse) and the output
-    gradient do (B, S, H, hd), returns (dq, dk, dv) in the dtypes of
+    gradient do (B, S, H, hd_v), returns (dq, dk, dv) in the dtypes of
     q, k, v. Per block pair: p = exp(s − lse), dv += pᵀ·do,
     dp = do·vᵀ, ds = p·(dp − D)·scale, dq += ds·k, dk += dsᵀ·q, with
     D = rowsum(do·o), all in fp32."""

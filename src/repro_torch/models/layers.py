@@ -44,7 +44,13 @@ def materialize(defs: dict, generator: torch.Generator,
     leaves, drawn from ``generator`` (which must live on ``device``) in a
     fixed depth-first order, so one seed gives one tree. The numbers
     differ from ``jax.random``'s; tests carry JAX weights over instead
-    (``repro_torch.interop``)."""
+    (``repro_torch.interop``).
+
+    A "normal" leaf that is not fp32 and is stacked (3 or more axes) is
+    drawn one slice of its leading axis at a time into the preallocated
+    leaf, so the fp32 draw never holds the whole leaf (mixtral-8x22b's
+    stacked experts at 12 layers would take 38.6 GB in fp32 beside their
+    19.3 GB in bf16); fp32 leaves are drawn whole."""
 
     def init_one(pd: ParamDef):
         dt = getattr(torch, pd.dtype)
@@ -54,9 +60,16 @@ def materialize(defs: dict, generator: torch.Generator,
             return torch.ones(pd.shape, dtype=dt, device=device)
         fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
         std = pd.scale / math.sqrt(max(1, fan_in))
-        w = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return w.mul_(std).to(dt)
+        if dt == torch.float32 or len(pd.shape) < 3:
+            w = torch.randn(pd.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            return w.mul_(std).to(dt)
+        out = torch.empty(pd.shape, dtype=dt, device=device)
+        for piece in out:
+            piece.copy_(torch.randn(pd.shape[1:], generator=generator,
+                                    dtype=torch.float32,
+                                    device=device).mul_(std))
+        return out
 
     return tree_map_defs(init_one, defs)
 

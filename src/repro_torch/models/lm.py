@@ -1,5 +1,5 @@
-"""Model assembly, dense / vlm / audio / ssm / hybrid families (``mesh=None``
-path of ``repro.models.lm``).
+"""Model assembly for every family: dense / vlm / audio / moe / ssm /
+hybrid (the ``mesh=None`` path of ``repro.models.lm``).
 
 ``param_defs(cfg)`` declares the parameter tree with the JAX package's
 shapes (layers stacked on a leading axis); ``forward`` / ``prefill_cache``
@@ -24,15 +24,24 @@ audio family (musicgen-large) embeds K codebook streams (their embeddings
 summed), adds an absolute sinusoidal position and has a (d, K·V) head:
 tokens and logits carry a codebook axis, (B, S, K) and (B, S, K, V).
 
+The moe family runs ``moe.moe_ffn`` in place of the MLP in its MoE
+layers (mixtral-8x22b: every layer, sliding-window GQA attention;
+deepseek-v2-lite-16b: after ``first_k_dense`` dense layers, the
+``dense_layers`` stack). deepseek-v2-lite attends by MLA: prefill and
+training through ``attention.mla_prefill`` (the flash op at q/k 192, v
+128), decode through the absorbed ``attention.mla_decode`` in plain torch
+over a compressed ``ckv``/``kr`` cache (no paged op, as the JAX package
+has no kernel there). Decode routes the whole token batch jointly: the B
+new tokens play the sequence (``(1, B, D)``).
+
 Training differentiates ``forward``: attention through the flash
 kernels' ``FlashAttention`` function, every Mamba2 layer's SSD through
 ``SSDChunk`` (the SSD chunk kernel and its backward kernel), and with
 ``cfg.remat`` each layer is rematerialised in the backward
-(``_maybe_remat``). Every ported family trains on the card through the
-kernels and on the CPU through the plain versions.
-
-The moe family (MoE and MLA) raises ``NotImplementedError``: it comes in
-later slices of the port (ROADMAP.md, Queue 1).
+(``_maybe_remat``). Every family trains on the CPU through the plain
+versions and on the card through the kernels, but MLA: the flash backward
+kernel does not take its head dims yet (ROADMAP.md, Queue 2), and a call
+that needs that gradient on the card raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels.paged_attn import ops as _paged_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamDef, apply_rope, materialize,
                                        mlp_apply, mlp_defs, mrope_cos_sin,
                                        padded_vocab, rms_norm, rope_cos_sin,
@@ -57,17 +67,7 @@ from repro_torch.models.layers import (ParamDef, apply_rope, materialize,
 PAGE_SIZE = 16          # tokens per page of the decode op's pool view
 _CONV = ("conv_x", "conv_b", "conv_c")
 # families whose every layer is a transformer block (no Mamba2 layer)
-_ATTN_ONLY = ("dense", "vlm", "audio")
-
-_LATER = "ROADMAP.md Queue 1, items 4b (MoE) and 4c (MLA)"
-
-
-def _require_ported(cfg):
-    if cfg.family not in _ATTN_ONLY + ("ssm", "hybrid") \
-            or cfg.mla is not None or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet; "
-            f"see {_LATER}")
+_ATTN_ONLY = ("dense", "vlm", "audio", "moe")
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +77,22 @@ def _require_ported(cfg):
 def _attn_defs(cfg, ll=()) -> dict:
     d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     Lax = tuple("layers" for _ in ll)
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "wq": ParamDef(ll + (d, H * qk), Lax + ("embed", "heads")),
+            "wdkv": ParamDef(ll + (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                             Lax + ("embed", None)),
+            "ckv_norm": ParamDef(ll + (m.kv_lora_rank,), Lax + (None,),
+                                 init="ones"),
+            "wuk": ParamDef(ll + (m.kv_lora_rank, H * m.qk_nope_head_dim),
+                            Lax + (None, "heads")),
+            "wuv": ParamDef(ll + (m.kv_lora_rank, H * m.v_head_dim),
+                            Lax + (None, "heads")),
+            "wo": ParamDef(ll + (H * m.v_head_dim, d),
+                           Lax + ("heads", "embed")),
+        }
     return {
         "wq": ParamDef(ll + (d, H * hd), Lax + ("embed", "heads")),
         "wk": ParamDef(ll + (d, KH * hd), Lax + ("embed", "kv_heads")),
@@ -85,19 +101,22 @@ def _attn_defs(cfg, ll=()) -> dict:
     }
 
 
-def _block_defs(cfg, ll=()) -> dict:
+def _block_defs(cfg, ll=(), *, moe_layer: bool = False) -> dict:
     d = cfg.d_model
     Lax = tuple("layers" for _ in ll)
-    return {
+    out = {
         "ln1": ParamDef(ll + (d,), Lax + ("embed",), init="ones"),
         "ln2": ParamDef(ll + (d,), Lax + ("embed",), init="ones"),
         "attn": _attn_defs(cfg, ll),
-        "mlp": mlp_defs(cfg, cfg.d_ff, ll=ll),
     }
+    if moe_layer:
+        out["moe"] = moe_mod.moe_defs(cfg, ll)
+    else:
+        out["mlp"] = mlp_defs(cfg, cfg.d_ff, ll=ll)
+    return out
 
 
 def param_defs(cfg) -> dict:
-    _require_ported(cfg)
     d = cfg.d_model
     V = padded_vocab(cfg.vocab_size)
     K = cfg.n_codebooks
@@ -108,7 +127,13 @@ def param_defs(cfg) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["head"] = ParamDef((d, K * V if K else V), ("embed", "vocab"))
-    if cfg.family in _ATTN_ONLY:
+    if cfg.family == "moe":
+        fk = cfg.moe.first_k_dense
+        if fk:
+            defs["dense_layers"] = _block_defs(cfg, (fk,))
+        defs["layers"] = _block_defs(cfg, (cfg.n_layers - fk,),
+                                     moe_layer=True)
+    elif cfg.family in _ATTN_ONLY:
         defs["layers"] = _block_defs(cfg, (cfg.n_layers,))
     else:
         defs["layers"] = mam.mamba_defs(cfg, ll=(cfg.n_layers,))
@@ -133,9 +158,11 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda") -> dict:
                        device=dev)
 
 
-# leaves the model reads in fp32 (rms_norm scales; the Mamba2 A_log, D,
-# dt_bias and gated-norm scale): casting them would change their values
-_FP32_LEAVES = ("ln1", "ln2", "final_norm", "A_log", "D", "dt_bias", "norm")
+# leaves the model reads in fp32 (rms_norm scales, MLA's latent norm; the
+# Mamba2 A_log, D, dt_bias and gated-norm scale; the MoE router):
+# casting them would change their values
+_FP32_LEAVES = ("ln1", "ln2", "final_norm", "ckv_norm", "A_log", "D",
+                "dt_bias", "norm", "router")
 
 
 def cast_params(cfg, params: dict, dtype) -> dict:
@@ -157,7 +184,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg, params: dict):
         super().__init__()
-        _require_ported(cfg)
         self.cfg = cfg
         self._tree = _to_module(params)
 
@@ -235,27 +261,38 @@ def _layers(stacked: dict, cast=None) -> list:
     return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
-def _transformer_block(cfg, p, x, cos, sin, dtype, *,
+def _transformer_block(cfg, p, x, cos, sin, dtype, *, moe_layer=False,
                        collect_cache: bool = False):
+    """Returns (x, aux, cache): aux the MoE layer's load-balance loss (0.0
+    elsewhere); cache (k, v), or MLA's (ckv, k_rope), with
+    ``collect_cache``."""
     B, S, D = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    pa = p["attn"]
-    q = (h @ pa["wq"].to(dtype)).reshape(B, S, H, hd)
-    k = (h @ pa["wk"].to(dtype)).reshape(B, S, KH, hd)
-    v = (h @ pa["wv"].to(dtype)).reshape(B, S, KH, hd)
-    if cos is not None:                    # audio: absolute positions
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    cache = (k, v) if collect_cache else None
-    o = attn.flash_attention(q, k, v, causal=True, window=cfg.swa_window,
-                             q_chunk=cfg.attn_q_chunk,
-                             scale=1.0 / math.sqrt(hd),
-                             schedule=cfg.attn_schedule)
-    y = o.reshape(B, S, H * hd) @ pa["wo"].to(dtype)
+    if cfg.mla is not None:
+        y, cache = attn.mla_prefill(p["attn"], h, cos, sin, cfg, dtype)
+    else:
+        pa = p["attn"]
+        q = (h @ pa["wq"].to(dtype)).reshape(B, S, H, hd)
+        k = (h @ pa["wk"].to(dtype)).reshape(B, S, KH, hd)
+        v = (h @ pa["wv"].to(dtype)).reshape(B, S, KH, hd)
+        if cos is not None:                # audio: absolute positions
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        cache = (k, v)
+        o = attn.flash_attention(q, k, v, causal=True,
+                                 window=cfg.swa_window,
+                                 q_chunk=cfg.attn_q_chunk,
+                                 scale=1.0 / math.sqrt(hd),
+                                 schedule=cfg.attn_schedule)
+        y = o.reshape(B, S, H * hd) @ pa["wo"].to(dtype)
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(cfg, p["mlp"], h2, dtype), 0.0, cache
+    if moe_layer:
+        f, aux = moe_mod.moe_ffn(cfg, p["moe"], h2, dtype)
+    else:
+        f, aux = mlp_apply(cfg, p["mlp"], h2, dtype), 0.0
+    return x + f, aux, (cache if collect_cache else None)
 
 
 # ---------------------------------------------------------------------------
@@ -277,18 +314,28 @@ def _maybe_remat(cfg):
     return lambda fn, *args: fn(*args)
 
 
+def _stacks(cfg, params):
+    """The stacked layer trees in order, each with whether its layers are
+    MoE layers: deepseek-v2-lite's ``dense_layers``, then ``layers``."""
+    out = [(params["dense_layers"], False)] if "dense_layers" in params \
+        else []
+    return out + [(params["layers"], cfg.family == "moe")]
+
+
 def forward(cfg, params, batch, *, collect_cache: bool = False):
     """batch: dict with 'tokens' (B, S) (audio: (B, S, K)) or 'embeds'
     (B, S, D), and for vlm optionally 'pos3' (3, B, S) (default: three
     equal streams 0..S-1).
 
     Returns (logits (B, S, V_padded), aux_loss, caches_or_None); audio
-    logits are (B, S, K, V_padded). With
+    logits are (B, S, K, V_padded); aux_loss is the sum over the MoE
+    layers of their load-balance loss (0.0 without MoE). With
     ``collect_cache`` the caches hold "kv": (k, v), each (G, B, S, KH, hd)
-    for the G attention applications. The ssm and hybrid families always
+    for the G attention applications (MLA: (ckv (G, B, S, lora), k_rope
+    (G, B, S, rope)) of the MoE layers, and "kv_dense" those of the dense
+    layers before them). The ssm and hybrid families always
     return their per-layer "ssm" (L, B, nh, hp, ns) and "conv_x/b/c"
     (L, B, d_conv-1, C) states (``repro/models/lm.py:381-382``)."""
-    _require_ported(cfg)
     dtype = cfg.compute_dt()
     if "embeds" in batch:
         x = batch["embeds"].to(dtype)
@@ -308,38 +355,44 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
         cos, sin = mrope_cos_sin(pos3, cfg.hd, cfg.rope_theta,
                                  cfg.mrope_sections)
     elif fam != "ssm":
-        cos, sin = rope_cos_sin(torch.arange(S, device=dev), cfg.hd,
+        rope_dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
+            else cfg.hd
+        cos, sin = rope_cos_sin(torch.arange(S, device=dev), rope_dim,
                                 cfg.rope_theta)
-    layers = _layers(params["layers"],
-                     dtype if cfg.bf16_stacked_params else None)
+    cast = dtype if cfg.bf16_stacked_params else None
     run = _maybe_remat(cfg)
-    ks, vs, states, convs = [], [], [], []
+    kvs = {"kv_dense": [], "kv": []}     # per layer: (k, v) or (ckv, kr)
+    states, convs, auxs = [], [], []
 
-    def attn_body(p, x):
-        x, _, kv = _transformer_block(cfg, p, x, cos, sin, dtype,
-                                      collect_cache=collect_cache)
-        return x, kv
+    def attn_body(p, x, moe_layer):
+        return _transformer_block(cfg, p, x, cos, sin, dtype,
+                                  moe_layer=moe_layer,
+                                  collect_cache=collect_cache)
 
-    def attend(p, x):
-        x, kv = run(attn_body, p, x)
+    def attend(p, x, moe_layer=False, key="kv"):
+        x, aux, kv = run(attn_body, p, x, moe_layer)
+        if moe_layer:
+            auxs.append(aux)
         if collect_cache:
-            ks.append(kv[0])
-            vs.append(kv[1])
+            kvs[key].append(kv)
         return x
 
     def mamba_body(p_l, x):
         y, st, conv = mam.mamba_block(cfg, p_l, x, dtype, return_state=True)
         return x + y, st, conv
 
-    for i, p_l in enumerate(layers):
-        if fam in _ATTN_ONLY:
-            x = attend(p_l, x)
-            continue
-        x, st, conv = run(mamba_body, p_l, x)
-        states.append(st)
-        convs.append(conv)
-        if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
-            x = attend(params["shared_attn"], x)     # the tied block
+    if fam in _ATTN_ONLY:
+        for stack, moe_layer in _stacks(cfg, params):
+            key = "kv" if stack is params["layers"] else "kv_dense"
+            for p_l in _layers(stack, cast):
+                x = attend(p_l, x, moe_layer, key)
+    else:
+        for i, p_l in enumerate(_layers(params["layers"], cast)):
+            x, st, conv = run(mamba_body, p_l, x)
+            states.append(st)
+            convs.append(conv)
+            if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x = attend(params["shared_attn"], x)     # the tied block
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head(cfg, params, x, dtype)
     caches: Dict[str, Any] = {}
@@ -347,29 +400,45 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
         caches["ssm"] = torch.stack(states)
         for n, per_layer in zip(_CONV, zip(*convs)):
             caches[n] = torch.stack(per_layer)
-    if collect_cache and ks:
-        caches["kv"] = (torch.stack(ks), torch.stack(vs))
-    return logits, 0.0, (caches if collect_cache or states else None)
+    for key, per_layer in kvs.items():
+        if per_layer:
+            caches[key] = tuple(torch.stack(t) for t in zip(*per_layer))
+    aux = torch.stack(auxs).sum() if auxs else 0.0
+    return logits, aux, (caches if collect_cache or states else None)
 
 
 def prefill_cache(cfg, caches, S: int) -> dict:
     """Reformat forward(collect_cache=True) output into the decode cache
     layout (same keys/shapes as cache_spec_defs). SWA archs keep the last
-    ``window`` positions — with window | S these land in ring order."""
-    _require_ported(cfg)
+    ``window`` positions, which land in the ring order decode writes
+    (position p at slot p % window) only when S <= window or window | S.
+    Any other S raises ``ValueError``: the JAX package keeps them in
+    prompt order there, and its decode then attends to the wrong keys
+    (its logits miss the full forward's by up to 4.87 on a smoke model);
+    the port refuses, as its ``decode_step`` refuses a position outside
+    the cache where JAX clamps."""
     win = cfg.swa_window
+    if win and S > win and S % win:
+        raise ValueError(f"a prompt of {S} tokens does not fill the "
+                         f"{win}-slot ring cache in ring order (it needs "
+                         f"S <= {win} or a multiple of {win})")
 
     def ring(t):                       # t: (L,B,S,KH,hd)
         if win and t.shape[2] > win:
             t = t[:, :, -win:]
-        return t.to(torch.bfloat16)
+        # contiguous: decode views each layer's cache as a page pool
+        return t.to(torch.bfloat16).contiguous()
 
     out = {}
     if cfg.family in ("ssm", "hybrid"):
         out["ssm"] = caches["ssm"].float()
         for n in _CONV:
             out[n] = caches[n].to(torch.bfloat16)
-    if cfg.family != "ssm":
+    if cfg.mla is not None:                # compressed latent cache
+        parts = [caches[n] for n in ("kv_dense", "kv") if n in caches]
+        out["ckv"] = torch.cat([c for c, _ in parts]).to(torch.bfloat16)
+        out["kr"] = torch.cat([r for _, r in parts]).to(torch.bfloat16)
+    elif cfg.family != "ssm":
         k, v = caches["kv"]
         out["k"], out["v"] = ring(k), ring(v)
     return out
@@ -380,7 +449,6 @@ def prefill_cache(cfg, caches, S: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def cache_spec_defs(cfg, max_len: int, batch: int) -> dict:
-    _require_ported(cfg)
     KH, hd = cfg.n_kv_heads, cfg.hd
     L = cfg.n_layers
     win = cfg.swa_window
@@ -402,7 +470,14 @@ def cache_spec_defs(cfg, max_len: int, batch: int) -> dict:
             defs[n] = ParamDef((L, batch, s.d_conv - 1, ns),
                                ("layers", "batch", None, "ssm_state"),
                                dtype="bfloat16")
-    if fam != "ssm":
+    if cfg.mla is not None:                # MLA: compressed latent cache
+        m = cfg.mla
+        ax = ("layers", "batch", "kv_seq", None)
+        defs["ckv"] = ParamDef((L, batch, S, m.kv_lora_rank), ax,
+                               dtype="bfloat16")
+        defs["kr"] = ParamDef((L, batch, S, m.qk_rope_head_dim), ax,
+                              dtype="bfloat16")
+    elif fam != "ssm":
         G = L // cfg.attn_every if fam == "hybrid" else L
         ax = ("layers", "batch", "kv_seq", "kv_heads", None)
         defs["k"] = ParamDef((G, batch, S, KH, hd), ax, dtype="bfloat16")
@@ -411,9 +486,9 @@ def cache_spec_defs(cfg, max_len: int, batch: int) -> dict:
 
 
 def init_cache(cfg, max_len, batch, *, device="cuda") -> dict:
-    """Zero cache (bf16 k/v and conv states, fp32 ssm state); a k/v
-    cache's sequence length must be a whole number of decode pages
-    (``PAGE_SIZE``)."""
+    """Zero cache (bf16 k/v, MLA ckv/kr and conv states, fp32 ssm state);
+    a k/v cache's sequence length must be a whole number of decode pages
+    (``PAGE_SIZE``); MLA's, read by no paged op, may be any length."""
     dev = resolve_device(device)
     defs = cache_spec_defs(cfg, max_len, batch)
     if "k" in defs and defs["k"].shape[2] % PAGE_SIZE:
@@ -425,8 +500,9 @@ def init_cache(cfg, max_len, batch, *, device="cuda") -> dict:
 
 def grow_cache(cfg, cache, max_len) -> dict:
     """The prefill cache (``prefill_cache``, sized to the prompt) in a zero
-    cache of ``max_len`` positions on the same device, for decode: k/v grow
-    along the sequence; the SSM and conv states carry as they are."""
+    cache of ``max_len`` positions on the same device, for decode: k/v and
+    MLA's ckv/kr grow along the sequence; the SSM and conv states carry as
+    they are."""
     some = next(iter(cache.values()))
     full = init_cache(cfg, max_len, some.shape[1], device=some.device)
     for n, t in cache.items():
@@ -481,17 +557,20 @@ def _decode_attn_block(cfg, p, x, kc, vc, pos, cos, sin, dtype, pages):
     return x + y[:, None]
 
 
-def _decode_ffn(cfg, p, x, dtype):
+def _decode_ffn(cfg, p, x, dtype, moe_layer=False):
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if moe_layer:
+        # route the whole token batch jointly (B plays the sequence role)
+        f, _ = moe_mod.moe_ffn(cfg, p["moe"], h2[:, 0][None], dtype)
+        return x + f[0][:, None]
     return x + mlp_apply(cfg, p["mlp"], h2, dtype)
 
 
 def decode_step(cfg, params, cache, tokens, pos: int):
     """One decode step. tokens: (B,1) int (audio: (B,1,K)); pos: the new
-    token's position. Writes the token's K/V and each layer's new SSM and
-    conv state into ``cache`` in place and returns (logits (B, V_padded)
-    (audio: (B, K, V_padded)), cache)."""
-    _require_ported(cfg)
+    token's position. Writes the token's K/V (MLA: its ckv and k_rope) and
+    each layer's new SSM and conv state into ``cache`` in place and returns
+    (logits (B, V_padded) (audio: (B, K, V_padded)), cache)."""
     dtype = cfg.compute_dt()
     pos = int(pos)
     B = tokens.shape[0]
@@ -516,20 +595,36 @@ def decode_step(cfg, params, cache, tokens, pos: int):
         cos, sin = mrope_cos_sin(p3, cfg.hd, cfg.rope_theta,
                                  cfg.mrope_sections)
     elif fam != "ssm":
-        cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), cfg.hd,
+        rope_dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
+            else cfg.hd
+        cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), rope_dim,
                                 cfg.rope_theta)
     if fam != "ssm":
-        Smax = cache["k"].shape[2]
+        Smax = cache["ckv" if cfg.mla is not None else "k"].shape[2]
         if not cfg.swa_window and not 0 <= pos < Smax:
             raise ValueError(f"position {pos} is outside the cache ({Smax})")
-        pages = identity_pages(B, Smax, pos, cfg.swa_window, dev)
+        if cfg.mla is None:
+            pages = identity_pages(B, Smax, pos, cfg.swa_window, dev)
 
-    def attend(p, x, g):
-        x = _decode_attn_block(cfg, p, x, cache["k"][g], cache["v"][g], pos,
-                               cos, sin, dtype, pages)
-        return _decode_ffn(cfg, p, x, dtype)
+    def attend(p, x, g, moe_layer=False):
+        if cfg.mla is not None:
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            y, _, _ = attn.mla_decode(p["attn"], h, cache["ckv"][g],
+                                      cache["kr"][g], pos, cos, sin, cfg,
+                                      dtype)
+            x = x + y
+        else:
+            x = _decode_attn_block(cfg, p, x, cache["k"][g], cache["v"][g],
+                                   pos, cos, sin, dtype, pages)
+        return _decode_ffn(cfg, p, x, dtype, moe_layer)
 
-    if fam not in _ATTN_ONLY:
+    if fam in _ATTN_ONLY:
+        g = 0                              # the layer's index in the cache
+        for stack, moe_layer in _stacks(cfg, params):
+            for p_l in _layers(stack):
+                x = attend(p_l, x, g, moe_layer)
+                g += 1
+    else:
         # JAX replaces each conv state by the step's output, whose dtype is
         # that of concatenating the cached (bf16) state with the compute
         # dtype: fp32 compute turns the conv states fp32 from the first step
@@ -537,19 +632,16 @@ def decode_step(cfg, params, cache, tokens, pos: int):
             want = torch.promote_types(cache[n].dtype, dtype)
             if cache[n].dtype != want:
                 cache[n] = cache[n].to(want)
-    for i, p_l in enumerate(_layers(params["layers"])):
-        if fam in _ATTN_ONLY:
-            x = attend(p_l, x, i)
-            continue
-        y, st, conv = mam.mamba_decode_block(
-            cfg, p_l, x, cache["ssm"][i], tuple(cache[n][i] for n in _CONV),
-            dtype)
-        x = x + y
-        cache["ssm"][i] = st
-        for n, t in zip(_CONV, conv):
-            cache[n][i] = t
-        if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
-            x = attend(params["shared_attn"], x, i // cfg.attn_every)
+        for i, p_l in enumerate(_layers(params["layers"])):
+            y, st, conv = mam.mamba_decode_block(
+                cfg, p_l, x, cache["ssm"][i],
+                tuple(cache[n][i] for n in _CONV), dtype)
+            x = x + y
+            cache["ssm"][i] = st
+            for n, t in zip(_CONV, conv):
+                cache[n][i] = t
+            if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x = attend(params["shared_attn"], x, i // cfg.attn_every)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head(cfg, params, x, dtype)                # (B,1,V[,K])
     return logits[:, 0], cache

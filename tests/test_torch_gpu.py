@@ -6,6 +6,9 @@ imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -195,6 +198,72 @@ def test_flash_kernel_refuses_misaligned_bf16_rows(cuda):
                     device=cuda)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
         flash_kernel.flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [(4, 512), (1, 513), (2, 130)])
+def test_flash_kernel_at_mla_head_dims(cuda, dtype, B, S):
+    """deepseek-v2-lite's prefill instance, q/k 192 and v 128 (16 heads,
+    causal, scale 1/sqrt(192)): output and lse against the plain version,
+    a ragged last tile at 513 and 130, two calls bit-identical."""
+    rng = np.random.default_rng(21)
+    q, k = (_rand(rng, (B, S, 16, 192), dtype, cuda) for _ in range(2))
+    v = _rand(rng, (B, S, 16, 128), dtype, cuda)
+    scale = 192 ** -0.5
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, scale=scale,
+                                              with_lse=True)
+    assert tuple(o.shape) == (B, S, 16, 128) and o.dtype == dtype
+    ref, lse_ref = flash_attention_fwd_ref(q, k, v, scale=scale)
+    _assert_close(o, ref, TOLS[dtype])
+    _assert_close(lse, lse_ref, LSE_TOL)
+    again = flash_kernel.flash_attention_fwd(q, k, v, scale=scale)
+    assert torch.equal(o, again)
+
+
+def test_flash_kernel_reads_mla_layouts(cuda):
+    """q/k/v as MLA builds them (k a cat of the per-head nope part and the
+    broadcast rope part, v a reshape of the latent's up-projection) and as
+    views into wider rows: the output of contiguous copies, bit for bit.
+    Other head-dim pairs are refused."""
+    rng = np.random.default_rng(22)
+    B, S, H, dt = 2, 200, 16, torch.bfloat16
+    kn = _rand(rng, (B, S, H, 128), dt, cuda)
+    kr = _rand(rng, (B, S, 1, 64), dt, cuda)
+    k = torch.cat([kn, kr.expand(B, S, H, 64)], -1)
+    v = (_rand(rng, (B, S, 64), dt, cuda)
+         @ _rand(rng, (64, H * 128), dt, cuda)).reshape(B, S, H, 128)
+    q = _rand(rng, (B, S, H, 192 + 8), dt, cuda)[..., :192]
+    wide_v = torch.zeros((B, S, H, 136), dtype=dt, device=cuda)
+    wide_v[..., :128] = v
+    want = flash_kernel.flash_attention_fwd(q.contiguous(), k, v)
+    assert torch.equal(flash_kernel.flash_attention_fwd(q, k, v), want)
+    assert torch.equal(flash_kernel.flash_attention_fwd(
+        q, k, wide_v[..., :128]), want)
+    _assert_close(want, flash_attention_fwd_ref(q, k, v)[0],
+                  TOLS[torch.bfloat16])
+    for hd, hdv in ((192, 64), (128, 192), (64, 128)):
+        with pytest.raises(ValueError, match="q/k"):
+            flash_kernel.flash_attention_fwd(
+                q[..., :hd].contiguous(), k[..., :hd].contiguous(),
+                torch.zeros((B, S, H, hdv), dtype=dt, device=cuda))
+
+
+def test_flash_op_at_mla_head_dims_refuses_a_gradient_on_card(cuda):
+    q = torch.zeros((1, 64, 2, 192), device=cuda, requires_grad=True)
+    v = torch.zeros((1, 64, 2, 128), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_ops.flash_attention(q, q.detach(), v)
+
+
+def test_mixtral_smoke_ring_cache_on_card(cuda):
+    """mixtral's smoke model (head_dim 32: the kernels take no 16; window
+    64) on the card decoding past its window through the paged kernel's
+    identity table over the 64-slot ring, each step within RING_TOL of a
+    full forward: ``chip_smoke.phase_ring_cache``, the one copy of this
+    check (its docstring says why every token goes to all 4 experts)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    chip_smoke.phase_ring_cache(cuda)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -13,7 +13,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + \
+    sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_roots(path):
@@ -41,7 +42,8 @@ import numpy as np, torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import lm
 from repro_torch.serve import ServeLoop
-for arch in ("stablelm-1.6b", "zamba2-2.7b"):     # dense; hybrid (SSD too)
+for arch in ("stablelm-1.6b", "zamba2-2.7b",      # dense; hybrid (SSD too)
+             "mixtral-8x22b", "deepseek-v2-lite-16b"):        # moe; MLA
     cfg = get_smoke_config(arch)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
