@@ -47,7 +47,9 @@ Phases (any failure raises, and the script exits nonzero):
    in bf16 and fp32 at S = 512, 513 and 130 with its lse, on MLA's
    layouts, two calls bit-identical); then mixtral's sliding-window ring
    cache: its smoke model (hd 32, window 64) decoding from a prompt of
-   128 to position 160 through the paged kernel, against the forward;
+   128 to position 160 through the paged kernel, against the forward,
+   and again at window 40 (a cache of 2.5 pages, wrapping at pos % 40)
+   from 80 to 120;
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
@@ -102,12 +104,14 @@ Phases (any failure raises, and the script exits nonzero):
    the port never calls, at the serving shapes (paged at the first and
    last decode lengths, 33 and 34 pages, with its cluster shape, also at
    qwen2-vl's and mixtral's G = 6; flash with its CTA shape, also at GQA
-   6:1, hd 128, and at deepseek-v2-lite's q/k 192, v 128; the SSD kernel
-   with its plan, also at a decode
+   6:1, hd 128, and at deepseek-v2-lite's q/k 192, v 128; paged and
+   flash at granite-34b's, yi-34b's and deepseek-67b's decode and
+   prefill; the SSD kernel with its plan, also at a decode
    step's chunk of one token, bound at the TF32 tensor-core rate or the
    bytes); each model's prefill and decode times; the train step's time
    and tokens/s of each training run, the flash backward at the training
-   shapes (stablelm's, qwen2-vl's, mixtral's) beside its bound and the
+   shapes (stablelm's, qwen2-vl's, mixtral's, deepseek-v2-lite's at q/k
+   192, v 128) beside its bound and the
    backward of
    ``scaled_dot_product_attention``, the flash forward at the training
    shape, and the SSD chunk kernel and its backward at zamba2's and
@@ -116,7 +120,8 @@ Phases (any failure raises, and the script exits nonzero):
    kernels' CTAs, registers and spills; no one PyTorch call computes
    it);
 5. where the time goes: ``torch.profiler`` over one prefill and eight
-   decode steps of each model, and over one train step of each training
+   decode steps of each model (of the three large dense configs,
+   granite-34b only), and over one train step of each training
    run (forward and backward, then the optimizer), device busy share,
    kernel time by kind, the SSD backward's kernels one by one and the MoE
    layers' time by stage (router, dispatch, experts, combine, shared).
@@ -195,7 +200,10 @@ FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
                 (2, 128, 8, 8, 32, 64), (1, 256, 2, 2, 64, 128)]
 PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
                 (1, 4, 4, 128, 64, 2),
-                (2, 16, 4, 128, 64, 5)]                # GQA, hd 128, pages of 64
+                (2, 16, 4, 128, 64, 5),                # GQA, hd 128, pages of 64
+                (4, 48, 1, 128, 16, 34),               # granite-34b: row tiles
+                (4, 56, 8, 128, 16, 34),               # yi-34b: G 7
+                (4, 64, 8, 128, 16, 34)]               # deepseek-67b: G 8
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
               (2, 64, 2, 64, 64, 64)]                  # B, S, nh, hp, ns, cl
 KERNELS = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
@@ -252,14 +260,34 @@ SSD_BWD_SLOW_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 200, 2, 64, 64, 200),
 # the serving runs: 4 prompts x 512 tokens (musicgen: 4 codebook streams a
 # position), 32 new tokens, one per model
 ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m", "qwen2-vl-2b",
-         "musicgen-large", "mixtral-8x22b", "deepseek-v2-lite-16b")
+         "musicgen-large", "mixtral-8x22b", "deepseek-v2-lite-16b",
+         "granite-34b", "yi-34b", "deepseek-67b")
 BATCH, PROMPT, NEW, MAX_LEN = 4, 512, 32, 544
 # depth cut for the card: mixtral-8x22b is 5.008 GB of bf16 weights a layer
 # (16 sub-experts of 3 x 6144 x 8192, attention 88.1 M), 56 layers 281 GB;
 # 12 layers and the embedding and head are 60.9 GB of the 80. The moe
 # family is initialised in bf16 (an fp32 init and a bf16 copy would not
 # fit: deepseek-v2-lite-16b is 63 GB in fp32), served at full width.
-SERVE_LAYERS = {"mixtral-8x22b": 12}
+# The three large dense configs likewise, in bf16 and cut in depth:
+# granite-34b 16 of 88 layers (13.34 GB; MQA, 48 query heads over one KV
+# head at hd 128, the paged kernel's 6 row tiles), yi-34b 12 of 60 (15.22
+# GB; GQA 7:1) and deepseek-67b 12 of 95 (19.97 GB; GQA 8:1).
+SERVE_LAYERS = {"mixtral-8x22b": 12, "granite-34b": 16, "yi-34b": 12,
+                "deepseek-67b": 12}
+# their kernels-line labels, query rows a KV head (G) and KV heads
+DENSE_LARGE = (("granite_34b", 48, 1), ("yi_34b", 7, 8),
+               ("deepseek_67b", 8, 8))
+# phase 5 profiles each served model but these two, whose decode runs the
+# paged kernel's one-tile path as qwen2-vl's and mixtral's do (granite's,
+# the row-tile path, is profiled)
+PROFILE_SKIP = ("yi-34b", "deepseek-67b")
+# any cache length (phase 3): stablelm generates this many tokens from the
+# same prompts with a cache of ANY_LEN positions (not whole pages) and of
+# MAX_LEN, and the tokens must be equal
+ANY_LEN, ANY_LEN_NEW = 530, 16
+# and on the card past such a length: mixtral's smoke ring cache (phase 2)
+# also with this window, 2.5 pages, so decode wraps at pos % 40
+RING_ANY_LEN = 40
 # first decode step vs a full forward, both bf16 compute through every
 # layer (different GEMM shapes, flash vs paged attention): logits agree to
 # within bf16 rounding carried through the layers, (atol, rtol) per family.
@@ -313,10 +341,13 @@ VLM_GRID_SERVE, VLM_GRID_TRAIN = (1, 16, 16), (1, 32, 32)
 # train_4k's sequence (configs/base.py), a global batch cut from 256 to 2;
 # mixtral-8x22b at 1 of 56 layers (2.906 G parameters: fp32 params, grads,
 # m and v at 16 B each are 46.5 GB; 2 layers would be 86.6 GB) and in one
-# microbatch (its config's 8 split the global batch of 256)
+# microbatch (its config's 8 split the global batch of 256);
+# deepseek-v2-lite-16b at 5 of 27 layers (its 1 dense layer and 4 MoE
+# layers, MLA in each: 2.840 G parameters, 45.4 GB of training state) in
+# one microbatch
 TRAIN_ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "mamba2-130m", "qwen2-vl-2b",
-               "musicgen-large", "mixtral-8x22b")
-TRAIN_LAYERS = {"mixtral-8x22b": 1}
+               "musicgen-large", "mixtral-8x22b", "deepseek-v2-lite-16b")
+TRAIN_LAYERS = {"mixtral-8x22b": 1, "deepseek-v2-lite-16b": 5}
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6
 # one step at full width and one group of layers (stablelm: 2 layers;
 # zamba2: attn_every Mamba2 layers and the tied block), the kernels vs
@@ -324,8 +355,9 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6
 # compute: the loss to 2e-3 relative and each gradient leaf to 2e-2
 # relative L2 (a few bf16 roundings, 2^-8 each)
 GRAD_ARCHS = ("stablelm-1.6b", "zamba2-2.7b", "qwen2-vl-2b",
-              "musicgen-large", "mixtral-8x22b")
-GRAD_LAYERS = {"mixtral-8x22b": 1}
+              "musicgen-large", "mixtral-8x22b", "deepseek-v2-lite-16b")
+# deepseek-v2-lite: its dense layer and one MoE layer, both MLA
+GRAD_LAYERS = {"mixtral-8x22b": 1, "deepseek-v2-lite-16b": 2}
 RESTART_ARCHS = ("stablelm-1.6b", "zamba2-2.7b")
 # the pager phase: real bf16 KV of a serving run's cache (every layer, every
 # sequence, 34 pages of 16 tokens) in a KVPager whose frames hold one
@@ -441,6 +473,12 @@ def phase_card_and_build():
         log(f"  flash bwd bf16 CTAs at hd {hd}: {flash_kernel.plan_bwd(hd)}")
     log(f"  flash fwd bf16 CTA at MLA's q/k 192, v 128: "
         f"{flash_kernel.plan(*flash_kernel.MLA_DIMS)}")
+    log(f"  flash bwd bf16 CTAs at MLA's q/k 192, v 128 (dK/dV in two "
+        f"passes): {flash_kernel.plan_bwd(*flash_kernel.MLA_DIMS)}")
+    for what, G in (("granite-34b", 48), ("yi-34b", 7), ("deepseek-67b", 8),
+                    ("qwen2-vl-2b / mixtral-8x22b", 6)):
+        log(f"  paged bf16 plan at {what}'s G {G}, hd 128, 34 pages: "
+            f"{paged_kernel.plan(34, lm.PAGE_SIZE, G, 128, torch.bfloat16)}")
     return name, count, smi_line
 
 
@@ -695,14 +733,18 @@ def check_flash_mla_layouts(rng, dev, B=BATCH, S=PROMPT, H=16):
 
 
 def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64,
-                    Sk=None):
+                    Sk=None, hdv=None):
     """The forward's output and lse against the plain forward's, then the
     backward kernel against the plain block-recompute backward on the
     same (q, k, v, o, lse, do), and a second call bit for bit against the
-    first. Returns the forward's and the backward's max abs errors."""
+    first; v's head dim is ``hdv`` (default ``hd``; MLA's (192, 128)).
+    Returns the forward's and the backward's max abs errors."""
     Sk = Sk or S
-    q, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(2))
-    k, v = (rand(rng, (B, Sk, KH, hd), dt, dev) for _ in range(2))
+    hdv = hdv or hd
+    q = rand(rng, (B, S, H, hd), dt, dev)
+    do = rand(rng, (B, S, H, hdv), dt, dev)
+    k = rand(rng, (B, Sk, KH, hd), dt, dev)
+    v = rand(rng, (B, Sk, KH, hdv), dt, dev)
     o, lse = flash_kernel.flash_attention_fwd(q, k, v, window=win,
                                               with_lse=True)
     if not torch.equal(o, flash_kernel.flash_attention_fwd(q, k, v,
@@ -710,7 +752,8 @@ def check_flash_bwd(rng, dev, B, S, H, KH, hd, dt, win=0, q_chunk=64,
         raise AssertionError("flash forward: writing lse changed the output")
     o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, window=win,
                                              q_chunk=q_chunk)
-    what = f"flash bwd B={B} S={S} Sk={Sk} H={H} KH={KH} hd={hd} " \
+    dims = f"hd={hd}" if hdv == hd else f"q/k {hd} v {hdv}"
+    what = f"flash bwd B={B} S={S} Sk={Sk} H={H} KH={KH} {dims} " \
         f"win={win} {str(dt)[6:]}"
     e_o = check_close(what + " forward", o, o_ref, TOLS[dt], TOLS[dt])
     e_lse = check_close(what + " lse", lse, lse_ref, LSE_TOL, LSE_TOL)
@@ -770,11 +813,85 @@ def check_flash_bwd_strided(rng, dev):
         f"err {max(errs):.3e}")
 
 
+def check_flash_bwd_mla_layouts(rng, dev, B=TRAIN_B, S=1024, H=16):
+    """The backward at deepseek-v2-lite's head dims on q/k/v laid out as
+    ``mla_prefill`` makes them (k a cat of the per-head nope part and the
+    broadcast rope part, v a reshape of the latent's up-projection, q a
+    view into rows of 200): bit for bit the gradients of contiguous
+    copies, and within TOLS of the plain backward. Returns the max abs
+    error."""
+    dt = torch.bfloat16
+    kn = rand(rng, (B, S, H, 128), dt, dev)
+    kr = rand(rng, (B, S, 1, 64), dt, dev)
+    k = torch.cat([kn, kr.expand(B, S, H, 64)], -1)
+    lat = rand(rng, (B, S, 512), dt, dev)
+    v = (lat @ rand(rng, (512, H * 128), dt, dev, 512 ** -0.5)) \
+        .reshape(B, S, H, 128)
+    q = rand(rng, (B, S, H, 192 + 8), dt, dev)[..., :192]
+    do = rand(rng, (B, S, H, 128), dt, dev)
+    scale = 192 ** -0.5
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, scale=scale,
+                                              with_lse=True)
+    want = flash_kernel.flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), o, lse, do,
+                                            scale=scale)
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, scale=scale)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("flash bwd MLA layouts: not the contiguous "
+                             "call's bits")
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
+                                  q_chunk=64)
+    e = max(check_close(f"flash bwd MLA layouts d{n}", a, b, TOLS[dt],
+                        TOLS[dt]) for n, a, b in zip("qkv", got, ref))
+    log(f"flash bwd MLA layouts q/k {(B, S, H, 192)} v 128 (k a cat with "
+        f"the broadcast rope part, v a reshape, q rows of 200): "
+        f"bit-identical to contiguous copies; vs plain max abs err {e:.3e}")
+    return e
+
+
 def paged_split_ref(q, kp, vp, table, lens):
-    n_split = paged_kernel.plan(table.shape[1], kp.shape[1],
-                                q.shape[1] // kp.shape[2], q.shape[2],
-                                q.dtype)["n_split"]
-    return paged_attention_split_ref(q, kp, vp, table, lens, n_split=n_split)
+    plan = paged_kernel.plan(table.shape[1], kp.shape[1],
+                             q.shape[1] // kp.shape[2], q.shape[2], q.dtype)
+    return paged_attention_split_ref(q, kp, vp, table, lens,
+                                     n_split=plan["n_split"],
+                                     row_tiles=plan["row_tiles"])
+
+
+def check_paged_row_tiles(rng, dev, G, KH, hd=128, page=lm.PAGE_SIZE,
+                          nblk=34):
+    """The query rows of a KV head in the kernel's row tiles (B 4, 34
+    pages of 16) against the plain version and the split-merge plain
+    version of the same tiles; a zero-length row equal to the mean of V
+    over the table's slots. Returns the largest error."""
+    B, dt = BATCH, torch.bfloat16
+    npool = B * nblk
+    q = rand(rng, (B, G * KH, hd), dt, dev)
+    kp = rand(rng, (npool, page, KH, hd), dt, dev)
+    vp = rand(rng, (npool, page, KH, hd), dt, dev)
+    table = torch.from_numpy(rng.permutation(npool).reshape(B, nblk)
+                             .astype(np.int32)).to(dev)
+    lens = torch.tensor([nblk * page - 1, 0, 300, 17], dtype=torch.int32,
+                        device=dev)
+    tol = TOLS[dt]
+    plain = paged_ops.paged_attention_ref(q, kp, vp, table, lens)
+    mean_v = vp[table[1].long()].float().reshape(nblk * page, KH, hd) \
+        .mean(0).repeat_interleave(G, dim=0)
+    plan = paged_kernel.plan(nblk, page, G, hd, dt)
+    out = paged_kernel.paged_attention(q, kp, vp, table, lens)
+    split = paged_attention_split_ref(q, kp, vp, table, lens,
+                                      n_split=plan["n_split"],
+                                      row_tiles=plan["row_tiles"])
+    what = f"paged row tiles G={G} KH={KH}"
+    worst = max(check_close(what, out, plain, tol, tol),
+                check_close(what + " vs split-merge plain", out, split,
+                            tol, tol),
+                check_close(what + " zero length vs mean of V", out[1],
+                            mean_v, tol, tol))
+    log(f"paged  row tiles G={G} KH={KH} hd={hd} ({plan['row_tiles']} "
+        f"tiles of {plan['rows_per_tile']}): vs plain and split-merge "
+        f"plain, a zero-length row vs the mean of V: max abs err "
+        f"{worst:.3e} (tol {tol})")
+    return worst
 
 
 def check_paged_permuted(rng, dev, B, H, KH, hd, page, nblk):
@@ -926,6 +1043,27 @@ def phase_kernels_vs_plain(dev):
     mla = {"flash_attention_fwd": max(check_flash_mla(rng, dev, BATCH, PROMPT,
                                                       torch.bfloat16),
                                       check_flash_mla_layouts(rng, dev))}
+    # deepseek-v2-lite's training: the flash backward at q/k 192, v 128
+    # (scale 1/sqrt(192) as the model passes it, the wrappers' default),
+    # ragged last tiles, GQA 4:1, MLA's layouts; two calls bit-identical
+    for dt in (torch.float32, torch.bfloat16):
+        for B, S, H, KH in ((1, 512, 16, 16), (1, 513, 16, 16),
+                            (2, 130, 16, 16), (2, 200, 8, 2)):
+            check_flash_bwd(rng, dev, B, S, H, KH, 192, dt, hdv=128)
+    check_flash_bwd_mla_layouts(rng, dev)
+    # granite-34b's, yi-34b's and deepseek-67b's decode: G = 48 over one
+    # KV head (6 row tiles of 8), 7 and 8 at hd 128, 34 pages of 16; and
+    # their prefill, the flash forward at the same heads
+    dense = {}
+    for label, G, KH in DENSE_LARGE:
+        check_paged_permuted(rng, dev, BATCH, G * KH, KH, 128,
+                             lm.PAGE_SIZE, 34)
+        dense[label] = {"paged_attention": max(
+            check_paged_row_tiles(rng, dev, G, KH),
+            check_paged_decode_lengths(rng, dev, G * KH, KH, 128)),
+            "flash_attention_fwd": check_flash(
+                rng, dev, BATCH, PROMPT, G * KH, KH, 128, torch.bfloat16)}
+    check_paged_row_tiles(rng, dev, 9, 2)        # tiles of 5 and 4
 
     # the SSD chunk kernel: the sweep of tests/test_kernels.py, a chunk of
     # one token (each decode step), a ragged 64-row tile, bf16 inputs
@@ -1054,8 +1192,18 @@ def phase_kernels_vs_plain(dev):
     mixtral["flash_attention_fwd train"], mixtral["flash_attention_bwd"] = \
         check_flash_bwd(rng, dev, TRAIN_B, TRAIN_S, 48, 8, 128,
                         torch.bfloat16, win=4096, q_chunk=512)
+    free_card()
+    # deepseek-v2-lite's training call: 16 heads at q/k 192, v 128, causal,
+    # 2 x 4096, fp32 then bf16
+    check_flash_bwd(rng, dev, TRAIN_B, TRAIN_S, 16, 16, 192, torch.float32,
+                    q_chunk=512, hdv=128)
+    free_card()
+    mla["flash_attention_fwd train"], mla["flash_attention_bwd"] = \
+        check_flash_bwd(rng, dev, TRAIN_B, TRAIN_S, 16, 16, 192,
+                        torch.bfloat16, q_chunk=512, hdv=128)
     torch.cuda.synchronize()
-    return errs, {"qwen2_vl": qwen, "mixtral": mixtral, "deepseek_mla": mla}
+    return errs, {"qwen2_vl": qwen, "mixtral": mixtral, "deepseek_mla": mla,
+                  **dense}
 
 
 # ---------------------------------------------------------------------------
@@ -1091,67 +1239,101 @@ def train_launches(cfg, steps):
             "ssd_chunk_bwd": ssd_calls * n}
 
 
-def phase_ring_cache(dev):
+def phase_ring_cache(dev, window=None, steps=33):
     """mixtral's sliding-window ring cache through the paged kernel's
-    identity table: the smoke config (window 64; head_dim 32, since the
-    kernels take no 16) in bf16, a prompt of 128 tokens, then decode steps
-    to position 160, past the window, each within RING_TOL of a full
-    forward. Every token goes to all 4 experts at capacity 8.0: with top-2
-    routing a near-tie that bf16 rounds one way in decode and the other in
-    the forward moves a token to another expert (on the card: 3.25 on one
-    row's logits), which says nothing of the ring.
-    ``tests/test_torch_gpu.py`` runs this function too."""
+    identity table: the smoke config (window 64, or ``window``; head_dim
+    32, since the kernels take no 16) in bf16, top-2 of 4 experts at
+    capacity 8.0 (no drops), a prompt of two windows, then ``steps``
+    decode steps, each within RING_TOL of a full forward. A window that
+    is not a whole number of pages (40: 3 pages a sequence) makes a cache
+    whose ring modulus, its logical length, is not the pages' length;
+    window + 1 steps then write every slot and wrap. A router
+    near-tie that bf16 rounds one way in the prefill or a decode step and
+    the other way in the forward moves a token to another expert, which
+    says nothing of the ring: the forward takes the prefill's and the
+    decode steps' routes (``MoERoutes``), and its own may differ from them
+    only by a near-tie (FLIP_GAPS; a wider gap fails). The gaps are
+    printed. ``tests/test_torch_gpu.py`` runs this function too."""
     cfg = get_smoke_config("mixtral-8x22b").replace(head_dim=32)
-    cfg = cfg.replace(moe=dataclasses.replace(
-        cfg.moe, top_k=cfg.moe.n_experts, capacity_factor=8.0))
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0),
+                      swa_window=window or cfg.swa_window)
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
                             device=dev)
-    S0, S1 = 128, 161
+    S0 = 2 * cfg.swa_window
+    S1 = S0 + steps
+    L, K = cfg.n_layers, cfg.moe.top_k
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, S1)).astype(np.int32)).to(dev)
     atol, rtol = RING_TOL
     before = {n: fn.launches for n, fn in KERNELS.items()}
     with torch.inference_mode():
-        full, _, _ = lm.forward(cfg, params, {"tokens": toks})
-        cache = lm.forward(cfg, params, {"tokens": toks[:, :S0]},
-                           collect_cache=True)[2]
+        with MoERoutes() as pre:
+            cache = lm.forward(cfg, params, {"tokens": toks[:, :S0]},
+                               collect_cache=True)[2]
         cache = lm.grow_cache(cfg, lm.prefill_cache(cfg, cache, S0), S1)
         if cache["k"].shape[2] != cfg.swa_window:
             raise AssertionError(f"ring cache of {cache['k'].shape[2]} "
                                  f"slots, not {cfg.swa_window}")
-        worst = 0.0
-        for pos in range(S0, S1):
-            lg, cache = lm.decode_step(cfg, params, cache,
-                                       toks[:, pos:pos + 1], pos)
-            worst = max(worst, check_close(
-                f"ring cache: decode at {pos} vs forward", lg,
-                full[:, pos], atol, rtol))
+        logits = []
+        with MoERoutes() as dec:
+            for pos in range(S0, S1):
+                lg, cache = lm.decode_step(cfg, params, cache,
+                                           toks[:, pos:pos + 1], pos)
+                logits.append(lg)
+
+        def as_served(i, probs, ids):         # layer i of the forward
+            ids = ids.clone()
+            ids[:, 0, :S0] = pre.calls[i][1][:, 0]
+            for pos in range(S0, S1):
+                ids[:, 0, pos] = dec.calls[(pos - S0) * L + i][1][0, 0]
+            return ids
+        with MoERoutes(force=as_served) as fwd:
+            full, _, _ = lm.forward(cfg, params, {"tokens": toks})
+        worst = max(check_close(f"ring cache: decode at {pos} vs forward",
+                                lg, full[:, pos], atol, rtol)
+                    for pos, lg in zip(range(S0, S1), logits))
     torch.cuda.synchronize()
+    if not len(pre.calls) == len(fwd.calls) == L or \
+            len(dec.calls) != L * (S1 - S0):
+        raise AssertionError(f"ring cache: {len(pre.calls)} / "
+                             f"{len(dec.calls)} / {len(fwd.calls)} router "
+                             f"calls")
+    forced = [as_served(i, probs, ids)[:, 0].reshape(-1, K)
+              for i, (probs, ids) in enumerate(fwd.calls)]
+    flips = route_flips(fwd.calls, forced, K,
+                        lambda t: t[:, 0].reshape(-1, t.shape[-1]),
+                        FLIP_GAPS[cfg.compute_dtype])
     n = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
     want = (2 * cfg.n_layers, cfg.n_layers * (S1 - S0))
     if (n["flash_attention_fwd"], n["paged_attention"]) != want:
         raise AssertionError(f"ring cache: launches {n}, not {want}")
     log(f"ring cache [mixtral-8x22b smoke, hd 32, window {cfg.swa_window}, "
-        f"top-{cfg.moe.top_k} of {cfg.moe.n_experts}, bf16]: prompt {S0}, "
+        f"top-{K} of {cfg.moe.n_experts}, bf16]: prompt {S0}, "
         f"decode steps {S0}..{S1 - 1} over the {cfg.swa_window}-slot ring "
-        f"through the paged kernel: max abs err vs the forward {worst:.3e} "
-        f"(atol {atol} rtol {rtol}); launches flash {want[0]}, paged "
-        f"{want[1]}")
+        f"({lm.whole_pages(cfg.swa_window) // lm.PAGE_SIZE} pages a "
+        f"sequence) through the paged kernel: max abs err vs the forward "
+        f"{worst:.3e} "
+        f"(atol {atol} rtol {rtol}); the forward took the served routes, "
+        f"its own differing in {len(flips)} of {L * 2 * S1} (layer, token) "
+        f"routes, all near-ties (relative gaps "
+        f"{[f'{g:.2e}' for _, _, g in flips]} <= "
+        f"{FLIP_GAPS[cfg.compute_dtype]:.2e}); launches flash {want[0]}, "
+        f"paged {want[1]}")
 
 
 def serve_config(arch):
-    """The served config: full width; the moe family with bf16 weights,
-    mixtral at SERVE_LAYERS' depth."""
+    """The served config: full width; the moe family and the configs cut
+    in depth with bf16 weights, at SERVE_LAYERS' depth."""
     cfg = get_config(arch)
-    if cfg.family == "moe":
+    if cfg.family == "moe" or arch in SERVE_LAYERS:
         cfg = cfg.replace(param_dtype="bfloat16",
                           n_layers=SERVE_LAYERS.get(arch, cfg.n_layers))
     return cfg
 
 
 def train_config(arch):
-    """The trained config: full width; mixtral at TRAIN_LAYERS' depth in
-    one microbatch."""
+    """The trained config: full width; mixtral and deepseek-v2-lite at
+    TRAIN_LAYERS' depth in one microbatch."""
     cfg = get_config(arch)
     if arch in TRAIN_LAYERS:
         cfg = cfg.replace(n_layers=TRAIN_LAYERS[arch], microbatches=1)
@@ -1252,7 +1434,34 @@ def phase_main_path(dev, arch):
         f"{same_second.numel()}")
     if cfg.family == "vlm":
         check_vlm_prefill_embeds(dev, arch, cfg, serve)
+    if arch == ARCHS[0]:
+        check_any_cache_length(arch, cfg, serve, prompts)
     return cfg, serve, prompts, launches
+
+
+def check_any_cache_length(arch, cfg, serve, prompts):
+    """A cache of ANY_LEN positions (not a whole number of pages: the
+    cache is allocated in whole pages and read through them) gives the
+    tokens of a cache of MAX_LEN: ``generate`` of ANY_LEN_NEW tokens from
+    the same prompts with each. Both caches are 34 pages a sequence and
+    decode stays below ANY_LEN, so this shows only that ``init_cache``'s
+    view of whole pages is read in place; the ring modulus at a logical
+    length that is not whole pages is ``phase_ring_cache`` at
+    RING_ANY_LEN's."""
+    out = {}
+    for n in (ANY_LEN, MAX_LEN):
+        serve.max_len = n
+        out[n] = serve.generate(prompts, ANY_LEN_NEW)
+    serve.max_len = MAX_LEN
+    torch.cuda.synchronize()
+    if not torch.equal(out[ANY_LEN], out[MAX_LEN]):
+        raise AssertionError(f"{arch}: tokens with a cache of {ANY_LEN} "
+                             f"differ from a cache of {MAX_LEN}")
+    log(f"main[{arch}]: a cache of {ANY_LEN} positions ({ANY_LEN} % "
+        f"{lm.PAGE_SIZE} = {ANY_LEN % lm.PAGE_SIZE}, allocated in "
+        f"{lm.whole_pages(ANY_LEN) // lm.PAGE_SIZE} pages a sequence): "
+        f"{ANY_LEN_NEW} generated tokens x {BATCH} prompts equal to a cache "
+        f"of {MAX_LEN}'s")
 
 
 class MoERoutes:
@@ -2053,17 +2262,22 @@ def time_flash(rng, dev, H, KH, hd, B=BATCH, S=PROMPT, with_lse=False,
     return ms, plain_ms, lib_ms, bnd
 
 
-def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64, KH=None):
+def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64, KH=None,
+                   hdv=None):
     """Device ms of the backward kernel at the training shape (causal,
     bf16), its plain version, the backward of SDPA (causal) and the
     bound: q/o/do, k/v (KH heads) and lse read once, dq, dk/dv written
-    once; five products over the causal pairs."""
+    once; five products over the causal pairs, S and dQ and dK over the
+    q/k head dim ``hd``, dP and dV over v's ``hdv`` (default ``hd``)."""
     dt = torch.bfloat16
     KH = KH or H
+    hdv = hdv or hd
     sets = []
     for _ in range(2):                               # 2 x >= 64 MB > L2
-        q, do = (rand(rng, (B, S, H, hd), dt, dev) for _ in range(2))
-        k, v = (rand(rng, (B, S, KH, hd), dt, dev) for _ in range(2))
+        q = rand(rng, (B, S, H, hd), dt, dev)
+        do = rand(rng, (B, S, H, hdv), dt, dev)
+        k = rand(rng, (B, S, KH, hd), dt, dev)
+        v = rand(rng, (B, S, KH, hdv), dt, dev)
         o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True)
         sets.append((q, k, v, o, lse, do))
     ms = cuda_ms(lambda i: flash_kernel.flash_attention_bwd(*sets[i]), 2, 5,
@@ -2072,23 +2286,29 @@ def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64, KH=None):
                        warmup=1)
     lib = []
     gqa = dict(enable_gqa=True) if KH != H else {}
-    for q, k, v, _, _, do in sets:
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             **gqa)
-        lib.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
-    lib_ms = cuda_ms(lambda i: torch.autograd.grad(
-        lib[i][0], lib[i][1], lib[i][2], retain_graph=True), 2, 10)
+    try:
+        for q, k, v, _, _, do in sets:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 **gqa)
+            lib.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
+        lib_ms, lib_note = cuda_ms(lambda i: torch.autograd.grad(
+            lib[i][0], lib[i][1], lib[i][2], retain_graph=True), 2, 10), ""
+    except RuntimeError as exc:           # no backend takes the shapes
+        lib_ms, lib_note = None, f" ({str(exc).splitlines()[0][:120]})"
     pairs = S * (S + 1) // 2
-    bnd = bound(4 * B * S * H * hd * 2 + 4 * B * S * KH * hd * 2
-                + B * H * S * 4, 5 * 2 * B * H * hd * pairs, dt)
-    log(f"  flash bwd q/o/do {(B, S, H, hd)} k/v {KH} heads bf16 causal: "
+    flops = 2 * B * H * (3 * hd + 2 * hdv) * pairs
+    bnd = bound(2 * B * S * H * (2 * hd + 2 * hdv)
+                + 4 * B * S * KH * (hd + hdv) + B * H * S * 4, flops, dt)
+    dims = f"hd {hd}" if hdv == hd else f"q/k {hd} v {hdv}"
+    log(f"  flash bwd q {(B, S, H)} {dims}, k/v {KH} heads bf16 causal: "
         f"kernel "
-        f"{ms:.4f} ms ({5 * 2 * B * H * hd * pairs / ms / 1e9:.1f} TFLOP/s "
-        f"of the five products; {flash_kernel.plan_bwd(hd)}), plain "
-        f"{plain_ms:.4f} ms, backward of sdpa {lib_ms:.4f} ms, bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]})")
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+        f"of the five products; {flash_kernel.plan_bwd(hd, hdv)}), plain "
+        f"{plain_ms:.4f} ms, backward of sdpa "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}{lib_note}, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     del lib
     return ms, plain_ms, lib_ms, bnd
 
@@ -2122,12 +2342,15 @@ def time_paged(rng, dev, H, KH, hd, length):
                 + table.numel() * 4 + lens.numel() * 4,
                 4 * B * H * hd * length, dt)
     plan = paged_kernel.plan(table.shape[1], lm.PAGE_SIZE, H // KH, hd, dt)
+    R = plan["row_tiles"]
     log(f"  paged  q {(B, H, hd)} over {table.shape[1]} pages x "
-        f"{lm.PAGE_SIZE}, length {length}, clusters of {plan['n_split']} "
+        f"{lm.PAGE_SIZE}, length {length}, {R} row tiles of "
+        f"{plan['rows_per_tile']} query rows, clusters of {plan['n_split']} "
         f"CTAs x {plan['pages_per_split']} pages ({plan['pages_per_stage']} "
         f"a stage, {plan['smem_bytes']} B shared), grid "
-        f"{plan['n_split'] * KH * B} CTAs, {KH * B} clusters of which "
-        f"{plan['max_active_clusters']} fit at once: kernel {ms:.4f} ms, plain "
+        f"{plan['n_split'] * KH * R * B} CTAs, {KH * R * B} clusters of "
+        f"which {plan['max_active_clusters']} fit at once: kernel {ms:.4f} "
+        f"ms, plain "
         f"{plain_ms:.4f} ms, sdpa over the dense cache {lib_ms:.4f} ms, "
         f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     return ms, plain_ms, lib_ms, bnd
@@ -2244,6 +2467,23 @@ def phase_kernel_times(dev):
     mixtral["flash_attention_bwd"] = time_flash_bwd(rng, dev, H=48, hd=128,
                                                     KH=8)
     free_card()
+    # deepseek-v2-lite's training call: the forward with lse and the
+    # backward at q/k 192, v 128, 16 heads, 2 x 4096
+    mla["flash_attention_fwd train"] = time_flash(
+        rng, dev, 16, 16, 192, B=TRAIN_B, S=TRAIN_S, with_lse=True, hdv=128)
+    free_card()
+    mla["flash_attention_bwd"] = time_flash_bwd(rng, dev, H=16, hd=192,
+                                                hdv=128)
+    free_card()
+    # the decode of granite-34b (48 query rows over one KV head: row
+    # tiles), yi-34b (G 7) and deepseek-67b (G 8), at the last decode
+    # length, and their prefill
+    dense = {}
+    for label, G, KH in DENSE_LARGE:
+        dense[label] = {"paged_attention": time_paged(
+            rng, dev, G * KH, KH, 128, MAX_LEN - 1),
+            "flash_attention_fwd": time_flash(rng, dev, G * KH, KH, 128)}
+    free_card()
     out["ssd_chunk_call"] = time_ssd(rng, dev, 80, 64, 64, PROMPT, 256,
                                      "zamba2-2.7b prefill")
     time_ssd(rng, dev, 24, 64, 128, PROMPT, 256, "mamba2-130m prefill")
@@ -2260,7 +2500,8 @@ def phase_kernel_times(dev):
     time_ssd_bwd(rng, dev, TRAIN_B, TRAIN_S, 24, 64, 128, 256,
                  "mamba2-130m train")
     free_card()
-    return out, {"qwen2_vl": qwen, "mixtral": mixtral, "deepseek_mla": mla}
+    return out, {"qwen2_vl": qwen, "mixtral": mixtral, "deepseek_mla": mla,
+                 **dense}
 
 
 def phase_serve_times(dev, arch, cfg, serve, prompts):
@@ -2431,12 +2672,14 @@ def main() -> int:
     errs, extra_errs = phase_kernels_vs_plain(dev)
     free_card()
     phase_ring_cache(dev)
+    phase_ring_cache(dev, window=RING_ANY_LEN, steps=RING_ANY_LEN + 1)
     free_card()
     launches, serve_times, pager = {}, {}, {}
     for arch in ARCHS:
         cfg, serve, prompts, launches[arch] = phase_main_path(dev, arch)
         serve_times[arch] = phase_serve_times(dev, arch, cfg, serve, prompts)
-        phase_profile(dev, arch, cfg, serve, prompts)
+        if arch not in PROFILE_SKIP:
+            phase_profile(dev, arch, cfg, serve, prompts)
         if arch in PAGER_ARCHS:
             free_card()
             launches[f"pager {arch}"], pager[arch] = phase_pager(
@@ -2497,7 +2740,8 @@ def main() -> int:
                          train_library_ms=t_lib, train_bound_ms=t_bound,
                          train_max_abs_err=errs[f"{kname} train"])
         # the other serving and training shapes: qwen2-vl's and mixtral's
-        # GQA 6:1 at hd 128, deepseek-v2-lite's MLA head dims
+        # GQA 6:1 at hd 128, deepseek-v2-lite's MLA head dims (prefill and
+        # training), granite-34b's, yi-34b's and deepseek-67b's decode
         for label, tms in extra_times.items():
             sub = {}
             if kname in tms:

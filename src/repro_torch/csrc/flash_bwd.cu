@@ -6,8 +6,9 @@
 //           csrc/flash_fwd.cu replaces).
 //
 // Computes the gradient of causal and/or sliding-window attention with GQA
-// from (q, k, v, o, lse, do): q, o, do are (B, S, H, hd), k and v
-// (B, Sk, KH, hd), all read through their strides (the last dim must be
+// from (q, k, v, o, lse, do): q is (B, S, H, hd), o and do (B, S, H, hd_v),
+// k (B, Sk, KH, hd) and v (B, Sk, KH, hd_v), with hd_v = hd or MLA's pair
+// (hd 192, hd_v 128), all read through their strides (the last dim must be
 // contiguous); lse is the forward's (B, H, S) fp32 log-sum-exp of the scaled
 // scores. With D = rowsum(do * o), for every (q row, key) the mask allows:
 //   p = exp(scale q.k - lse),  dv += p do,  dp = do.v,
@@ -55,12 +56,27 @@
 // the price of no atomics. Tiles that the mask discards entirely are never
 // computed; rows >= S and keys >= Sk are masked (p = 0) and not stored.
 // Heavy tiles launch first (early k tiles; late q tiles). The bf16 kernels
-// serve head dims 32, 64, 80 (64 + 16 column blocks) and 128; the CTA
+// serve head dims 32, 64, 80 (64 + 16 column blocks) and 128, and
+// MLA's (192, 128) (below); the CTA
 // shapes and ring depths were chosen by timing on the card (PERF.md) and
 // are compile-time constants below. In the fp32 kernels a thread of the
 // 256 owns a 4 x 4 block of each 64 x 64 score tile (rows ty + 16 i, keys
 // tx + 16 j) and 4 x hd/16 of each output tile; tiles are fp32 in shared
 // memory with odd row strides (hd + 1), so no warp's loads conflict.
+//
+// MLA's (192, 128) (deepseek-v2-lite's training): every kernel is
+// templated on (HD, HDV), the q/k and the v head dims; q and K tiles take
+// HD columns, V and dO HDV (in bf16, q and K are 3 column blocks of 128
+// bytes, V and dO 2). The bf16 dK/dV kernel cannot hold dK (96 floats a
+// thread at 192 columns) beside dV (64), S^T and dP^T (32 each) under its
+// 240 registers, so at HD + HDV > 256 its consumers run two passes over
+// the same q tiles: dV (S^T, P^T, dV += P^T dO), stored, then dK (S^T and
+// dP^T again, dS^T, dK += dS^T Q), stored. The producer streams the ring
+// twice; K and V stay in shared memory. That is one more S^T product a
+// tile (6 products in dK/dV, 8 in all at this pair), and the sums and
+// their order are those of one pass, so the bits do not depend on it.
+// The fp32 tiles at (192, 128) take 206,336 bytes in dK/dV and 185,856 in
+// dQ.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -104,15 +120,18 @@ __host__ __device__ constexpr size_t tile_floats() {
   return size_t(BQ) * (HD + 1);   // a q or k tile of hd columns
 }
 
-template <int HD>
+// HD: the q/k head dim; HDV: the v head dim (Q and K tiles take HD + 1
+// floats a row, V and dO HDV + 1)
+template <int HD, int HDV>
 constexpr size_t dkdv_smem_bytes() {     // K, V, Q, dO, P, dS, lse, D
-  return sizeof(float) * (4 * tile_floats<HD>() + 2 * size_t(BQ) * PS +
-                          2 * BQ);
+  return sizeof(float) * (2 * tile_floats<HD>() + 2 * tile_floats<HDV>() +
+                          2 * size_t(BQ) * PS + 2 * BQ);
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dq_smem_bytes() {       // Q, dO, K, V, dS, lse, D
-  return sizeof(float) * (4 * tile_floats<HD>() + size_t(BQ) * PS + 2 * BQ);
+  return sizeof(float) * (2 * tile_floats<HD>() + 2 * tile_floats<HDV>() +
+                          size_t(BQ) * PS + 2 * BQ);
 }
 
 // 64 rows of hd columns from row r0 of a (rows, hd) view with row stride
@@ -138,35 +157,39 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* D_s,
   }
 }
 
-// s = Q K^T and dp = dO V^T for this thread's 4 x 4 block (q rows
-// ty + 16 i, keys tx + 16 j) of the 64 x 64 tile
-template <int HD>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       int ty, int tx, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
+// a (4 x 4) block of a b^T over N columns: rows ty + 16 i of a, tx + 16 j
+// of b, tiles with row stride N + 1
+template <int N>
+__device__ __forceinline__ void block_dot(const float* A, const float* Bt,
+                                          int ty, int tx, float (&d)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float qv[4], dov[4], kv[4], vv[4];
+  for (int c = 0; c < N; ++c) {
+    float av[4], bv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * (HD + 1) + d];
-      dov[i] = dOs[(ty + 16 * i) * (HD + 1) + d];
-      kv[i] = Ks[(tx + 16 * i) * (HD + 1) + d];
-      vv[i] = Vs[(tx + 16 * i) * (HD + 1) + d];
+      av[i] = A[(ty + 16 * i) * (N + 1) + c];
+      bv[i] = Bt[(tx + 16 * i) * (N + 1) + c];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
+      for (int j = 0; j < 4; ++j) d[i][j] = fmaf(av[i], bv[j], d[i][j]);
   }
+}
+
+// s = Q K^T (over HD) and dp = dO V^T (over HDV) for this thread's 4 x 4
+// block (q rows ty + 16 i, keys tx + 16 j) of the 64 x 64 tile
+template <int HD, int HDV>
+__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
+                                       const float* Ks, const float* Vs,
+                                       int ty, int tx, float (&s)[4][4],
+                                       float (&dp)[4][4]) {
+  block_dot<HD>(Qs, Ks, ty, tx, s);
+  block_dot<HDV>(dOs, Vs, ty, tx, dp);
 }
 
 // p and ds of this thread's block into shared memory (P only if Ps)
@@ -216,7 +239,7 @@ __global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
 }
 
 // one CTA per (k tile, KV head, b): dK and dV of its 64 keys
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS, HD <= 64 ? 2 : 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -224,13 +247,14 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ D, float* __restrict__ dk,
                       float* __restrict__ dv, Args a) {
-  constexpr int NJ = HD / 16;              // output columns a thread
+  constexpr int NJ = HD / 16;              // dK columns a thread
+  constexpr int NJV = HDV / 16;            // dV columns a thread
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + tile_floats<HD>();
-  float* Qs = Vs + tile_floats<HD>();
+  float* Qs = Vs + tile_floats<HDV>();
   float* dOs = Qs + tile_floats<HD>();
-  float* Ps = dOs + tile_floats<HD>();
+  float* Ps = dOs + tile_floats<HDV>();
   float* dSs = Ps + BQ * PS;
   float* lse_s = dSs + BQ * PS;
   float* D_s = lse_s + BQ;
@@ -240,7 +264,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * BK;          // early keys (most work) first
   const int G = a.H / a.KH;
   load_tile<HD>(Ks, k + b * a.k_sb + kh * a.k_sh, a.k_ss, k0, a.Sk);
-  load_tile<HD>(Vs, v + b * a.v_sb + kh * a.v_sh, a.v_ss, k0, a.Sk);
+  load_tile<HDV>(Vs, v + b * a.v_sb + kh * a.v_sh, a.v_ss, k0, a.Sk);
 
   // the q tiles whose rows may see one of keys k0 .. k_last
   const int k_last = min(k0 + BK, a.Sk) - 1;
@@ -248,11 +272,14 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int it_hi = (a.S + BQ - 1) / BQ - 1;
   if (a.window) it_hi = min(it_hi, (k_last + a.window - 1) / BQ);
 
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  float dk_acc[4][NJ], dv_acc[4][NJV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJV; ++j) dv_acc[i][j] = 0.f;
+  }
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
@@ -264,12 +291,12 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int q0 = it * BQ;
       __syncthreads();                     // the previous tile is consumed
       load_tile<HD>(Qs, qb, a.q_ss, q0, a.S);
-      load_tile<HD>(dOs, dob, a.do_ss, q0, a.S);
+      load_tile<HDV>(dOs, dob, a.do_ss, q0, a.S);
       load_rows(lse_s, D_s, lb, Db, q0, a.S);
       __syncthreads();
 
       float s[4][4], dp[4][4];
-      scores<HD>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+      scores<HD, HDV>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
       softmax_grad(a, q0, k0, ty, tx, s, dp, lse_s, D_s, Ps, dSs);
       __syncthreads();
 
@@ -283,14 +310,18 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           dsv[i] = dSs[r * PS + ty + 16 * i];
         }
 #pragma unroll
+        for (int j = 0; j < NJV; ++j) {
+          const float dov = dOs[r * (HDV + 1) + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dv_acc[i][j] = fmaf(pv[i], dov, dv_acc[i][j]);
+        }
+#pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float dov = dOs[r * (HD + 1) + tx + 16 * j];
           const float qv = Qs[r * (HD + 1) + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][j] = fmaf(pv[i], dov, dv_acc[i][j]);
+          for (int i = 0; i < 4; ++i)
             dk_acc[i][j] = fmaf(dsv[i], qv, dk_acc[i][j]);
-          }
         }
       }
     }
@@ -302,15 +333,15 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (gk >= a.Sk) continue;
     const long long row = ((long long)b * a.Sk + gk) * a.KH + kh;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[row * HD + tx + 16 * j] = dk_acc[i][j];
-      dv[row * HD + tx + 16 * j] = dv_acc[i][j];
-    }
+    for (int j = 0; j < NJ; ++j) dk[row * HD + tx + 16 * j] = dk_acc[i][j];
+#pragma unroll
+    for (int j = 0; j < NJV; ++j)
+      dv[row * HDV + tx + 16 * j] = dv_acc[i][j];
   }
 }
 
 // one CTA per (q tile, q head, b): dQ of its 64 rows
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS, HD <= 64 ? 2 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
@@ -321,9 +352,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + tile_floats<HD>();
-  float* Ks = dOs + tile_floats<HD>();
+  float* Ks = dOs + tile_floats<HDV>();
   float* Vs = Ks + tile_floats<HD>();
-  float* dSs = Vs + tile_floats<HD>();
+  float* dSs = Vs + tile_floats<HDV>();
   float* lse_s = dSs + BQ * PS;
   float* D_s = lse_s + BQ;
 
@@ -334,7 +365,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * a.k_sb + kh * a.k_sh;
   const float* vb = v + b * a.v_sb + kh * a.v_sh;
   load_tile<HD>(Qs, q + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-  load_tile<HD>(dOs, dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0, a.S);
+  load_tile<HDV>(dOs, dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0, a.S);
   load_rows(lse_s, D_s, lse + ((long long)b * a.H + h) * a.S,
             D + ((long long)b * a.H + h) * a.S, q0, a.S);
 
@@ -354,11 +385,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = jt * BK;
     __syncthreads();                       // the previous tile is consumed
     load_tile<HD>(Ks, kb, a.k_ss, k0, a.Sk);
-    load_tile<HD>(Vs, vb, a.v_ss, k0, a.Sk);
+    load_tile<HDV>(Vs, vb, a.v_ss, k0, a.Sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
-    scores<HD>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    scores<HD, HDV>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
     softmax_grad(a, q0, k0, ty, tx, s, dp, lse_s, D_s, nullptr, dSs);
     __syncthreads();
 
@@ -401,7 +432,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Every bf16 tile in shared memory is 64 rows (q rows or keys) of hd
 // columns, written by TMA from the tensor's own strides, in column blocks
 // of one swizzle width each (a row of 128, 64 or 32 bytes): hd 32 = 32;
-// 64 = 64; 80 = 64 + 16; 128 = 64 + 64. Block c of a tile sits at byte
+// 64 = 64; 80 = 64 + 16; 128 = 64 + 64; 192 = 64 + 64 + 64. Block c of a
+// tile sits at byte
 // 64 * off(c) * 2. As a K-major operand (the first products: Q, K, V, dO
 // with hd the reduced dimension) a k-step is 16 columns inside a block; as
 // the MN-major B operand (the second products: dO, Q, K with the rows
@@ -445,7 +477,7 @@ __host__ __device__ __forceinline__ int tile_kind(const Args& a, int q0,
 }
 
 struct TmaMaps {                           // one box shape per column block
-  CUtensorMap q[2], k[2], v[2], dout[2];
+  CUtensorMap q[3], k[3], v[3], dout[3];
 };
 
 // a plain copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
@@ -515,19 +547,26 @@ __device__ __forceinline__ void ss_product(float* d, uint32_t a, uint32_t b) {
 }
 
 // acc (64 x hd) += p (64 x 64, packed bf16 registers) b (a tile read
-// MN-major, 16 of its rows a step)
+// MN-major, 16 of its rows a step), one product a column block
 template <int HD>
 __device__ __forceinline__ void rs_product(float* acc, const uint32_t (*p)[4],
                                            uint32_t b) {
   using C = Cols<HD>;
-  constexpr int rb0 = C::width(0) * 2, rb1 = C::width(1) * 2;
 #pragma unroll
   for (int kc = 0; kc < T_ROWS / 16; ++kc) {
-    wgmma_rs<C::width(0)>(acc, p[kc], gmma_desc(b + 16 * kc * rb0, rb0));
-    if constexpr (C::NB == 2)
+    wgmma_rs<C::width(0)>(acc, p[kc],
+                          gmma_desc(b + 16 * kc * C::width(0) * 2,
+                                    C::width(0) * 2));
+    if constexpr (C::NB >= 2)
       wgmma_rs<C::width(1)>(
           acc + C::off(1) / 2, p[kc],
-          gmma_desc(b + T_ROWS * C::off(1) * 2 + 16 * kc * rb1, rb1));
+          gmma_desc(b + T_ROWS * C::off(1) * 2 + 16 * kc * C::width(1) * 2,
+                    C::width(1) * 2));
+    if constexpr (C::NB == 3)
+      wgmma_rs<C::width(2)>(
+          acc + C::off(2) / 2, p[kc],
+          gmma_desc(b + T_ROWS * C::off(2) * 2 + 16 * kc * C::width(2) * 2,
+                    C::width(2) * 2));
   }
 }
 
@@ -567,18 +606,24 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long rs,
   }
 }
 
-template <int HD>
+// HD: the q/k head dim (Q and K tiles); HDV: the v head dim (V and dO)
+template <int HD, int HDV>
 constexpr size_t dkdv_wg_smem_bytes() {    // K, V; the ring; barriers
-  return 1024 + size_t(4) * Tile<HD>::BYTES +
-         size_t(KV_STAGES) * (2 * Tile<HD>::BYTES + 1024) +
+  return 1024 + size_t(2) * (Tile<HD>::BYTES + Tile<HDV>::BYTES) +
+         size_t(KV_STAGES) * (Tile<HD>::BYTES + Tile<HDV>::BYTES + 1024) +
          8 * (2 * KV_STAGES + 1);
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dq_wg_smem_bytes() {      // Q, dO; the ring; barriers
-  return 1024 + size_t(2) * Tile<HD>::BYTES +
-         size_t(Q_STAGES) * 2 * Tile<HD>::BYTES + 8 * (2 * Q_STAGES + 1);
+  return 1024 + size_t(Tile<HD>::BYTES + Tile<HDV>::BYTES) +
+         size_t(Q_STAGES) * (Tile<HD>::BYTES + Tile<HDV>::BYTES) +
+         8 * (2 * Q_STAGES + 1);
 }
+
+// the dK/dV consumers' passes: both sums in one pass, or (where dK and dV
+// together do not fit the registers, HD + HDV > 256) dV, then dK
+enum DkdvPass { PASS_BOTH = 0, PASS_DV = 1, PASS_DK = 2 };
 
 // P^T of a 64-key x 64-row tile in place of S^T: p = exp2(s scale
 // log2 e - lse log2 e). This thread's keys are its rows key_a, key_a + 8,
@@ -680,14 +725,85 @@ __global__ void flash_bwd_prep_bf16_kernel(const __nv_bfloat16* __restrict__ o,
   }
 }
 
+// one consumer warpgroup's pass over every q tile of the ring (its
+// index i runs on across passes): S^T = K Q^T and, for dK, dP^T = V dO^T
+// (SS), P^T and dS^T in registers, then dV += P^T dO and/or dK += dS^T Q
+// (RS)
+template <int HD, int HDV, int PASS>
+__device__ __forceinline__ void dkdv_pass(
+    const Args& a, float* dk_acc, float* dv_acc, uint32_t my_k,
+    uint32_t my_v, uint32_t ring, const unsigned char* smem_base,
+    uint32_t bars, int G, int it_lo, int it_hi, int kw, int key_a, int t,
+    int lane, int& i) {
+  constexpr int STAGE = Tile<HD>::BYTES + Tile<HDV>::BYTES + 1024;
+  const float scale2 = a.scale * LOG2E;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (KV_STAGES + s); };
+  for (int gh = 0; gh < G; ++gh) {
+    for (int it = it_lo; it <= it_hi; ++it, ++i) {
+      const int s = i % KV_STAGES;
+      const int q0 = it * T_ROWS;
+      mbar_wait(full(s), (i / KV_STAGES) & 1);
+      __syncwarp();                        // wgmma wants converged warps
+      const int kind = tile_kind(a, q0, T_ROWS, kw, T_ROWS);
+      if (kind != TILE_SKIPPED) {
+        const uint32_t q_t = ring + s * STAGE;
+        const uint32_t do_t = q_t + Tile<HD>::BYTES;
+        const float* l2 = reinterpret_cast<const float*>(
+            smem_base + s * STAGE + Tile<HD>::BYTES + Tile<HDV>::BYTES);
+        float st[32], dpt[32];
+#pragma unroll
+        for (int n = 0; n < 32; ++n) st[n] = dpt[n] = 0.f;
+        wgmma_fence();
+        ss_product<HD>(st, my_k, q_t);     // S^T = K Q^T
+        wgmma_commit();
+        if constexpr (PASS != PASS_DV) {
+          ss_product<HDV>(dpt, my_v, do_t);  // dP^T = V dO^T
+          wgmma_commit();
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_regs<32>(st);
+        if (kind == TILE_EDGE)
+          probs_t<true>(a, st, l2, scale2, q0, key_a, t);
+        else
+          probs_t<false>(a, st, l2, scale2, q0, key_a, t);
+        uint32_t pa[4][4], sa[4][4];
+        if constexpr (PASS == PASS_DV) {
+          pack_a(pa, st);
+        } else {
+          wgmma_wait<0>();
+          fence_regs<32>(dpt);
+          dgrad_t(st, dpt, l2 + 64, a.scale, t);
+          if constexpr (PASS == PASS_BOTH) pack_a(pa, st);
+          pack_a(sa, dpt);
+        }
+        wgmma_fence();
+        if constexpr (PASS != PASS_DK)
+          rs_product<HDV>(dv_acc, pa, do_t);  // dV += P^T dO
+        if constexpr (PASS != PASS_DV)
+          rs_product<HD>(dk_acc, sa, q_t);    // dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();
+        if constexpr (PASS != PASS_DK) fence_regs<HDV / 2>(dv_acc);
+        if constexpr (PASS != PASS_DV) fence_regs<HD / 2>(dk_acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));  // the stage may be refilled
+    }
+  }
+}
+
 // one CTA per (128 keys, KV head, b): two consumer warpgroups of 64 keys
 // and a producer warpgroup. K and V of the CTA's keys arrive once; the
 // producer streams, for each of the G query heads, the 64-row q tiles that
 // meet the keys' mask through a ring of KV_STAGES stages (Q, dO, and the
-// rows' lse log2 e and D). Each warpgroup computes S^T = K Q^T and
-// dP^T = V dO^T (SS), P^T and dS^T in registers, then dV += P^T dO and
-// dK += dS^T Q (RS); both warpgroups read the same stage.
-template <int HD>
+// rows' lse log2 e and D), once a pass. Each warpgroup runs dkdv_pass on
+// its 64 keys (both warpgroups read the same stage); at HD + HDV > 256 it
+// runs the dV pass and the dK pass one after the other, so that only one
+// of the two accumulators is live at a time.
+template <int HD, int HDV>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ TmaMaps maps,
                             const float* __restrict__ L2,
@@ -695,13 +811,15 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ TmaMaps maps,
                             __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, const Args a,
                             int s_pad) {
-  constexpr int TB = Tile<HD>::BYTES;
-  constexpr int STAGE = 2 * TB + 1024;     // Q, dO, lse log2 e and D
+  constexpr int TBK = Tile<HD>::BYTES;     // a Q or K tile
+  constexpr int TBV = Tile<HDV>::BYTES;    // a dO or V tile
+  constexpr int STAGE = TBK + TBV + 1024;  // Q, dO, lse log2 e and D
+  constexpr bool TWO_PASS = HD + HDV > 256;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t k_s = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t v_s = k_s + 2 * TB;
-  const uint32_t ring = v_s + 2 * TB;
+  const uint32_t v_s = k_s + 2 * TBK;
+  const uint32_t ring = v_s + 2 * TBV;
   const uint32_t bars = ring + KV_STAGES * STAGE;
   const uint32_t kv_bar = bars + 16 * KV_STAGES;
   auto full = [&](int s) { return bars + 8 * s; };
@@ -735,25 +853,29 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ TmaMaps maps,
     // producer: K and V, then Q/dO/lse/D stages as the ring frees them
     setmaxnreg_dec<24>();
     if (warp == 8 && lane == 0) {
-      mbar_expect_tx(kv_bar, 4 * TB);
+      mbar_expect_tx(kv_bar, 2 * (TBK + TBV));
       for (int w = 0; w < 2; ++w) {
-        Tile<HD>::load(k_s + w * TB, maps.k, kv_bar, kh, k0 + T_ROWS * w, b);
-        Tile<HD>::load(v_s + w * TB, maps.v, kv_bar, kh, k0 + T_ROWS * w, b);
+        Tile<HD>::load(k_s + w * TBK, maps.k, kv_bar, kh, k0 + T_ROWS * w, b);
+        Tile<HDV>::load(v_s + w * TBV, maps.v, kv_bar, kh, k0 + T_ROWS * w,
+                        b);
       }
       int i = 0;
-      for (int gh = 0; gh < G; ++gh) {
-        const int h = kh * G + gh;
-        const float* l2 = L2 + ((long long)b * a.H + h) * s_pad;
-        const float* dd = Dd + ((long long)b * a.H + h) * s_pad;
-        for (int it = it_lo; it <= it_hi; ++it, ++i) {
-          const int s = i % KV_STAGES;
-          if (i >= KV_STAGES) mbar_wait(empty(s), ((i / KV_STAGES) - 1) & 1);
-          mbar_expect_tx(full(s), 2 * TB + 512);
-          const uint32_t st = ring + s * STAGE;
-          Tile<HD>::load(st, maps.q, full(s), h, it * T_ROWS, b);
-          Tile<HD>::load(st + TB, maps.dout, full(s), h, it * T_ROWS, b);
-          bulk_load(st + 2 * TB, l2 + it * T_ROWS, 256, full(s));
-          bulk_load(st + 2 * TB + 256, dd + it * T_ROWS, 256, full(s));
+      for (int pass = 0; pass < (TWO_PASS ? 2 : 1); ++pass) {
+        for (int gh = 0; gh < G; ++gh) {
+          const int h = kh * G + gh;
+          const float* l2 = L2 + ((long long)b * a.H + h) * s_pad;
+          const float* dd = Dd + ((long long)b * a.H + h) * s_pad;
+          for (int it = it_lo; it <= it_hi; ++it, ++i) {
+            const int s = i % KV_STAGES;
+            if (i >= KV_STAGES)
+              mbar_wait(empty(s), ((i / KV_STAGES) - 1) & 1);
+            mbar_expect_tx(full(s), TBK + TBV + 512);
+            const uint32_t st = ring + s * STAGE;
+            Tile<HD>::load(st, maps.q, full(s), h, it * T_ROWS, b);
+            Tile<HDV>::load(st + TBK, maps.dout, full(s), h, it * T_ROWS, b);
+            bulk_load(st + TBK + TBV, l2 + it * T_ROWS, 256, full(s));
+            bulk_load(st + TBK + TBV + 256, dd + it * T_ROWS, 256, full(s));
+          }
         }
       }
     }
@@ -763,63 +885,45 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ TmaMaps maps,
     const int g = lane >> 2, t = lane & 3;
     const int kw = k0 + T_ROWS * wg;       // this warpgroup's first key
     const int key_a = kw + 16 * wi + g;    // this thread's two keys
-    const uint32_t my_k = k_s + wg * TB, my_v = v_s + wg * TB;
-    const float scale2 = a.scale * LOG2E;
-
-    float dk_acc[HD / 2], dv_acc[HD / 2];
-#pragma unroll
-    for (int n = 0; n < HD / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+    const uint32_t my_k = k_s + wg * TBK, my_v = v_s + wg * TBV;
     mbar_wait(kv_bar, 0);
-
+    const long long base = (long long)b * a.Sk * a.KH + kh;   // row, head
     int i = 0;
-    for (int gh = 0; gh < G; ++gh) {
-      for (int it = it_lo; it <= it_hi; ++it, ++i) {
-        const int s = i % KV_STAGES;
-        const int q0 = it * T_ROWS;
-        mbar_wait(full(s), (i / KV_STAGES) & 1);
-        __syncwarp();                      // wgmma wants converged warps
-        const int kind = tile_kind(a, q0, T_ROWS, kw, T_ROWS);
-        if (kind != TILE_SKIPPED) {
-          const uint32_t q_t = ring + s * STAGE, do_t = q_t + TB;
-          const float* l2 = reinterpret_cast<const float*>(
-              smem_base + s * STAGE + 2 * TB);
-          float st[32], dpt[32];
+    if constexpr (TWO_PASS) {
+      {
+        float dv_acc[HDV / 2];
 #pragma unroll
-          for (int n = 0; n < 32; ++n) st[n] = dpt[n] = 0.f;
-          wgmma_fence();
-          ss_product<HD>(st, my_k, q_t);   // S^T = K Q^T
-          wgmma_commit();
-          ss_product<HD>(dpt, my_v, do_t); // dP^T = V dO^T
-          wgmma_commit();
-          wgmma_wait<1>();
-          fence_regs<32>(st);
-          if (kind == TILE_EDGE)
-            probs_t<true>(a, st, l2, scale2, q0, key_a, t);
-          else
-            probs_t<false>(a, st, l2, scale2, q0, key_a, t);
-          wgmma_wait<0>();
-          fence_regs<32>(dpt);
-          dgrad_t(st, dpt, l2 + 64, a.scale, t);
-          uint32_t pa[4][4], sa[4][4];
-          pack_a(pa, st);
-          pack_a(sa, dpt);
-          wgmma_fence();
-          rs_product<HD>(dv_acc, pa, do_t);  // dV += P^T dO
-          rs_product<HD>(dk_acc, sa, q_t);   // dK += dS^T Q
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs<HD / 2>(dv_acc);
-          fence_regs<HD / 2>(dk_acc);
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty(s));  // the stage may be refilled
+        for (int n = 0; n < HDV / 2; ++n) dv_acc[n] = 0.f;
+        dkdv_pass<HD, HDV, PASS_DV>(a, nullptr, dv_acc, my_k, my_v, ring,
+                                    smem_base, bars, G, it_lo, it_hi, kw,
+                                    key_a, t, lane, i);
+        store_rows<HDV>(dv + base * HDV, (long long)a.KH * HDV, dv_acc,
+                        key_a, a.Sk, t);
       }
+      {
+        float dk_acc[HD / 2];
+#pragma unroll
+        for (int n = 0; n < HD / 2; ++n) dk_acc[n] = 0.f;
+        dkdv_pass<HD, HDV, PASS_DK>(a, dk_acc, nullptr, my_k, my_v, ring,
+                                    smem_base, bars, G, it_lo, it_hi, kw,
+                                    key_a, t, lane, i);
+        store_rows<HD>(dk + base * HD, (long long)a.KH * HD, dk_acc, key_a,
+                       a.Sk, t);
+      }
+    } else {
+      float dk_acc[HD / 2], dv_acc[HDV / 2];
+#pragma unroll
+      for (int n = 0; n < HD / 2; ++n) dk_acc[n] = 0.f;
+#pragma unroll
+      for (int n = 0; n < HDV / 2; ++n) dv_acc[n] = 0.f;
+      dkdv_pass<HD, HDV, PASS_BOTH>(a, dk_acc, dv_acc, my_k, my_v, ring,
+                                    smem_base, bars, G, it_lo, it_hi, kw,
+                                    key_a, t, lane, i);
+      store_rows<HD>(dk + base * HD, (long long)a.KH * HD, dk_acc, key_a,
+                     a.Sk, t);
+      store_rows<HDV>(dv + base * HDV, (long long)a.KH * HDV, dv_acc, key_a,
+                      a.Sk, t);
     }
-
-    const long long rs = (long long)a.KH * HD;
-    const long long base = ((long long)b * a.Sk * a.KH + kh) * HD;
-    store_rows<HD>(dk + base, rs, dk_acc, key_a, a.Sk, t);
-    store_rows<HD>(dv + base, rs, dv_acc, key_a, a.Sk, t);
   }
 }
 
@@ -828,19 +932,20 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ TmaMaps maps,
 // a thread's two rows are read into registers); the producer keeps a ring
 // of Q_STAGES K/V tiles of 64 keys in flight. The warpgroup computes
 // S = Q K^T and dP = dO V^T (SS), dS in registers, then dQ += dS K (RS).
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(Q_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ TmaMaps maps,
                           const float* __restrict__ L2,
                           const float* __restrict__ Dd,
                           __nv_bfloat16* __restrict__ dq, const Args a,
                           int s_pad) {
-  constexpr int TB = Tile<HD>::BYTES;
-  constexpr int STAGE = 2 * TB;            // K, V
+  constexpr int TBK = Tile<HD>::BYTES;     // a Q or K tile
+  constexpr int TBV = Tile<HDV>::BYTES;    // a dO or V tile
+  constexpr int STAGE = TBK + TBV;         // K, V
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t do_s = q_s + TB;
-  const uint32_t ring = do_s + TB;
+  const uint32_t do_s = q_s + TBK;
+  const uint32_t ring = do_s + TBV;
   const uint32_t bars = ring + Q_STAGES * STAGE;
   const uint32_t q_bar = bars + 16 * Q_STAGES;
   auto full = [&](int s) { return bars + 8 * s; };
@@ -869,16 +974,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ TmaMaps maps,
 
   if (warp == 4) {
     if (lane == 0) {
-      mbar_expect_tx(q_bar, 2 * TB);
+      mbar_expect_tx(q_bar, TBK + TBV);
       Tile<HD>::load(q_s, maps.q, q_bar, h, q0, b);
-      Tile<HD>::load(do_s, maps.dout, q_bar, h, q0, b);
+      Tile<HDV>::load(do_s, maps.dout, q_bar, h, q0, b);
       for (int jt = j_lo, i = 0; jt <= j_hi; ++jt, ++i) {
         const int s = i % Q_STAGES;
         if (i >= Q_STAGES) mbar_wait(empty(s), ((i / Q_STAGES) - 1) & 1);
         mbar_expect_tx(full(s), STAGE);
         const uint32_t kt = ring + s * STAGE;
         Tile<HD>::load(kt, maps.k, full(s), kh, jt * T_ROWS, b);
-        Tile<HD>::load(kt + TB, maps.v, full(s), kh, jt * T_ROWS, b);
+        Tile<HDV>::load(kt + TBK, maps.v, full(s), kh, jt * T_ROWS, b);
       }
     }
   } else {
@@ -925,14 +1030,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ TmaMaps maps,
         if (lane == 0) mbar_arrive(empty(s));
         continue;
       }
-      const uint32_t k_t = ring + s * STAGE, v_t = k_t + TB;
+      const uint32_t k_t = ring + s * STAGE, v_t = k_t + TBK;
       float sc[32], dp[32];
 #pragma unroll
       for (int n = 0; n < 32; ++n) sc[n] = dp[n] = 0.f;
       wgmma_fence();
       ss_product<HD>(sc, q_s, k_t);        // S = Q K^T
       wgmma_commit();
-      ss_product<HD>(dp, do_s, v_t);       // dP = dO V^T
+      ss_product<HDV>(dp, do_s, v_t);      // dP = dO V^T
       wgmma_commit();
       wgmma_wait<1>();                     // S and the last tile's dQ
       fence_regs<32>(sc);
@@ -1006,7 +1111,7 @@ cudaError_t launch_dot_f32(const void* o, const void* dout, float* D,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* D, void* dq, void* dk,
                void* dv, const Args& a, cudaStream_t st) {
@@ -1016,34 +1121,35 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
   const float* do_ = static_cast<const float*>(dout);
   const float* lse_ = static_cast<const float*>(lse);
   float* D_ = static_cast<float*>(D);
-  cudaError_t err = launch_dot_f32(o, dout, D_, a, HD, st);
+  cudaError_t err = launch_dot_f32(o, dout, D_, a, HDV, st);
   if (err != cudaSuccess) return int(err);
 
-  const size_t smem_kv = dkdv_smem_bytes<HD>();
-  err = allow_smem<flash_bwd_dkdv_kernel<HD>>(smem_kv);
+  const size_t smem_kv = dkdv_smem_bytes<HD, HDV>();
+  err = allow_smem<flash_bwd_dkdv_kernel<HD, HDV>>(smem_kv);
   if (err != cudaSuccess) return int(err);
-  flash_bwd_dkdv_kernel<HD>
+  flash_bwd_dkdv_kernel<HD, HDV>
       <<<dim3((a.Sk + BK - 1) / BK, a.KH, a.B), THREADS, smem_kv, st>>>(
           q_, k_, v_, do_, lse_, D_, static_cast<float*>(dk),
           static_cast<float*>(dv), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  const size_t smem_q = dq_smem_bytes<HD>();
-  err = allow_smem<flash_bwd_dq_kernel<HD>>(smem_q);
+  const size_t smem_q = dq_smem_bytes<HD, HDV>();
+  err = allow_smem<flash_bwd_dq_kernel<HD, HDV>>(smem_q);
   if (err != cudaSuccess) return int(err);
-  flash_bwd_dq_kernel<HD>
+  flash_bwd_dq_kernel<HD, HDV>
       <<<dim3((a.S + BQ - 1) / BQ, a.H, a.B), THREADS, smem_q, st>>>(
           q_, k_, v_, do_, lse_, D_, static_cast<float*>(dq), a);
   return int(cudaGetLastError());
 }
 
 // D is the wrapper's scratch of 2 B H s_pad floats: D, then lse log2 e
-template <int HD>
+template <int HD, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* D, void* dq,
                 void* dk, void* dv, const Args& a, cudaStream_t st) {
-  using C = Cols<HD>;
+  using C = Cols<HD>;                      // q and K
+  using CV = Cols<HDV>;                    // V and dO
   const int s_pad = (a.S + T_ROWS - 1) / T_ROWS * T_ROWS;
   float* Dd = static_cast<float*>(D);
   float* L2 = Dd + (size_t)a.B * a.H * s_pad;
@@ -1051,52 +1157,82 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   flash_bwd_prep_bf16_kernel<<<unsigned((lanes + 255) / 256), 256, 0, st>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), Dd, L2, a, HD, s_pad);
+      static_cast<const float*>(lse), Dd, L2, a, HDV, s_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return int(cudaErrorNotSupported);
   TmaMaps maps;
-  for (int c = 0; c < 2; ++c) {            // block 1 repeats 0 at NB = 1
+  for (int c = 0; c < 3; ++c) {            // blocks past NB repeat block 0
     const int w = C::width(c < C::NB ? c : 0);
+    const int wv = CV::width(c < CV::NB ? c : 0);
     if (!make_map(encode, &maps.q[c], q, HD, a.H, a.S, a.B, a.q_sh, a.q_ss,
                   a.q_sb, w, T_ROWS) ||
-        !make_map(encode, &maps.dout[c], dout, HD, a.H, a.S, a.B, a.do_sh,
-                  a.do_ss, a.do_sb, w, T_ROWS) ||
+        !make_map(encode, &maps.dout[c], dout, HDV, a.H, a.S, a.B, a.do_sh,
+                  a.do_ss, a.do_sb, wv, T_ROWS) ||
         !make_map(encode, &maps.k[c], k, HD, a.KH, a.Sk, a.B, a.k_sh, a.k_ss,
                   a.k_sb, w, T_ROWS) ||
-        !make_map(encode, &maps.v[c], v, HD, a.KH, a.Sk, a.B, a.v_sh, a.v_ss,
-                  a.v_sb, w, T_ROWS))
+        !make_map(encode, &maps.v[c], v, HDV, a.KH, a.Sk, a.B, a.v_sh,
+                  a.v_ss, a.v_sb, wv, T_ROWS))
       return int(cudaErrorInvalidValue);
   }
   __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
   __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
   __nv_bfloat16* dq_ = static_cast<__nv_bfloat16*>(dq);
 
-  const size_t smem_kv = dkdv_wg_smem_bytes<HD>();
-  err = allow_smem<flash_bwd_dkdv_wgmma_kernel<HD>>(smem_kv);
+  const size_t smem_kv = dkdv_wg_smem_bytes<HD, HDV>();
+  err = allow_smem<flash_bwd_dkdv_wgmma_kernel<HD, HDV>>(smem_kv);
   if (err != cudaSuccess) return int(err);
-  flash_bwd_dkdv_wgmma_kernel<HD>
+  flash_bwd_dkdv_wgmma_kernel<HD, HDV>
       <<<dim3((a.Sk + KV_KEYS - 1) / KV_KEYS, a.KH, a.B), KV_THREADS, smem_kv,
          st>>>(maps, L2, Dd, dk_, dv_, a, s_pad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  const size_t smem_q = dq_wg_smem_bytes<HD>();
-  err = allow_smem<flash_bwd_dq_wgmma_kernel<HD>>(smem_q);
+  const size_t smem_q = dq_wg_smem_bytes<HD, HDV>();
+  err = allow_smem<flash_bwd_dq_wgmma_kernel<HD, HDV>>(smem_q);
   if (err != cudaSuccess) return int(err);
-  flash_bwd_dq_wgmma_kernel<HD>
+  flash_bwd_dq_wgmma_kernel<HD, HDV>
       <<<dim3((a.S + T_ROWS - 1) / T_ROWS, a.H, a.B), Q_THREADS, smem_q,
          st>>>(
           maps, L2, Dd, dq_, a, s_pad);
   return int(cudaGetLastError());
 }
 
+// the instance for (hd, hd_v): one head dim for q, k and v, or MLA's
+// (192, 128)
+template <template <int, int> class F, typename... Ts>
+int by_dims(int hd, int hd_v, Ts... xs) {
+  if (hd == hd_v) {
+    switch (hd) {
+      case 32: return F<32, 32>::run(xs...);
+      case 64: return F<64, 64>::run(xs...);
+      case 80: return F<80, 80>::run(xs...);
+      case 128: return F<128, 128>::run(xs...);
+      default: return int(cudaErrorInvalidValue);
+    }
+  }
+  if (hd == 192 && hd_v == 128) return F<192, 128>::run(xs...);
+  return int(cudaErrorInvalidValue);
+}
+
+template <int HD, int HDV>
+struct LaunchBf16 {
+  template <typename... Ts>
+  static int run(Ts... xs) { return launch_bf16<HD, HDV>(xs...); }
+};
+
+template <int HD, int HDV>
+struct LaunchF32 {
+  template <typename... Ts>
+  static int run(Ts... xs) { return launch_f32<HD, HDV>(xs...); }
+};
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* D, void* dq, void* dk,
-             void* dv, int B, int S, int Sk, int H, int KH, int hd,
+             void* dv, int B, int S, int Sk, int H, int KH, int hd, int hd_v,
              const long long* st, float scale, int causal, int window,
              void* stream) {
   if (B <= 0 || S <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0)
@@ -1119,43 +1255,51 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
          reinterpret_cast<uintptr_t>(dout)) % 16)
       return int(cudaErrorMisalignedAddress);
-    switch (hd) {
-      case 32: return launch_bf16<32>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-      case 64: return launch_bf16<64>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-      case 80: return launch_bf16<80>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-      case 128:
-        return launch_bf16<128>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-      default: return int(cudaErrorInvalidValue);
-    }
+    return by_dims<LaunchBf16>(hd, hd_v, q, k, v, o, dout, lse, D, dq, dk,
+                               dv, a, s);
   } else {
-    switch (hd) {
-      case 32: return launch_f32<32>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-      case 64: return launch_f32<64>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-      case 80: return launch_f32<80>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-      case 128:
-        return launch_f32<128>(q, k, v, o, dout, lse, D, dq, dk, dv, a, s);
-      default: return int(cudaErrorInvalidValue);
-    }
+    return by_dims<LaunchF32>(hd, hd_v, q, k, v, o, dout, lse, D, dq, dk,
+                              dv, a, s);
   }
 }
 
-template <int HD>
-int plan_bf16(int* out) {
-  const size_t kv = dkdv_wg_smem_bytes<HD>(), qs = dq_wg_smem_bytes<HD>();
-  out[0] = KV_THREADS;
-  out[1] = int(kv);
-  out[3] = Q_THREADS;
-  out[4] = int(qs);
-  cudaError_t err = allow_smem<flash_bwd_dkdv_wgmma_kernel<HD>>(kv);
-  if (err == cudaSuccess) err = allow_smem<flash_bwd_dq_wgmma_kernel<HD>>(qs);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[2], flash_bwd_dkdv_wgmma_kernel<HD>, KV_THREADS, kv);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[5], flash_bwd_dq_wgmma_kernel<HD>, Q_THREADS, qs);
-  return int(err);
-}
+// the bf16 kernels' CTAs: out = {dK/dV threads, shared-memory bytes, CTAs
+// an SM can hold, registers a thread at launch, local (spill) bytes a
+// thread; dQ the same}. The dK/dV consumers raise their registers to 240
+// with setmaxnreg after launch.
+template <int HD, int HDV>
+struct PlanBf16 {
+  static int run(int* out) {
+    const size_t kv = dkdv_wg_smem_bytes<HD, HDV>();
+    const size_t qs = dq_wg_smem_bytes<HD, HDV>();
+    out[0] = KV_THREADS;
+    out[1] = int(kv);
+    out[5] = Q_THREADS;
+    out[6] = int(qs);
+    cudaError_t err = allow_smem<flash_bwd_dkdv_wgmma_kernel<HD, HDV>>(kv);
+    if (err == cudaSuccess)
+      err = allow_smem<flash_bwd_dq_wgmma_kernel<HD, HDV>>(qs);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[2], flash_bwd_dkdv_wgmma_kernel<HD, HDV>, KV_THREADS, kv);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[7], flash_bwd_dq_wgmma_kernel<HD, HDV>, Q_THREADS, qs);
+    cudaFuncAttributes fa;
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&fa, flash_bwd_dkdv_wgmma_kernel<HD, HDV>);
+    if (err == cudaSuccess) {
+      out[3] = fa.numRegs;
+      out[4] = int(fa.localSizeBytes);
+      err = cudaFuncGetAttributes(&fa, flash_bwd_dq_wgmma_kernel<HD, HDV>);
+    }
+    if (err == cudaSuccess) {
+      out[8] = fa.numRegs;
+      out[9] = int(fa.localSizeBytes);
+    }
+    return int(err);
+  }
+};
 
 }  // namespace
 
@@ -1164,7 +1308,7 @@ extern "C" {
 #define FLASH_BWD_ENTRY(NAME, T)                                             \
   int NAME(const void* q, const void* k, const void* v, const void* o,       \
            const void* dout, const void* lse, void* D, void* dq, void* dk,   \
-           void* dv, int B, int S, int Sk, int H, int KH, int hd,            \
+           void* dv, int B, int S, int Sk, int H, int KH, int hd, int hd_v,  \
            long long q_sb, long long q_ss, long long q_sh, long long k_sb,   \
            long long k_ss, long long k_sh, long long v_sb, long long v_ss,   \
            long long v_sh, long long o_sb, long long o_ss, long long o_sh,   \
@@ -1174,7 +1318,7 @@ extern "C" {
                               v_ss, v_sh, o_sb, o_ss, o_sh, do_sb, do_ss,    \
                               do_sh};                                        \
     return dispatch<T>(q, k, v, o, dout, lse, D, dq, dk, dv, B, S, Sk, H,    \
-                       KH, hd, st, scale, causal, window, stream);           \
+                       KH, hd, hd_v, st, scale, causal, window, stream);     \
   }
 
 FLASH_BWD_ENTRY(flash_bwd_bf16, __nv_bfloat16)
@@ -1182,16 +1326,9 @@ FLASH_BWD_ENTRY(flash_bwd_f32, float)
 
 #undef FLASH_BWD_ENTRY
 
-// the bf16 kernels' CTAs at this head_dim, for reports: out = {dK/dV
-// threads, shared-memory bytes, CTAs an SM can hold; dQ the same}
-int flash_bwd_bf16_plan(int hd, int* out) {
-  switch (hd) {
-    case 32: return plan_bf16<32>(out);
-    case 64: return plan_bf16<64>(out);
-    case 80: return plan_bf16<80>(out);
-    case 128: return plan_bf16<128>(out);
-    default: return int(cudaErrorInvalidValue);
-  }
+// the bf16 kernels' CTAs at these head dims (PlanBf16), for reports
+int flash_bwd_bf16_plan(int hd, int hd_v, int* out) {
+  return by_dims<PlanBf16>(hd, hd_v, out);
 }
 
 // the tile rule as the bf16 kernels apply it, for tests against

@@ -28,11 +28,18 @@
 // times.
 //
 // Design:
-//   * a cluster of n_split CTAs per (kv head, sequence); CTA s owns the
-//     logical pages [s * pps, (s + 1) * pps) with pps = ceil(nblk / 8) and
-//     n_split = ceil(nblk / pps) <= 8 (the portable cluster size). The
-//     split depends on nblk only: 34 pages give 7 CTAs of 5 pages, 896
-//     CTAs at the serving shape;
+//   * the G query rows of a KV head are cut into R = ceil(G / Gmax) row
+//     tiles of Gt = ceil(G / R) rows, Gmax = the rows whose fp32 sums fit
+//     the registers (Gt * hd <= 1024: 8 rows at hd 128); the last tile's
+//     missing rows are zeros and are not stored. granite-34b's 48 rows
+//     over one KV head at hd 128 are 6 tiles of 8. Each tile reads its KV
+//     head's pages itself
+//     (R reads of each page, mostly from L2 after the first);
+//   * a cluster of n_split CTAs per (row tile, kv head, sequence); CTA s
+//     owns the logical pages [s * pps, (s + 1) * pps) with pps =
+//     ceil(nblk / 8) and n_split = ceil(nblk / pps) <= 8 (the portable
+//     cluster size). The split depends on nblk only: 34 pages give 7 CTAs
+//     of 5 pages, 896 CTAs at the serving shape;
 //   * each CTA copies its pages' K rows, then their V rows, into shared
 //     memory with 16-byte cp.async, as two copy groups with every copy in
 //     flight at once: the scores start when K has landed, while V is still
@@ -85,7 +92,10 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_SPLIT = 8;               // portable cluster size
 constexpr int STAGE_BYTES = 32 * 1024;     // K + V bytes of one stage
-constexpr int MAX_ROW_ELEMS = 1024;        // G * hd
+constexpr int MAX_ROW_ELEMS = 1024;        // Gt * hd, a row tile
+#ifndef PAGED_MAX_TILE_ROWS                // -D to time smaller row tiles
+#define PAGED_MAX_TILE_ROWS 0              // 0: as many as MAX_ROW_ELEMS
+#endif
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -136,7 +146,10 @@ struct Params {
   const int* table;
   const int* lengths;
   void* out;
-  int G, hd, page_sz, nblk;
+  int G;             // query rows a CTA (a row tile)
+  int G_all;         // query rows a KV head
+  int R;             // row tiles a KV head: ceil(G_all / G)
+  int hd, page_sz, nblk;
   int pps;           // logical pages per split (per CTA)
   int stage_pages;   // pages per shared-memory stage
   int n_bufs;        // 1, or 2 for a ring when a split has several stages
@@ -273,7 +286,9 @@ paged_split_kernel(const Params p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x;            // == rank in the cluster
   const int n_split = gridDim.x;
-  const int kh = blockIdx.y;
+  const int kh = blockIdx.y / p.R;
+  const int g0 = (blockIdx.y - kh * p.R) * G;    // the tile's first row
+  const int g_rows = min(G, p.G_all - g0);       // its rows that exist
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -296,11 +311,13 @@ paged_split_kernel(const Params p) {
     load_stage<T>(p, kv, kv + stage_elems, trow, kh, pg0,
                   min(p.stage_pages, pg_used), chunks);
 
-  // q rows of this KV head in fp32, zero-padded to RS
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + kh * G * p.q_sh;
+  // q rows of this row tile in fp32, zero-padded to RS (rows past the
+  // KV head's last are zeros)
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb +
+                (kh * p.G_all + g0) * p.q_sh;
   for (int i = tid; i < G * RS; i += THREADS) {
     const int g = i / RS, d = i % RS;
-    qs[i] = d < p.hd ? to_f(qg[g * p.q_sh + d]) : 0.f;
+    qs[i] = d < p.hd && g < g_rows ? to_f(qg[g * p.q_sh + d]) : 0.f;
   }
   float* wm = fs + L.wm + warp * G;
   float* wl = fs + L.wl + warp * G;
@@ -470,10 +487,11 @@ paged_split_kernel(const Params p) {
   // shared memory) alive until the leader has read it
   cluster.sync();
   if (cluster.block_rank() == 0) {
-    T* out = static_cast<T*>(p.out) + b * p.o_sb + kh * G * p.o_sh;
+    T* out = static_cast<T*>(p.out) + b * p.o_sb +
+             (kh * p.G_all + g0) * p.o_sh;
     for (int e = tid; e < G * RS; e += THREADS) {
       const int g = e / RS, d = e - g * RS;
-      if (d >= p.hd) continue;
+      if (d >= p.hd || g >= g_rows) continue;
       float M = NEG_INF;
 #pragma unroll
       for (int s = 0; s < MAX_SPLIT; ++s) {
@@ -495,10 +513,16 @@ paged_split_kernel(const Params p) {
   cluster.sync();
 }
 
-// the decomposition, from shapes only: <= 8 splits of pps pages each, and
-// stages of at most STAGE_BYTES of K+V; returns the number of splits
+// the decomposition, from shapes only: row tiles of the G_all rows, as
+// many rows a tile as fit MAX_ROW_ELEMS, <= 8 splits of pps pages each,
+// and stages of at most STAGE_BYTES of K+V; returns the number of splits
 int plan(Params& p, int vec, size_t esz) {
   p.chunks = (p.hd + vec - 1) / vec;
+  int g_max = MAX_ROW_ELEMS / (p.chunks * vec);
+  if (PAGED_MAX_TILE_ROWS > 0 && PAGED_MAX_TILE_ROWS < g_max)
+    g_max = PAGED_MAX_TILE_ROWS;
+  p.R = (p.G_all + g_max - 1) / g_max;
+  p.G = (p.G_all + p.R - 1) / p.R;
   p.lg = pow2_at_least(p.chunks < 32 ? p.chunks : 32);
   p.pps = (p.nblk + MAX_SPLIT - 1) / MAX_SPLIT;
   const size_t page_bytes = 2 * size_t(p.page_sz) * p.chunks * vec * esz;
@@ -541,7 +565,7 @@ KernelFn<T> configure(Params& p, int B, int KH, cudaLaunchConfig_t& cfg,
     err = int(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
   cfg = {};
-  cfg.gridDim = dim3(n_split, KH, B);
+  cfg.gridDim = dim3(n_split, KH * p.R, B);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -558,9 +582,9 @@ int launch(Params p, int B, int H, int KH, void* stream) {
   constexpr int VEC = Vec<T>::N;
   const int hd = p.hd;
   if (B <= 0 || KH <= 0 || H % KH != 0 || hd <= 0 || p.page_sz <= 0 ||
-      p.nblk <= 0 || (H / KH) * hd > MAX_ROW_ELEMS)
+      p.nblk <= 0 || hd > MAX_ROW_ELEMS)
     return int(cudaErrorInvalidValue);
-  p.G = H / KH;
+  p.G_all = H / KH;
   const uintptr_t addr_bits = reinterpret_cast<uintptr_t>(p.kp) |
                               reinterpret_cast<uintptr_t>(p.vp);
   const long long strides[] = {p.k_sp, p.k_st, p.k_sh,
@@ -608,12 +632,15 @@ PAGED_ENTRY(paged_attn_f32, float)
 
 // the decomposition a call of these shapes launches, for reports: out =
 // {n_split, pages per split, pages per stage, shared-memory bytes, the
-// clusters of that launch the card can hold at once (a launch of B * KH
-// clusters runs in one wave when this is at least B * KH)}
+// clusters of that launch the card can hold at once (a launch of
+// B * KH * row_tiles clusters runs in one wave when this is at least
+// that), row tiles a KV head, query rows a tile}
 int paged_attn_plan(int nblk, int page_sz, int G, int hd, int bf16,
                     int* out) {
   Params p = {};
-  p.G = G; p.hd = hd; p.page_sz = page_sz; p.nblk = nblk;
+  p.G_all = G; p.hd = hd; p.page_sz = page_sz; p.nblk = nblk;
+  if (G <= 0 || hd <= 0 || hd > MAX_ROW_ELEMS)
+    return int(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int err;
@@ -630,6 +657,8 @@ int paged_attn_plan(int nblk, int page_sz, int G, int hd, int bf16,
   out[1] = p.pps;
   out[2] = p.stage_pages;
   out[3] = int(cfg.dynamicSmemBytes);
+  out[5] = p.R;
+  out[6] = p.G;
   return err;
 }
 

@@ -13,9 +13,9 @@ take CUDA tensors only; the plain versions are in ``ref.py``
 (``reference_attention``, ``flash_attention_fwd_ref`` with its lse,
 ``flash_attention_bwd_ref``).
 
-Head dims: q, k and v of one head dim in ``HEAD_DIMS``; the forward also
-takes MLA's pair (``MLA_DIMS``: q/k 192, v 128, deepseek-v2-lite's
-prefill), the backward does not yet (ROADMAP.md, Queue 2).
+Head dims: q, k and v of one head dim in ``HEAD_DIMS``, or MLA's pair
+(``MLA_DIMS``: q/k 192, v 128, deepseek-v2-lite's prefill and training),
+in both directions.
 """
 
 from __future__ import annotations
@@ -35,12 +35,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
 BWD_SOURCE = "flash_bwd"
 _BWD_SYMBOLS = {torch.bfloat16: "flash_bwd_bf16",
                 torch.float32: "flash_bwd_f32"}
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.c_int64] * 15
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
 HEAD_DIMS = (32, 64, 80, 128)
-MLA_DIMS = (192, 128)          # (q/k head dim, v head dim): forward only
+MLA_DIMS = (192, 128)          # (q/k head dim, v head dim)
 
 
 def _check_qkv(name, q, k, v, extra=(), pairs=()):
@@ -112,18 +112,27 @@ flash_attention_fwd.launches = 0
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, scale: float | None = None):
-    """The gradient of ``flash_attention_fwd``: q, o, do (B, S, H, hd) and
-    k/v (B, Sk, KH, hd) as the forward takes them, read through their
-    strides (in bf16, one that is not 16-byte aligned is copied first);
-    lse (B, H, S) fp32 from ``flash_attention_fwd(..., with_lse=True)``.
-    Returns new contiguous (dq, dk, dv) in the inputs'
-    dtype; dk/dv hold the sum over the G query heads of each KV head. One
+    """The gradient of ``flash_attention_fwd``: q (B, S, H, hd), k
+    (B, Sk, KH, hd), v (B, Sk, KH, hd_v), o and do (B, S, H, hd_v) as the
+    forward takes and gives them (hd_v == hd, or (hd, hd_v) ==
+    ``MLA_DIMS``), read through their strides (in bf16, one that is not
+    16-byte aligned is copied first); lse (B, H, S) fp32 from
+    ``flash_attention_fwd(..., with_lse=True)``. Returns new contiguous
+    (dq, dk, dv) in the inputs' dtype, shaped as q, k and v; dk/dv hold
+    the sum over the G query heads of each KV head. One
     call runs three kernels of ``csrc/flash_bwd.cu`` in order on the
     current stream (D = rowsum(do·o), then dK/dV, then dQ) and counts one
     launch. Deterministic: no atomics, a fixed order of every sum."""
     B, S, H, hd = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
-    _check_qkv("flash_attention_bwd", q, k, v, (o, do))
+    Sk, KH, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    _check_qkv("flash_attention_bwd", q, k, v, pairs=(MLA_DIMS,))
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != (B, S, H, hdv) or t.dtype != q.dtype \
+                or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be a ({B}, {S}, {H}, {hdv}) "
+                             f"{q.dtype} tensor on {q.device} with a "
+                             f"contiguous last dim, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
     if q.dtype == torch.bfloat16:
         # TMA reads q, k, v and do, the pre-pass o and do 16 bytes at a
         # time: an input that is not 16-byte aligned is copied contiguous
@@ -141,7 +150,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         scale = 1.0 / math.sqrt(hd)
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KH, hd), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, Sk, KH, hd), dtype=v.dtype, device=q.device)
+    dv = torch.empty((B, Sk, KH, hdv), dtype=v.dtype, device=q.device)
     # the pre-pass's scratch: D and (bf16) lse·log2 e, each (B, H, S)
     # padded to whole 64-row tiles, so a tile's rows are one aligned copy
     s_pad = -(-S // 64) * 64
@@ -152,7 +161,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), d_scratch.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             B, S, Sk, H, KH, hd,
+             B, S, Sk, H, KH, hd, hdv,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *o.stride()[:3], *do.stride()[:3],
              float(scale), int(bool(causal)), int(window),
@@ -178,17 +187,22 @@ def plan(hd: int, hd_v: int | None = None) -> dict:
     return dict(zip(("threads", "smem_bytes", "ctas_per_sm"), out))
 
 
-def plan_bwd(hd: int) -> dict:
-    """The bf16 backward's CTAs at this head_dim: for its dK/dV and its dQ
-    kernel, threads, shared-memory bytes and CTAs an SM holds. Builds the
-    kernel if needed."""
+def plan_bwd(hd: int, hd_v: int | None = None) -> dict:
+    """The bf16 backward's CTAs at this head_dim (q/k ``hd``, v ``hd_v``,
+    by default ``hd``): for its dK/dV and its dQ kernel, threads,
+    shared-memory bytes, CTAs an SM holds, registers a thread at launch
+    and local-memory (spill) bytes a thread (``cudaFuncGetAttributes``;
+    the dK/dV consumers raise theirs to 240 with ``setmaxnreg``). Builds
+    the kernel if needed."""
     fn = _build.bind(BWD_SOURCE, "flash_bwd_bf16_plan",
-                     [ctypes.c_int, ctypes.c_void_p])
-    out = (ctypes.c_int * 6)()
-    err = fn(hd, ctypes.cast(out, ctypes.c_void_p))
+                     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * 10)()
+    err = fn(hd, hd if hd_v is None else hd_v,
+             ctypes.cast(out, ctypes.c_void_p))
     _build.check(BWD_SOURCE, "flash_bwd_bf16_plan", err)
-    keys = ("threads", "smem_bytes", "ctas_per_sm")
-    return {"dkdv": dict(zip(keys, out[:3])), "dq": dict(zip(keys, out[3:]))}
+    keys = ("threads", "smem_bytes", "ctas_per_sm", "registers",
+            "spill_bytes")
+    return {"dkdv": dict(zip(keys, out[:5])), "dq": dict(zip(keys, out[5:]))}
 
 
 def tile_kinds(S: int, Sk: int, q_tile: int, k_tile: int, causal: bool,

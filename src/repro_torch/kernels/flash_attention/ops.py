@@ -13,9 +13,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import needs_grad
-from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
-                                                        flash_attention_bwd,
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                         flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_fwd_ref)
@@ -64,19 +62,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, q_chunk: int = 512,
                     k_chunk: int = 0, schedule: str = "triangular"):
     """q: (B, S, H, hd); k: (B, Sk, KH, hd), v: (B, Sk, KH, hd_v).
-    Returns (B, S, H, hd_v), differentiable in q, k and v.
-
-    The backward kernel takes one head dim for q, k and v: a call off the
-    CPU whose v head dim differs (MLA, q/k 192 and v 128) raises
-    ``NotImplementedError`` when autograd would differentiate it, before
-    any work, as the paged op does for any gradient."""
-    hd, hdv = q.shape[-1], v.shape[-1]
-    if q.device.type != "cpu" and not (hd == hdv and hd in HEAD_DIMS) \
-            and needs_grad(q, k, v):
-        raise NotImplementedError(
-            f"the flash backward kernel takes no q/k head dim {hd} with v "
-            f"head dim {hdv} yet (ROADMAP.md Queue 2: the flash backward at "
-            f"(192, 128), for item 4c's training)")
+    Returns (B, S, H, hd_v), differentiable in q, k and v (on the card at
+    the head dims both kernels take: one for q, k and v, or MLA's
+    (192, 128))."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, bool(causal), int(window),

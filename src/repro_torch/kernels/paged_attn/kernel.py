@@ -7,7 +7,8 @@ allocates the output, launches on the current stream and counts launches
 in ``paged_attention.launches``. It takes CUDA tensors only; the plain
 version is ``ref.paged_attention_ref``, and ``ref.paged_attention_split_ref``
 repeats the kernel's split-and-merge in PyTorch. ``plan`` reports the
-decomposition a call launches.
+decomposition a call launches, row tiles included: any G = H / KH is
+taken, in tiles of at most 1024 / hd query rows a CTA.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from repro_torch.kernels import _build
 SOURCE = "paged_attn"
 _SYMBOLS = {torch.bfloat16: "paged_attn_bf16", torch.float32: "paged_attn_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-             + [ctypes.c_int64] * 11 + [ctypes.c_float, ctypes.c_void_p])
-_MAX_ROW_ELEMS = 1024        # G * hd the kernel keeps in registers
+             + [ctypes.c_int64] * 11
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
@@ -47,9 +48,6 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
     if v_pages.shape != k_pages.shape or hd_k != hd or H % KH:
         raise ValueError(f"bad shapes q{tuple(q.shape)} "
                          f"pools{tuple(k_pages.shape)}")
-    if (H // KH) * hd > _MAX_ROW_ELEMS:
-        raise ValueError(f"(H/KH)*hd = {(H // KH) * hd} exceeds "
-                         f"{_MAX_ROW_ELEMS}")
     if q.stride(-1) != 1 or k_pages.stride(-1) != 1 \
             or v_pages.stride(-1) != 1:
         raise ValueError("paged kernel needs a contiguous head dim")
@@ -85,13 +83,16 @@ paged_attention.launches = 0
 def plan(nblk: int, page_sz: int, G: int, hd: int, dtype) -> dict:
     """The kernel's decomposition for these shapes (it depends on shapes
     only): CTAs a cluster, pages a CTA, pages a shared-memory stage,
-    shared-memory bytes a CTA, and how many such clusters the card holds
-    at once. Builds the kernel if needed."""
+    shared-memory bytes a CTA, how many such clusters the card holds at
+    once, row tiles a KV head and query rows a tile. Builds the kernel if
+    needed."""
     fn = _build.bind(SOURCE, "paged_attn_plan", [ctypes.c_int] * 5
                      + [ctypes.c_void_p])
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 7)()
     err = fn(nblk, page_sz, G, hd, int(dtype == torch.bfloat16),
              ctypes.cast(out, ctypes.c_void_p))
     _build.check(SOURCE, "paged_attn_plan", err)
     return dict(zip(("n_split", "pages_per_split", "pages_per_stage",
-                     "smem_bytes", "max_active_clusters"), out))
+                     "smem_bytes", "max_active_clusters", "row_tiles",
+                     "rows_per_tile"), out))
+

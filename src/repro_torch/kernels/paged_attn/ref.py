@@ -7,7 +7,10 @@ decode attention over the whole batch at once, with the mask built from
 scores and p to the V dtype before the weighted sum.
 
 ``paged_attention_split_ref`` mirrors the CUDA kernel's decomposition: the
-logical pages are cut into ``n_split`` contiguous ranges of
+G query rows of a KV head are cut into ``row_tiles`` tiles of ceil(G /
+row_tiles) rows (the last may be shorter), each tile computed on its own
+(``kernel.plan`` reports the kernel's); for each tile the logical pages
+are cut into ``n_split`` contiguous ranges of
 ceil(nblk / n_split) pages (ranges past the end are empty), each range
 makes its own (m, l, acc) in fp32, and the ranges are merged in split
 order, each weighted by exp(m_s - M). A range whose positions are all
@@ -53,7 +56,24 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
 
 
 def paged_attention_split_ref(q, k_pages, v_pages, page_table, lengths, *,
-                              n_split, scale=None):
+                              n_split, row_tiles=1, scale=None):
+    B, H, hd = q.shape
+    KH = k_pages.shape[2]
+    G = H // KH
+    Gt = -(-G // row_tiles)
+    if Gt < G:
+        qg = q.reshape(B, KH, G, hd)
+        tiles = [_split_rows(qg[:, :, g0:g0 + Gt].reshape(B, -1, hd),
+                             k_pages, v_pages, page_table, lengths, n_split,
+                             scale).reshape(B, KH, -1, hd)
+                 for g0 in range(0, G, Gt)]
+        return torch.cat(tiles, dim=2).reshape(B, H, hd)
+    return _split_rows(q, k_pages, v_pages, page_table, lengths, n_split,
+                       scale)
+
+
+def _split_rows(q, k_pages, v_pages, page_table, lengths, n_split, scale):
+    """One row tile: the page ranges' partials merged in split order."""
     B, H, hd = q.shape
     page_sz = k_pages.shape[1]
     nblk = page_table.shape[1]

@@ -10,8 +10,9 @@ of the stacked tensors. ``LM`` is an ``nn.Module`` that holds such a tree.
 Prefill attention goes through ``attention.flash_attention`` (the CUDA
 flash kernel on the card). Decode attention goes through the paged decode
 op (the CUDA paged kernel on the card): each layer's dense cache
-``(B, Smax, KH, hd)`` is viewed, without a copy, as a page pool
-``(B·Smax/P, P, KH, hd)`` with an identity page table. Every Mamba2 layer
+``(B, Smax, KH, hd)``, of any length Smax and allocated in whole pages,
+is viewed, without a copy, as a page pool ``(B·ceil(Smax/P), P, KH, hd)``
+with an identity page table. Every Mamba2 layer
 (``ssm``: mamba2-130m; ``hybrid``: zamba2-2.7b, whose one tied attention
 block follows every ``attn_every`` Mamba2 layers) runs its SSD through the
 CUDA SSD chunk kernel on the card, at prefill and at decode.
@@ -39,9 +40,8 @@ kernels' ``FlashAttention`` function, every Mamba2 layer's SSD through
 ``SSDChunk`` (the SSD chunk kernel and its backward kernel), and with
 ``cfg.remat`` each layer is rematerialised in the backward
 (``_maybe_remat``). Every family trains on the CPU through the plain
-versions and on the card through the kernels, but MLA: the flash backward
-kernel does not take its head dims yet (ROADMAP.md, Queue 2), and a call
-that needs that gradient on the card raises ``NotImplementedError``.
+versions and on the card through the kernels (MLA through the flash
+backward at q/k 192, v 128).
 """
 
 from __future__ import annotations
@@ -485,28 +485,40 @@ def cache_spec_defs(cfg, max_len: int, batch: int) -> dict:
     return defs
 
 
+def whole_pages(S: int) -> int:
+    """Positions a sequence of a k/v cache of logical length ``S`` takes in
+    whole decode pages: ceil(S / PAGE_SIZE) * PAGE_SIZE."""
+    return -(-S // PAGE_SIZE) * PAGE_SIZE
+
+
 def init_cache(cfg, max_len, batch, *, device="cuda") -> dict:
-    """Zero cache (bf16 k/v, MLA ckv/kr and conv states, fp32 ssm state);
-    a k/v cache's sequence length must be a whole number of decode pages
-    (``PAGE_SIZE``); MLA's, read by no paged op, may be any length."""
+    """Zero cache (bf16 k/v, MLA ckv/kr and conv states, fp32 ssm state)
+    with the shapes of ``cache_spec_defs``, JAX's, for any length. A k/v
+    cache of logical length S is allocated in whole decode pages
+    (``whole_pages(S)`` positions a sequence) and returned as its length-S
+    view, which decode reads in place as a page pool (``page_pool``)."""
     dev = resolve_device(device)
-    defs = cache_spec_defs(cfg, max_len, batch)
-    if "k" in defs and defs["k"].shape[2] % PAGE_SIZE:
-        raise ValueError(f"cache length {defs['k'].shape[2]} is not a "
-                         f"multiple of the decode page size {PAGE_SIZE}")
-    return {n: torch.zeros(pd.shape, dtype=getattr(torch, pd.dtype),
-                           device=dev) for n, pd in defs.items()}
+    out = {}
+    for n, pd in cache_spec_defs(cfg, max_len, batch).items():
+        dt = getattr(torch, pd.dtype)
+        if n in ("k", "v"):
+            G, B, S, KH, hd = pd.shape
+            out[n] = torch.zeros((G, B, whole_pages(S), KH, hd), dtype=dt,
+                                 device=dev)[:, :, :S]
+        else:
+            out[n] = torch.zeros(pd.shape, dtype=dt, device=dev)
+    return out
 
 
 def grow_cache(cfg, cache, max_len) -> dict:
     """The prefill cache (``prefill_cache``, sized to the prompt) in a zero
-    cache of ``max_len`` positions on the same device, for decode: k/v and
-    MLA's ckv/kr grow along the sequence; the SSM and conv states carry as
-    they are."""
+    cache of ``max_len`` positions on the same device, for decode: k/v
+    (copied into ``init_cache``'s whole pages) and MLA's ckv/kr grow along
+    the sequence; the SSM and conv states carry as they are."""
     some = next(iter(cache.values()))
     full = init_cache(cfg, max_len, some.shape[1], device=some.device)
     for n, t in cache.items():
-        if t.shape == full[n].shape:
+        if t.shape == full[n].shape and n not in ("k", "v"):
             full[n] = t
         else:
             full[n][tuple(slice(0, s) for s in t.shape)] = t
@@ -514,10 +526,11 @@ def grow_cache(cfg, cache, max_len) -> dict:
 
 
 def identity_pages(B, Smax, pos, window, device):
-    """Page table and lengths that make the paged op read a dense cache:
-    row b is pages b·(Smax/P) + j for the pages holding positions <= pos
-    (ring order for a window cache), lengths = pos + 1 (<= Smax)."""
-    per_seq = Smax // PAGE_SIZE
+    """Page table and lengths that make the paged op read a dense cache of
+    logical length Smax laid out in whole pages (``page_pool``): row b is
+    pages b·ceil(Smax/P) + j for the pages holding positions <= pos (ring
+    order for a window cache), lengths = pos + 1 (<= Smax)."""
+    per_seq = whole_pages(Smax) // PAGE_SIZE
     length = min(pos + 1, Smax) if window else pos + 1
     nblk = -(-length // PAGE_SIZE)
     table = (torch.arange(B, device=device, dtype=torch.int32)[:, None]
@@ -525,6 +538,25 @@ def identity_pages(B, Smax, pos, window, device):
              + torch.arange(nblk, device=device, dtype=torch.int32)[None])
     lengths = torch.full((B,), length, dtype=torch.int32, device=device)
     return table, lengths
+
+
+def page_pool(c, dtype):
+    """One layer of a k/v cache, (B, S, KH, hd), in ``dtype`` as the page
+    pool (B·Sp/P, P, KH, hd) the paged op reads, Sp = ``whole_pages(S)``:
+    the cache itself where it lies in whole pages (``init_cache``'s
+    layout, or S a multiple of P), else a zero-padded copy."""
+    B, S, KH, hd = c.shape
+    Sp = whole_pages(S)
+    c = c.to(dtype)
+    row = KH * hd
+    fits = (c.storage_offset() + B * Sp * row) * c.element_size() \
+        <= c.untyped_storage().nbytes()
+    if c.stride() == (Sp * row, row, hd, 1) and fits:
+        return c.as_strided((B * Sp // PAGE_SIZE, PAGE_SIZE, KH, hd),
+                            (PAGE_SIZE * row, row, hd, 1))
+    pad = c.new_zeros((B, Sp, KH, hd))
+    pad[:, :S] = c
+    return pad.view(B * Sp // PAGE_SIZE, PAGE_SIZE, KH, hd)
 
 
 def _decode_attn_block(cfg, p, x, kc, vc, pos, cos, sin, dtype, pages):
@@ -541,15 +573,13 @@ def _decode_attn_block(cfg, p, x, kc, vc, pos, cos, sin, dtype, pages):
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    idx = pos % Smax if cfg.swa_window else pos
+    idx = pos % Smax if cfg.swa_window else pos     # the logical length
     kc[:, idx] = k[:, 0].to(kc.dtype)
     vc[:, idx] = v[:, 0].to(vc.dtype)
     # JAX (lm.py:507): decode_attention(q, kc.astype(dtype), ...). Here the
     # same cache, cast to the compute dtype (a no-op for bf16), is viewed
     # as a page pool and read by the paged op through an identity table.
-    n_pages = B * Smax // PAGE_SIZE
-    pool_k = kc.to(dtype).view(n_pages, PAGE_SIZE, KH, hd)
-    pool_v = vc.to(dtype).view(n_pages, PAGE_SIZE, KH, hd)
+    pool_k, pool_v = page_pool(kc, dtype), page_pool(vc, dtype)
     table, lengths = pages
     o = _paged_ops.paged_attention(q[:, 0], pool_k, pool_v, table, lengths,
                                    scale=1.0 / math.sqrt(hd))

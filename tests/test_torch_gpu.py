@@ -47,7 +47,10 @@ FLASH_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 512, 4, 1, 128, 0),
 PAGED_SHAPES = [(2, 4, 2, 64, 32, 4), (3, 8, 2, 64, 16, 8),
                 (1, 4, 4, 128, 64, 2),
                 (2, 16, 4, 128, 64, 5),                # GQA, hd 128, pages of 64
-                (4, 12, 2, 128, 16, 34)]               # qwen2-vl: G 6, hd 128
+                (4, 12, 2, 128, 16, 34),               # qwen2-vl: G 6, hd 128
+                (4, 48, 1, 128, 16, 34),               # granite-34b: G 48
+                (4, 56, 8, 128, 16, 34),               # yi-34b: G 7
+                (4, 64, 8, 128, 16, 34)]               # deepseek-67b: G 8
 # the backward: GQA, hd 32-128, a window, S = 513 and S = 130 (not a
 # multiple of the 64-row tiles); lse is fp32 arithmetic in both kernels
 # (the bf16 kernel keeps its max in log2 units): measured <= 9.5e-7
@@ -72,7 +75,10 @@ FLASH_BWD_EDGES = ([(2, S, S, 4, 2, 64, 0)
 # that is not a multiple of its split (11 pages -> 6 CTAs of 2)
 PERMUTE_SHAPES = [(4, 32, 32, 64, 16, 34), (4, 32, 32, 80, 16, 34),
                   (2, 8, 2, 64, 16, 11),
-                  (4, 12, 2, 128, 16, 34)]             # qwen2-vl: G 6
+                  (4, 12, 2, 128, 16, 34),             # qwen2-vl: G 6
+                  (4, 48, 1, 128, 16, 34),             # granite-34b: 6 row tiles
+                  (4, 56, 8, 128, 16, 34),             # yi-34b: G 7
+                  (4, 64, 8, 128, 16, 34)]             # deepseek-67b: G 8
 SSD_ATOL, SSD_RTOL = 2e-5, 2e-4                        # tests/test_kernels.py
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 8, 16, 32, 64),
               (2, 64, 2, 64, 64, 64),                  # tests/test_kernels.py
@@ -248,22 +254,52 @@ def test_flash_kernel_reads_mla_layouts(cuda):
                 torch.zeros((B, S, H, hdv), dtype=dt, device=cuda))
 
 
-def test_flash_op_at_mla_head_dims_refuses_a_gradient_on_card(cuda):
-    q = torch.zeros((1, 64, 2, 192), device=cuda, requires_grad=True)
-    v = torch.zeros((1, 64, 2, 128), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_ops.flash_attention(q, q.detach(), v)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_op_at_mla_head_dims_refuses_a_gradient_on_card(cuda, dtype):
+    """The gradient through the flash op at MLA's (192, 128) on the card
+    (the name is from when the op refused it there; it no longer does):
+    the backward kernel against the plain
+    block-recompute backward on the same (q, k, v, o, lse, do), GQA 4:1,
+    causal, S = 200 (not a multiple of the tiles), and against autograd
+    of the op."""
+    rng = np.random.default_rng(9)
+    B, S, H, KH = 2, 200, 8, 2
+    q = _rand(rng, (B, S, H, 192), dtype, cuda).requires_grad_()
+    k = _rand(rng, (B, S, KH, 192), dtype, cuda).requires_grad_()
+    v = _rand(rng, (B, S, KH, 128), dtype, cuda).requires_grad_()
+    do = _rand(rng, (B, S, H, 128), dtype, cuda)
+    y = flash_ops.flash_attention(q, k, v)
+    y.backward(do)
+    o, lse = flash_kernel.flash_attention_fwd(q.detach(), k.detach(),
+                                              v.detach(), with_lse=True)
+    assert torch.equal(y.detach(), o)
+    ref = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o,
+                                  lse, do, q_chunk=64)
+    for t, want in zip((q, k, v), ref):
+        assert t.grad.dtype == dtype and t.grad.shape == t.shape
+        _assert_close(t.grad, want, TOLS[dtype])
 
 
 def test_mixtral_smoke_ring_cache_on_card(cuda):
     """mixtral's smoke model (head_dim 32: the kernels take no 16; window
-    64) on the card decoding past its window through the paged kernel's
-    identity table over the 64-slot ring, each step within RING_TOL of a
-    full forward: ``chip_smoke.phase_ring_cache``, the one copy of this
-    check (its docstring says why every token goes to all 4 experts)."""
+    64; top-2) on the card decoding past its window through the paged
+    kernel's identity table over the 64-slot ring, each step within
+    RING_TOL of a full forward that takes the served routes:
+    ``chip_smoke.phase_ring_cache``, the one copy of this check (its
+    docstring says why the routes are replayed)."""
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
     import chip_smoke
     chip_smoke.phase_ring_cache(cuda)
+
+
+def test_mixtral_smoke_ring_cache_on_card_at_window_40(cuda):
+    """The same at window 40: a cache of 40 slots in 3 pages of 16, whose
+    ring modulus (its logical length) is not the pages' 48; 41 decode
+    steps from a prompt of 80 write every slot and wrap."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    chip_smoke.phase_ring_cache(cuda, window=chip_smoke.RING_ANY_LEN,
+                                steps=chip_smoke.RING_ANY_LEN + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -479,12 +515,47 @@ def test_paged_kernel_permuted_table_bits_at_split_shapes(cuda, B, H, KH, hd,
                                          inv[table.long()], lens)
     torch.cuda.synchronize()
     assert torch.equal(out, out_p)
-    n_split = paged_kernel.plan(nblk, page, H // KH, hd, q.dtype)["n_split"]
+    plan = paged_kernel.plan(nblk, page, H // KH, hd, q.dtype)
     tol = TOLS[torch.bfloat16]
-    _assert_close(out, paged_attention_split_ref(q, kp, vp, table, lens,
-                                                 n_split=n_split), tol)
+    _assert_close(out, paged_attention_split_ref(
+        q, kp, vp, table, lens, n_split=plan["n_split"],
+        row_tiles=plan["row_tiles"]), tol)
     _assert_close(out, paged_ops.paged_attention(
         *[a.cpu() for a in (q, kp, vp, table, lens)]).to(cuda), tol)
+
+
+# (row tiles, rows a tile) the kernel takes at hd 128: at most 1024 / 128
+# = 8 rows a tile, the G rows of a KV head cut evenly
+ROW_TILES = {48: (6, 8), 7: (1, 7), 8: (1, 8), 6: (1, 6), 9: (2, 5)}
+
+
+@pytest.mark.parametrize("G,KH", [(48, 1), (7, 8), (8, 8), (6, 2), (9, 2)])
+def test_paged_kernel_row_tiles(cuda, G, KH):
+    """The query rows of a KV head in row tiles at hd 128 over 34 pages of
+    16 (B 4): granite-34b's G 48 in 6 tiles of 8, yi-34b's 7 and
+    deepseek-67b's 8 in one, qwen2-vl's 6 in one, and G 9 in tiles of 5
+    and 4 (a short last tile), as ``plan`` reports them. The kernel
+    agrees with the plain version and the split twin of its tiles, and
+    a zero-length row gives the mean of V over the table's slots."""
+    B, H, hd, page, nblk = 4, G * KH, 128, 16, 34
+    q, kp, vp, table, _ = _paged_inputs(cuda, torch.bfloat16, B, H, KH, hd,
+                                        page, nblk, seed=13)
+    lens = torch.tensor([nblk * page - 1, 0, 300, 17], dtype=torch.int32,
+                        device=cuda)
+    tol = TOLS[torch.bfloat16]
+    plain = paged_ops.paged_attention(
+        *[a.cpu() for a in (q, kp, vp, table, lens)]).to(cuda)
+    mean_v = vp[table[1].long()].float().reshape(nblk * page, KH, hd) \
+        .mean(0).repeat_interleave(G, dim=0)
+    plan = paged_kernel.plan(nblk, page, G, hd, q.dtype)
+    assert (plan["row_tiles"], plan["rows_per_tile"]) == ROW_TILES[G]
+    out = paged_kernel.paged_attention(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    _assert_close(out, plain, tol)
+    _assert_close(out, paged_attention_split_ref(
+        q, kp, vp, table, lens, n_split=plan["n_split"],
+        row_tiles=plan["row_tiles"]), tol)
+    _assert_close(out[1], mean_v, tol)
 
 
 @pytest.mark.parametrize("KH,hd", [(32, 64), (2, 128)])

@@ -28,6 +28,8 @@ PAGED_SHAPES = [            # tests/test_kernels.py: test_paged_attention_sweep
     (2, 4, 2, 64, 32, 4),
     (3, 8, 2, 64, 16, 8),
     (1, 4, 4, 128, 64, 2),
+    (2, 48, 1, 128, 16, 3),     # granite-34b's G 48 over one KV head
+    (2, 14, 2, 128, 16, 3),     # yi-34b's G 7
 ]
 
 

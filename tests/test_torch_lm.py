@@ -201,31 +201,89 @@ def test_forward_matches_jax_every_arch(arch):
 
 
 def test_mla_training_on_a_card_tensor_raises_and_names_the_roadmap():
-    """The one thing of the JAX package's families that still raises: a
-    deepseek-v2-lite train step off the CPU (parameters and batch on
-    ``meta``: no card needed) stops at its first MLA attention, since the
-    flash backward kernel does not take q/k 192 with v 128 yet (ROADMAP.md
-    Queue 2). On the CPU it trains (``test_torch_moe.py``)."""
+    """A deepseek-v2-lite train step off the CPU (parameters and batch on
+    ``meta``: no card needed) no longer stops at a guard naming the
+    ROADMAP, as the name still says: its first MLA
+    attention reaches the flash forward kernel's wrapper, with lse for the
+    backward, which takes CUDA tensors only and raises for ``meta``. On
+    the card it trains through the (192, 128) backward kernel
+    (``chip_smoke.py``); on the CPU through the plain versions
+    (``test_torch_moe.py``)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     cfg = torch_smoke("deepseek-v2-lite-16b")
     params = tlm.init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
     meta = tree_map(lambda t: t.to("meta"), params)
     t = torch.zeros((2, 16), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_and_grads(cfg, meta, {"tokens": t, "labels": t})
+    calls = []
+    real = flash_ops.flash_attention_fwd
+    flash_ops.flash_attention_fwd = \
+        lambda *a, **kw: calls.append(kw.get("with_lse")) or real(*a, **kw)
+    try:
+        with pytest.raises(ValueError, match="CUDA"):
+            loss_and_grads(cfg, meta, {"tokens": t, "labels": t})
+    finally:
+        flash_ops.flash_attention_fwd = real
+    assert calls == [True]
 
 
 def test_init_cache_needs_whole_pages():
-    _, tcfg = _cfgs("bfloat16")
-    with pytest.raises(ValueError, match="page"):
-        tlm.init_cache(tcfg, 36, 2, device="cpu")
-    c = tlm.init_cache(tcfg, 48, 2, device="cpu")
-    assert c["k"].shape == (tcfg.n_layers, 2, 48, tcfg.n_kv_heads, tcfg.hd)
+    """Any k/v cache length is taken (36 here, not a multiple of the page
+    size; the name is from when one was refused): the cache is allocated in whole pages and shows JAX's shapes,
+    also after ``interop`` and ``grow_cache``; decode reads it in place
+    as a page pool, and a position past the logical length is refused."""
+    jcfg, tcfg = _cfgs("bfloat16")
+    c = tlm.init_cache(tcfg, 36, 2, device="cpu")
+    shape = (tcfg.n_layers, 2, 36, tcfg.n_kv_heads, tcfg.hd)
+    jc = jlm.init_cache(jcfg, 36, 2)
+    for n in ("k", "v"):
+        assert tuple(c[n].shape) == shape == jc[n].shape
+        assert c[n].untyped_storage().nbytes() == \
+            2 * tcfg.n_layers * 2 * 48 * tcfg.n_kv_heads * tcfg.hd
+        layer = c[n][0]
+        pool = tlm.page_pool(layer, torch.bfloat16)
+        assert pool.shape == (2 * 3, tlm.PAGE_SIZE, tcfg.n_kv_heads,
+                              tcfg.hd)
+        assert pool.data_ptr() == layer.data_ptr()     # in place
+    carried = interop.cache_from_numpy(
+        tcfg, {n: np.asarray(a) for n, a in jc.items()}, device="cpu")
+    assert {n: tuple(t.shape) for n, t in carried.items()} == \
+        {n: a.shape for n, a in jc.items()}
+    grown = tlm.grow_cache(tcfg, {n: t[:, :, :20] for n, t in c.items()}, 36)
+    assert tuple(grown["k"].shape) == shape
     params = tlm.init_params(tcfg, torch.Generator().manual_seed(0),
                              device="cpu")
     with pytest.raises(ValueError, match="outside the cache"):
         tlm.decode_step(tcfg, params, c, torch.zeros((2, 1), dtype=torch.int32),
-                        48)
+                        36)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "zamba2-2.7b"])
+def test_generate_at_any_cache_length_equals_jax_serve_loop(arch):
+    """A cache of 40 positions (two and a half pages): the port generates
+    the JAX package's tokens, from a carried-over-shape cache the paged op
+    reads in whole pages (dense, and hybrid's tied attention block)."""
+    jcfg, tcfg = _cfgs("float32", arch)
+    jp, tp = _weights(jcfg, tcfg, seed=2)
+    prompt = _tokens(jcfg, (2, 12), seed=3)
+    jgen = JaxServeLoop(jcfg, jp, max_len=40).generate(jnp.asarray(prompt), 4)
+    tgen = ServeLoop(tcfg, tp, max_len=40, device="cpu").generate(prompt, 4)
+    assert tuple(tgen.shape) == (2, 4)
+    np.testing.assert_array_equal(tgen.numpy(), np.asarray(jgen))
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "yi-34b", "deepseek-67b"])
+def test_generate_tokens_equal_jax_serve_loop_dense_archs(arch):
+    """The generate-vs-JAX test over the other dense configs: granite-34b
+    (MQA, 4 query heads over 1 KV head at smoke size, gelu MLP), yi-34b
+    and deepseek-67b (GQA 4:1)."""
+    jcfg, tcfg = _cfgs("float32", arch)
+    jp, tp = _weights(jcfg, tcfg, seed=2)
+    prompt = _tokens(jcfg, (2, 16), seed=3)
+    jgen = JaxServeLoop(jcfg, jp, max_len=32).generate(jnp.asarray(prompt), 8)
+    tgen = ServeLoop(tcfg, tp, max_len=32, device="cpu").generate(prompt, 8)
+    assert tgen.dtype == torch.int32 and tuple(tgen.shape) == (2, 8)
+    np.testing.assert_array_equal(tgen.numpy(), np.asarray(jgen))
 
 
 # ---------------------------------------------------------------------------
@@ -365,8 +423,8 @@ def test_ssm_prefill_decode_consistency(arch, compute_dtype):
 
 
 def test_ssm_cache_layout():
-    """ssm has no k/v (so no page rule); hybrid has k/v for its
-    n_layers / attn_every attention applications."""
+    """ssm has no k/v (so no pages); hybrid has k/v for its
+    n_layers / attn_every attention applications, of any length."""
     _, mcfg = _cfgs("bfloat16", "mamba2-130m")
     c = tlm.init_cache(mcfg, 36, 2, device="cpu")     # 36: no whole pages
     s = mcfg.ssm
@@ -377,9 +435,8 @@ def test_ssm_cache_layout():
     assert c["conv_x"].shape == (mcfg.n_layers, 2, s.d_conv - 1, di)
     assert c["conv_b"].dtype == torch.bfloat16
     _, zcfg = _cfgs("bfloat16", "zamba2-2.7b")
-    with pytest.raises(ValueError, match="page"):
-        tlm.init_cache(zcfg, 36, 2, device="cpu")
-    c = tlm.init_cache(zcfg, 48, 2, device="cpu")
     G = zcfg.n_layers // zcfg.attn_every
-    assert c["k"].shape == (G, 2, 48, zcfg.n_kv_heads, zcfg.hd)
+    for S in (36, 48):                   # any length: whole pages inside
+        c = tlm.init_cache(zcfg, S, 2, device="cpu")
+        assert c["k"].shape == (G, 2, S, zcfg.n_kv_heads, zcfg.hd)
     assert c["ssm"].shape[0] == zcfg.n_layers

@@ -152,11 +152,10 @@ def test_plain_flash_at_mla_head_dims_matches_jax(S, q_chunk):
 
 def test_flash_op_at_mla_head_dims_guards_the_card(monkeypatch):
     """On a tensor that is not on the CPU (here ``meta``: no card needed),
-    a flash call at q/k 192, v 128 that needs a gradient raises
-    ``NotImplementedError`` naming the ROADMAP item, before any work: the
-    backward kernel does not take those head dims yet. Without a gradient
-    it goes on to the forward kernel's wrapper (which takes CUDA tensors
-    only). At equal head dims a gradient goes through too."""
+    a flash call at q/k 192, v 128 goes to the forward kernel's wrapper
+    (which takes CUDA tensors only, and raises for anything else), with a
+    gradient as without one: the backward kernel takes those head dims
+    too, so no guard stops it first. At equal head dims the same."""
     meta = torch.device("meta")
     calls = []
     real = flash_ops.flash_attention_fwd
@@ -166,16 +165,16 @@ def test_flash_op_at_mla_head_dims_guards_the_card(monkeypatch):
     q = torch.empty((1, 64, 2, 192), device=meta, requires_grad=True)
     k = torch.empty((1, 64, 2, 192), device=meta)
     v = torch.empty((1, 64, 2, 128), device=meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_ops.flash_attention(q, k, v)
-    assert calls == []
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash_ops.flash_attention(q, k, v)
     assert calls == [128]
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        flash_ops.flash_attention(q, k, v)
+    assert calls == [128, 128]
     q64 = torch.empty((1, 64, 2, 128), device=meta, requires_grad=True)
     with pytest.raises(ValueError, match="CUDA"):
         flash_ops.flash_attention(q64, q64.detach(), v)
-    assert calls == [128, 128]
+    assert calls == [128, 128, 128]
 
 
 def test_mla_cache_layout():

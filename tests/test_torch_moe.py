@@ -287,6 +287,21 @@ def test_generate_tokens_equal_jax_serve_loop(arch):
     np.testing.assert_array_equal(tgen.numpy(), np.asarray(jgen))
 
 
+def test_generate_at_any_cache_length_equals_jax_serve_loop():
+    """mixtral's sliding-window cache at 40 positions (two and a half
+    pages, under the smoke window of 64): 32 new tokens from a prompt of
+    12 run past position 40, so decode writes the ring at pos % 40, the
+    logical length, as JAX does, and reads it through whole pages."""
+    jcfg, tcfg = _cfgs("mixtral-8x22b")
+    jp, tp = _weights(jcfg, tcfg, seed=2)
+    prompt = _tokens(jcfg, (2, 12), seed=3)
+    jgen = JaxServeLoop(jcfg, jp, max_len=40).generate(jnp.asarray(prompt),
+                                                        32)
+    tgen = ServeLoop(tcfg, tp, max_len=40, device="cpu").generate(prompt, 32)
+    assert tuple(tgen.shape) == (2, 32)
+    np.testing.assert_array_equal(tgen.numpy(), np.asarray(jgen))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_loss_and_gradients_match_jax(arch):
     """One step's loss (cross-entropy + the MoE aux) and every gradient

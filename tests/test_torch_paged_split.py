@@ -1,7 +1,8 @@
 """The plain split-merge version of the paged decode kernel
-(``paged_attention_split_ref``, the CUDA kernel's decomposition in PyTorch)
-against the Pallas ``paged_attention`` in interpret mode and against
-``paged_attention_ref``, on the same numpy inputs."""
+(``paged_attention_split_ref``, the CUDA kernel's decomposition in PyTorch,
+its row tiles included) against the Pallas ``paged_attention`` in
+interpret mode and against ``paged_attention_ref``, on the same numpy
+inputs."""
 
 import functools
 
@@ -117,3 +118,30 @@ def test_split_ref_matches_plain_at_decode_lengths():
             paged_attention_split_ref(q, kp, vp, table, lens, n_split=7),
             paged_attention_ref(q, kp, vp, table, lens),
             atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("R", [6, 1, 10, 48])
+def test_row_split_ref_matches_plain_and_pallas_at_granite_g(R):
+    """granite-34b's 48 query rows over one KV head at hd 128 in R row
+    tiles with a page split: 6 of 8 (the kernel's: 1024 // hd rows a
+    tile), 1 of 48, 10 of 5 with the last of 3, 48 of 1; against the
+    plain version (to summation order) and the Pallas kernel in
+    interpret mode."""
+    rng = np.random.default_rng(21)
+    B, G, hd, page, nblk = 2, 48, 128, 16, 3
+    npool = B * nblk + 2
+    q = rng.standard_normal((B, G, hd), np.float32)
+    kp = rng.standard_normal((npool, page, 1, hd), np.float32)
+    vp = rng.standard_normal((npool, page, 1, hd), np.float32)
+    table = rng.permutation(npool)[:B * nblk].reshape(B, nblk) \
+        .astype(np.int32)
+    lens = np.asarray([nblk * page - 5, 0], np.int32)   # and a zero length
+    T = torch.from_numpy
+    out = paged_attention_split_ref(T(q), T(kp), T(vp), T(table), T(lens),
+                                    n_split=2, row_tiles=R)
+    plain = paged_attention_ref(T(q), T(kp), T(vp), T(table), T(lens))
+    torch.testing.assert_close(out, plain, atol=3e-5, rtol=3e-5)
+    pallas = pk_paged(*(jnp.asarray(a) for a in (q, kp, vp, table, lens)),
+                      interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), atol=3e-5,
+                               rtol=3e-5)
