@@ -97,7 +97,19 @@ Phases (any failure raises, and the script exits nonzero):
    (stablelm, zamba2) a
    smoke-size run that crashes at step 8 and restarts from the ring
    checkpoint of step 5 must end bitwise equal to the uninterrupted run,
-   under ``torch.use_deterministic_algorithms(True)``;
+   under ``torch.use_deterministic_algorithms(True)``. Then the mesh
+   path: a 1 x 1 ("data", "model") mesh (``make_local_mesh``) over a
+   one-rank NCCL group; ``stablelm-1.6b`` trains 3 steps on it
+   (``TrainLoop(mesh=, rules=)``, parameters placed by ``param_specs``),
+   saves a ring checkpoint on the mesh and ``restore(shardings=None)``
+   must give its leaves back bit for bit; ``deepseek-v2-lite-16b`` (its
+   dense and one MoE layer) trains 3 steps with ``moe_impl="shard_map"``
+   (dispatch and combine through ``all_to_all_single``); ``zamba2-2.7b``
+   prefills 4 x 512 (the SSD kernel on the mesh's blocks). Each against
+   its ``mesh=None`` twin from the same seed (losses and watched leaves
+   within 1e-5 relative; deepseek's routes replayed; zamba2's logits and
+   cache within the hybrid tolerance), whether bit-identical printed,
+   with both runs' step times and launches;
 4. device times (CUDA events over launches queued behind a held stream,
    after warm-up) of each kernel, its plain version, its bound and, where
    one PyTorch call computes the same function, that call as a yardstick
@@ -133,6 +145,7 @@ Without a CUDA device the script prints no result and exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -180,6 +193,7 @@ from repro_torch.launch.steps import (loss_and_grads,        # noqa: E402
 from repro_torch.models import attention as attn               # noqa: E402
 from repro_torch.models import lm                              # noqa: E402
 from repro_torch.models import moe as moe_mod                  # noqa: E402
+from repro_torch.models import partitioning as part           # noqa: E402
 from repro_torch.optim import (adamw_init, adamw_update,       # noqa: E402
                                cosine_schedule)
 from repro_torch.serve import KVPager, PagerConfig, ServeLoop  # noqa: E402
@@ -1891,7 +1905,9 @@ def peak_holders(arch, loop, batch, top=10):
 
 
 def _plain_flash(q, k, v, *, causal=True, window=0, q_chunk=512, k_chunk=0,
-                 scale=None, schedule="triangular"):
+                 scale=None, schedule="triangular", mesh=None, rules=None):
+    if mesh is not None:
+        raise ValueError("the plain attention stands in off the mesh only")
     return attn.reference_attention(q, k, v, causal=causal, window=window,
                                     scale=scale)
 
@@ -2038,6 +2054,285 @@ def phase_train_restart(dev, ckpt_dir, arch):
         f"uninterrupted {RESTART_STEPS} steps under "
         f"use_deterministic_algorithms; ops without a deterministic CUDA "
         f"version on the path: {nondet or 'none'}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the mesh path on a 1 x 1 ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# the mesh phase: each model's mesh run and its mesh=None twin, from one
+# seed, one after the other (stablelm's two training states are 26.3 GB
+# each: 1.644 B parameters x 16 B); deepseek-v2-lite-16b at its dense
+# layer and one MoE layer (1.085 B parameters, 17.4 GB of state), through
+# the explicit all-to-all (G = 16 at 4096 tokens a row)
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_LAYERS = {"deepseek-v2-lite-16b": 2}
+# one rank runs the same kernels on the same bytes as mesh=None: held to
+# 1e-5 relative (losses; the watched leaves' L2), and the bits reported
+MESH_RTOL = 1e-5
+
+
+def mesh_train_config(arch):
+    cfg = train_config(arch)
+    if arch in MESH_TRAIN_LAYERS:
+        cfg = cfg.replace(n_layers=MESH_TRAIN_LAYERS[arch],
+                          moe_impl="shard_map")
+    return cfg
+
+
+class StepTimer:
+    """Wraps a loop's step function: the host time of each step, ended by a
+    synchronize (the first step included, its warm-up)."""
+
+    def __init__(self, loop):
+        self.fn, self.ms = loop.step_fn, []
+        loop.step_fn = self
+
+    def __call__(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def steady_ms(self):
+        return float(np.mean(self.ms[1:]))
+
+
+def mesh_train_run(dev, corpus, arch, mesh, ckpt_dir=None, routes=None):
+    """A TrainLoop of MESH_TRAIN_STEPS steps on ``mesh`` (or without one)
+    from seed 0 and the ring's batches, under ``routes`` (a MoERoutes) if
+    given: (losses, watched leaves on the host, ms a step after the
+    first, launches, loop)."""
+    cfg = mesh_train_config(arch)
+    rules = part.rules_for(mesh, TRAIN_B) if mesh is not None else None
+    loop = TrainLoop(cfg, TrainLoopConfig(
+        total_steps=MESH_TRAIN_STEPS, log_every=1,
+        ckpt_every=MESH_TRAIN_STEPS - 1 if ckpt_dir else 10 ** 9,
+        ckpt_dir=ckpt_dir or tempfile.gettempdir()),
+        train_data(cfg, corpus, dev), mesh=mesh, rules=rules, seed=0,
+        device=dev)
+    timer = StepTimer(loop)
+    torch.cuda.synchronize()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    with routes if routes is not None else contextlib.nullcontext():
+        loop.run()
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    want = train_launches(cfg, MESH_TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"mesh train {arch} (mesh {mesh is not None}): "
+                             f"launches {launches} != {want}")
+    losses = [m["loss"] for m in loop.metrics_log]
+    if len(losses) != MESH_TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"mesh train {arch}: losses {losses}")
+    watch = {n: part.full(t).detach().float().cpu()
+             for n, t in watched(cfg, loop.params).items()}
+    return losses, watch, timer.steady_ms(), launches, loop
+
+
+def compare_runs(what, a, b):
+    """(largest relative loss error, largest watched-leaf relative L2,
+    bit-identical) of two mesh_train_run results; over MESH_RTOL raises."""
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(a[0], b[0]))
+    l2 = max(float((a[1][n] - b[1][n]).norm() / b[1][n].norm())
+             for n in b[1])
+    same = a[0] == b[0] and all(torch.equal(a[1][n], b[1][n]) for n in b[1])
+    if not (loss_err <= MESH_RTOL and l2 <= MESH_RTOL):
+        raise AssertionError(f"{what}: mesh vs mesh=None losses {a[0]} vs "
+                             f"{b[0]} (rel {loss_err:.3e}), watched leaves "
+                             f"relative L2 {l2:.3e} > {MESH_RTOL}")
+    return loss_err, l2, same
+
+
+def mesh_stablelm(dev, corpus, mesh, ckpt_dir):
+    """stablelm-1.6b at full width and depth: 3 TrainLoop steps on the mesh
+    (parameters placed by param_specs), a ring checkpoint of the last
+    step, ``restore(shardings=None)`` bitwise; then the mesh=None loop."""
+    arch = "stablelm-1.6b"
+    res = mesh_train_run(dev, corpus, arch, mesh, ckpt_dir=ckpt_dir)
+    loop = res[4]
+    t0 = time.perf_counter()
+    saved = tree_leaves({"params": loop.params, "opt": loop.opt_state})
+    step = loop.restore(shardings=None)
+    restored = tree_leaves({"params": loop.params, "opt": loop.opt_state})
+    if step != MESH_TRAIN_STEPS - 1 or len(restored) != len(saved):
+        raise AssertionError(f"mesh restore: step {step}")
+    differ = [i for i, (a, b) in enumerate(zip(saved, restored))
+              if isinstance(b, part.DTensor)
+              or not torch.equal(part.full(a), b)]
+    if differ:
+        raise AssertionError(f"mesh restore: leaves {differ} differ")
+    ckpt_s = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in restored)
+    del saved, restored, loop
+    res = res[:4]
+    free_card()
+    none = mesh_train_run(dev, corpus, arch, None)[:4]
+    free_card()
+    loss_err, l2, same = compare_runs(arch, res, none)
+    log(f"mesh[{arch}]: {MESH_TRAIN_STEPS} steps on the 1 x 1 mesh: losses "
+        f"{res[0]}; mesh=None {none[0]}: loss rel err {loss_err:.3e}, "
+        f"watched leaves rel L2 {l2:.3e} (tol {MESH_RTOL}); bit-identical: "
+        f"{same}; step {res[2]:.3f} ms (mesh) vs {none[2]:.3f} ms "
+        f"(mesh=None), host clock after the first step; launches "
+        f"{res[3]} each; ring checkpoint of step {step} ({n_bytes / 1e9:.2f} "
+        f"GB) saved on the mesh and restore(shardings=None) bitwise in "
+        f"{ckpt_s:.1f} s")
+    return res[3], {"losses": res[0], "losses_mesh_none": none[0],
+                    "loss_rel_err": loss_err, "watched_rel_l2": l2,
+                    "bit_identical": same, "step_ms": res[2],
+                    "step_ms_mesh_none": none[2],
+                    "launches_mesh_none": none[3],
+                    "restore_bitwise_gb": n_bytes / 1e9}
+
+
+def mesh_deepseek(dev, corpus, mesh):
+    """deepseek-v2-lite-16b, 1 dense + 1 MoE layer, moe_impl="shard_map"
+    (the dispatch and combine through all_to_all_single): 3 steps on the
+    mesh, then mesh=None (the constraint-free gshard path) taking the mesh
+    run's routes, its own differing only by near-ties (FLIP_GAPS)."""
+    from repro_torch.distributed import a2a as a2a_mod
+    arch = "deepseek-v2-lite-16b"
+    calls, inner = [0], a2a_mod._a2a
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+    a2a_mod._a2a = counted
+    mesh_routes = MoERoutes()
+    try:
+        res = mesh_train_run(dev, corpus, arch, mesh, routes=mesh_routes)[:4]
+    finally:
+        a2a_mod._a2a = inner
+    free_card()
+    cfg = mesh_train_config(arch)
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    # a MoE layer: dispatch and combine forward, again in the remat
+    # recompute, and both backward
+    want_a2a = 6 * n_moe * MESH_TRAIN_STEPS
+    if calls[0] != want_a2a:
+        raise AssertionError(f"mesh {arch}: {calls[0]} all-to-alls, "
+                             f"expected {want_a2a}")
+    forced = MoERoutes(force=lambda i, probs, ids: mesh_routes.calls[i][1])
+    none = mesh_train_run(dev, corpus, arch, None, routes=forced)[:4]
+    free_card()
+    gap_tol = FLIP_GAPS[cfg.compute_dtype]
+    flips = route_flips(forced.calls,
+                        [ids.reshape(-1, ids.shape[-1])
+                         for _, ids in mesh_routes.calls],
+                        cfg.moe.top_k, lambda t: t.reshape(-1, t.shape[-1]),
+                        gap_tol)
+    loss_err, l2, same = compare_runs(arch, res, none)
+    log(f"mesh[{arch}]: {cfg.n_layers} layers, moe_impl=shard_map, "
+        f"{MESH_TRAIN_STEPS} steps on the 1 x 1 mesh ({calls[0]} "
+        f"all_to_all_single calls through NCCL): losses {res[0]}; mesh=None "
+        f"{none[0]}: loss rel err {loss_err:.3e}, watched leaves rel L2 "
+        f"{l2:.3e} (tol {MESH_RTOL}); bit-identical: {same}; route flips "
+        f"{len(flips)} (near-ties <= {gap_tol:.1e}); step {res[2]:.3f} ms "
+        f"(mesh) vs {none[2]:.3f} ms (mesh=None); launches {res[3]} each")
+    return res[3], {"losses": res[0], "losses_mesh_none": none[0],
+                    "loss_rel_err": loss_err, "watched_rel_l2": l2,
+                    "bit_identical": same, "route_flips": len(flips),
+                    "all_to_all_calls": calls[0], "step_ms": res[2],
+                    "step_ms_mesh_none": none[2],
+                    "launches_mesh_none": none[3]}
+
+
+def mesh_zamba2(dev, mesh):
+    """zamba2-2.7b's prefill at the serving shape (4 prompts of 512 from
+    the numpy seed) by make_prefill_step on the mesh (the SSD kernel on
+    each rank's block) against mesh=None: logits and every cache leaf
+    within the hybrid tolerance."""
+    arch = "zamba2-2.7b"
+    cfg = serve_config(arch)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    rules = part.rules_for(mesh, BATCH)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)).to(dev)
+    out = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        p = lm.place_params(cfg, params, m, rules) if m is not None \
+            else params
+        step = make_prefill_step(cfg, m, rules)
+        with torch.no_grad():
+            step(p, {"tokens": tokens})                 # warm-up
+            torch.cuda.synchronize()
+            for fn in KERNELS.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            logits, cache = step(p, {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: fn.launches for n, fn in KERNELS.items()}
+        out[name] = (part.full(logits), {k: part.full(t)
+                                         for k, t in cache.items()},
+                     ms, launches)
+        del p
+    del params
+    want = {n: 0 for n in KERNELS}
+    want.update(flash_attention_fwd=cfg.n_layers // cfg.attn_every,
+                ssd_chunk_call=cfg.n_layers)
+    if out["mesh"][3] != want or out["none"][3] != want:
+        raise AssertionError(f"mesh {arch} prefill launches "
+                             f"{out['mesh'][3]} / {out['none'][3]} != {want}")
+    atol, rtol = LOGIT_TOLS[cfg.family]
+    errs = {"logits": check_close(f"mesh {arch} logits", out["mesh"][0],
+                                  out["none"][0], atol, rtol)}
+    for k in out["none"][1]:
+        errs[k] = check_close(f"mesh {arch} cache {k}", out["mesh"][1][k],
+                              out["none"][1][k], atol, rtol)
+    same = torch.equal(out["mesh"][0], out["none"][0]) and all(
+        torch.equal(out["mesh"][1][k], out["none"][1][k])
+        for k in out["none"][1])
+    log(f"mesh[{arch}]: prefill {BATCH}x{PROMPT} on the 1 x 1 mesh vs "
+        f"mesh=None: max abs err {errs} (atol {atol} rtol {rtol}); "
+        f"bit-identical: {same}; {out['mesh'][2]:.3f} ms (mesh) vs "
+        f"{out['none'][2]:.3f} ms (mesh=None), host clock, one call after a "
+        f"warm-up; launches {out['mesh'][3]} each")
+    result = {"max_abs_err": errs, "bit_identical": same,
+              "prefill_ms": out["mesh"][2],
+              "prefill_ms_mesh_none": out["none"][2],
+              "launches_mesh_none": out["none"][3]}
+    launches = out["mesh"][3]
+    del out
+    free_card()
+    return launches, result
+
+
+def phase_mesh(dev, tmp):
+    """The mesh path on the card: a 1 x 1 ("data", "model") mesh
+    (``make_local_mesh``) over a one-rank NCCL group (a FileStore: no
+    network); stablelm-1.6b and deepseek-v2-lite-16b train (on the ring
+    corpora the training phase wrote into ``tmp``) and zamba2-2.7b
+    prefills on it, each against its mesh=None twin. Returns (launches by
+    path, results)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "mesh_store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_local_mesh()
+        log(f"mesh: {mesh} over a one-rank NCCL group")
+        launches, results = {}, {}
+        corpus = {a: os.path.join(tmp, f"{a}.bin") for a in TRAIN_ARCHS}
+        for arch, fn in (
+                ("stablelm-1.6b", lambda: mesh_stablelm(
+                    dev, corpus["stablelm-1.6b"], mesh,
+                    os.path.join(tmp, "ckpt_mesh"))),
+                ("deepseek-v2-lite-16b", lambda: mesh_deepseek(
+                    dev, corpus["deepseek-v2-lite-16b"], mesh)),
+                ("zamba2-2.7b", lambda: mesh_zamba2(dev, mesh))):
+            kind = "prefill" if arch == "zamba2-2.7b" else "train"
+            launches[f"mesh {kind} {arch}"], results[arch] = fn()
+            free_card()
+    finally:
+        dist.destroy_process_group()
+    return launches, results
 
 
 # ---------------------------------------------------------------------------
@@ -2709,11 +3004,13 @@ def main() -> int:
                 phase_train_restart(dev, os.path.join(tmp, f"ckpt_{arch}"),
                                     arch)
                 free_card()
+        mesh_launches, mesh_results = phase_mesh(dev, tmp)
+        launches.update(mesh_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     times, extra_times = phase_kernel_times(dev)
     paths = ARCHS + tuple(f"train {a}" for a in TRAIN_ARCHS) \
-        + tuple(f"pager {a}" for a in PAGER_ARCHS)
+        + tuple(f"pager {a}" for a in PAGER_ARCHS) + tuple(mesh_launches)
     kernels = []
     for kname, src, replaces in (
             ("flash_attention_fwd", "src/repro_torch/csrc/flash_fwd.cu",
@@ -2761,7 +3058,8 @@ def main() -> int:
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve_times,
-                      "train": train_times, "pager": pager}))
+                      "train": train_times, "pager": pager,
+                      "mesh": mesh_results}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

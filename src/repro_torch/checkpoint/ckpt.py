@@ -16,7 +16,13 @@ guideline). Leaves are listed in ``jax.tree_util.tree_flatten`` order
 the dtype name ``bfloat16``, as the JAX package stores them.
 
 Restore reads the leaves into host memory and places each on the device
-of the matching leaf of the tree it is given.
+of the matching leaf of the tree it is given, or, given ``shardings``,
+splits it onto any mesh (elastic: not necessarily the one that saved).
+
+On a mesh a DTensor leaf is saved as its whole value (``full_tensor``, a
+collective every rank takes part in); under ``torch.distributed`` only
+global rank 0 writes, and every rank returns once the checkpoint is
+published.
 """
 
 from __future__ import annotations
@@ -28,16 +34,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import FileBackend, IoUring, SetupFlags, Timeline
 from repro_torch.core.ring import prep_fsync, prep_write
+from repro_torch.models import partitioning as part
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 
 def _to_numpy(leaf):
     """(array of the leaf's bytes, dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        t = part.full(leaf.detach()).cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         a = t.numpy()
@@ -55,16 +63,26 @@ def _from_numpy(a, name, like):
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3,
                     timeline: Optional[Timeline] = None) -> str:
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    leaves, _ = tree_flatten(tree)
+    arrays, names = zip(*(_to_numpy(x) for x in leaves)) if leaves \
+        else ((), ())
+    if dist.is_initialized():
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, arrays, names, keep, timeline)
+        dist.barrier()
+    else:
+        _write(ckpt_dir, step, arrays, names, keep, timeline)
+    return final
+
+
+def _write(ckpt_dir, step, arrays, names, keep, timeline):
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     data_path = os.path.join(tmp, "data.bin")
-
-    leaves, _ = tree_flatten(tree)
-    arrays, names = zip(*(_to_numpy(x) for x in leaves)) if leaves \
-        else ((), ())
     offsets, off = [], 0
     for a in arrays:
         offsets.append(off)
@@ -111,7 +129,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3,
     for s in steps[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"),
                       ignore_errors=True)
-    return final
 
 
 def latest_steps(ckpt_dir: str) -> list:
@@ -130,24 +147,33 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def load_checkpoint(ckpt_dir: str, step: int, like_tree):
+def load_checkpoint(ckpt_dir: str, step: int, like_tree, *,
+                    shardings=None):
     """Restore into the structure of ``like_tree``: each leaf comes back
     with its stored dtype and shape, on the device of the matching leaf
-    of ``like_tree`` (the CPU where that leaf is not a tensor)."""
+    of ``like_tree`` (the CPU where that leaf is not a tensor), or, where
+    ``shardings`` is a matching tree of ``NamedSharding``s, as a DTensor
+    placed by it (elastic: the target mesh may differ from the one that
+    saved)."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     leaves, treedef = tree_flatten(like_tree)
     assert len(leaves) == len(manifest["leaves"]), "tree mismatch"
     data = np.memmap(os.path.join(d, "data.bin"), dtype=np.uint8, mode="r")
+    sh_leaves = tree_flatten(shardings)[0] if shardings is not None \
+        else [None] * len(leaves)
     out = []
-    for like, meta in zip(leaves, manifest["leaves"]):
+    for like, meta, sh in zip(leaves, manifest["leaves"], sh_leaves):
         name = meta["dtype"]
         dt = np.dtype(np.uint16 if name == "bfloat16" else name)
         a = np.frombuffer(data, dtype=dt,
                           count=int(np.prod(meta["shape"], dtype=np.int64)),
                           offset=meta["offset"]).reshape(meta["shape"])
-        out.append(_from_numpy(a, name, like))
+        t = _from_numpy(a, name, like)
+        if sh is not None:
+            t = part.place(t.to(sh.mesh.device_type), sh)
+        out.append(t)
     return tree_unflatten(treedef, out)
 
 
@@ -164,8 +190,9 @@ class Checkpointer:
             return save_checkpoint(self.dir, step, tree, keep=self.keep)
         return None
 
-    def restore_or(self, like_tree):
+    def restore_or(self, like_tree, shardings=None):
         s = latest_step(self.dir)
         if s is None:
             return None, 0
-        return load_checkpoint(self.dir, s, like_tree), s
+        return load_checkpoint(self.dir, s, like_tree,
+                               shardings=shardings), s

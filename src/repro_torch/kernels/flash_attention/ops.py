@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import reject_dtensor
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                         flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
@@ -28,6 +29,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, q_chunk, k_chunk,
                 schedule):
+        reject_dtensor(q, k, v)
         need_grad = any(ctx.needs_input_grad[:3])
         if q.device.type == "cpu":
             o, lse = flash_attention_fwd_ref(
@@ -64,7 +66,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, S, H, hd); k: (B, Sk, KH, hd), v: (B, Sk, KH, hd_v).
     Returns (B, S, H, hd_v), differentiable in q, k and v (on the card at
     the head dims both kernels take: one for q, k and v, or MLA's
-    (192, 128))."""
+    (192, 128)). A DTensor raises ``TypeError``."""
+    reject_dtensor(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, bool(causal), int(window),

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import reject_dtensor
 from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_bwd, ssd_chunk_call
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
@@ -27,6 +28,7 @@ class SSDChunk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A_log, B_, C_, chunk):
+        reject_dtensor(x, dt, A_log, B_, C_)
         pieces = ssd_chunk_ref if x.device.type == "cpu" else ssd_chunk_call
         out = pieces(x, dt, A_log, B_, C_, chunk=chunk)
         if any(ctx.needs_input_grad[:5]):
@@ -47,7 +49,9 @@ class SSDChunk(torch.autograd.Function):
 def ssd(x, dt, A_log, B_, C_, D_, *, chunk: int = 256, state=None):
     """x: (B, S, nh, hp); dt: (B, S, nh) (post-softplus, fp32); A_log, D_:
     (nh,); B_/C_: (B, S, ns); state: (B, nh, hp, ns) or None.
-    Returns (y (B, S, nh, hp) in x's dtype, final_state fp32)."""
+    Returns (y (B, S, nh, hp) in x's dtype, final_state fp32). A DTensor
+    raises ``TypeError``."""
+    reject_dtensor(x, dt, A_log, B_, C_, D_, state)
     B, S, nh, hp = x.shape
     ns = B_.shape[-1]
     cl = min(chunk, S)

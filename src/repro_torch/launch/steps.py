@@ -1,46 +1,70 @@
-"""train_step / serve_step / prefill_step factories and the LM loss (the
-port's counterpart of ``repro.launch.steps`` on the ``mesh=None`` path).
+"""train_step / serve_step / prefill_step factories, the LM loss and the
+sharding assembly of a cell (the port's counterpart of
+``repro.launch.steps``, its ``mesh=None`` path and its mesh path).
 
 A train step is: ``lm.forward`` (each layer rematerialised when
 ``cfg.remat``; attention through the flash kernel), ``ce_loss``, the
 backward (the flash backward kernel, cuBLAS for the matmuls), then AdamW
 with a cosine schedule and clipping (``repro_torch.optim``), which
 updates the parameters and the optimizer state in place.
+
+On a mesh (``mesh``, ``rules``) the parameters and optimizer state are
+DTensors (``lm.place_params``; AdamW keeps their placements, and its
+global norm is the norm of the whole gradient), the batch may be plain
+(placed by ``lm.forward``).
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
 from repro_torch.models import lm
-from repro_torch.optim import adamw_update, cosine_schedule
+from repro_torch.models import partitioning as part
+from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.compression import compress_decompress
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
-def ce_loss(cfg, logits, labels):
+def ce_loss(cfg, logits, labels, mesh=None, rules=None):
     """Cross-entropy over the (padded) vocab, the mean over every position
     (audio: (B, S, K, V) logits and (B, S, K) labels, every codebook's
-    position counted)."""
+    position counted); on a mesh the logits are constrained vocab-sharded
+    first, as JAX's."""
     lf = logits.float()
+    if mesh is not None:
+        ax = ("batch", None, None, "vocab") if cfg.n_codebooks else \
+            ("batch", None, "vocab")
+        lf = part.constrain(lf, mesh, *ax, rules=rules)
     lse = torch.logsumexp(lf, dim=-1)
-    true_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    true_logit = torch.gather(lf, -1, labels.long()[..., None])
+    if mesh is not None:
+        # reduced while it still has its gathered dim: DTensor cannot
+        # reduce a vocab-masked partial sum once that dim is dropped
+        true_logit = part.constrain(true_logit, mesh, "batch",
+                                    *(None,) * (lf.ndim - 1), rules=rules)
+    true_logit = true_logit[..., 0]
     return (lse - true_logit).mean()
 
 
-def loss_fn(cfg, params, batch):
-    logits, aux, _ = lm.forward(cfg, params, batch)
-    return ce_loss(cfg, logits, batch["labels"]) + aux
+def loss_fn(cfg, params, batch, mesh=None, rules=None):
+    if mesh is not None:
+        batch = lm.place_batch(cfg, batch, mesh, rules)
+    logits, aux, _ = lm.forward(cfg, params, batch, mesh=mesh, rules=rules)
+    return ce_loss(cfg, logits, batch["labels"], mesh, rules) + aux
 
 
-def _loss_and_grads_one(cfg, params, batch):
+def _loss_and_grads_one(cfg, params, batch, mesh, rules):
     leaves, treedef = tree_flatten(params)
     # a batch of patch embeddings (vlm) does not read the token embedding:
     # its gradient is zero, as JAX gives it; every other leaf must be used
     unread = params["embed"] if "embeds" in batch else None
     with torch.enable_grad():
         live = [p.detach().requires_grad_(p is not unread) for p in leaves]
-        loss = loss_fn(cfg, tree_unflatten(treedef, live), batch)
+        loss = loss_fn(cfg, tree_unflatten(treedef, live), batch, mesh,
+                       rules)
         grads = iter(torch.autograd.grad(
             loss, [t for t in live if t.requires_grad]))
     out = [next(grads) if t.requires_grad else torch.zeros_like(t)
@@ -48,7 +72,7 @@ def _loss_and_grads_one(cfg, params, batch):
     return loss.detach(), tree_unflatten(treedef, out)
 
 
-def loss_and_grads(cfg, params, batch):
+def loss_and_grads(cfg, params, batch, mesh=None, rules=None):
     """(loss, grads) of one batch: grads is a tree like ``params`` (each
     leaf in its parameter's dtype; fp32 when accumulated); ``params``
     themselves are not marked as requiring grad. With cfg.microbatches > 1
@@ -58,7 +82,7 @@ def loss_and_grads(cfg, params, batch):
     the JAX package's scan)."""
     nmb = cfg.microbatches
     if nmb <= 1:
-        return _loss_and_grads_one(cfg, params, batch)
+        return _loss_and_grads_one(cfg, params, batch, mesh, rules)
     mbs = {k: v.reshape((nmb, v.shape[0] // nmb) + tuple(v.shape[1:]))
            for k, v in batch.items() if k != "pos3"}
     if "pos3" in batch:
@@ -66,18 +90,19 @@ def loss_and_grads(cfg, params, batch):
         mbs["pos3"] = p3.reshape((3, nmb, p3.shape[1] // nmb)
                                  + tuple(p3.shape[2:])).transpose(0, 1)
     loss = 0.0
-    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     for i in range(nmb):
         l, g = _loss_and_grads_one(cfg, params,
-                                   {k: v[i] for k, v in mbs.items()})
+                                   {k: v[i] for k, v in mbs.items()},
+                                   mesh, rules)
         loss = loss + l
         tree_map(lambda acc, x: acc.add_(x), grads, g)
     return loss / nmb, tree_map(lambda g: g / nmb, grads)
 
 
-def make_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
-                    total_steps: int = 10_000):
+def make_train_step(cfg, mesh=None, rules=None, *, peak_lr: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10_000):
     """Returns train_step(params, opt_state, batch) -> (params, opt,
     metrics), or, when ``cfg.grad_compression``, train_step(params,
     opt_state, ef_state, batch) -> (params, opt, ef, metrics). Metrics are
@@ -95,14 +120,14 @@ def make_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
                                    "lr": lr}
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(cfg, params, batch)
+        loss, grads = loss_and_grads(cfg, params, batch, mesh, rules)
         return update(params, opt_state, loss, grads)
 
     def train_step_compressed(params, opt_state, ef_state, batch):
         """train_step + int8 gradient compression w/ error feedback."""
         if cfg.microbatches > 1:
             raise NotImplementedError("compress after accumulation only")
-        loss, grads = loss_and_grads(cfg, params, batch)
+        loss, grads = loss_and_grads(cfg, params, batch, mesh, rules)
         grads, ef_state = compress_decompress(grads, ef_state)
         params, opt_state, metrics = update(params, opt_state, loss, grads)
         return params, opt_state, ef_state, metrics
@@ -124,13 +149,58 @@ def make_serve_step(cfg):
     return serve_step
 
 
-def make_prefill_step(cfg):
-    """prefill: (params, batch) -> (last_logits, decode-format cache)."""
+def make_prefill_step(cfg, mesh=None, rules=None):
+    """prefill: (params, batch) -> (last_logits, decode-format cache); on a
+    mesh both are DTensors."""
 
     def prefill_step(params, batch):
-        logits, _, cache = lm.forward(cfg, params, batch, collect_cache=True)
+        logits, _, cache = lm.forward(cfg, params, batch, mesh=mesh,
+                                      rules=rules, collect_cache=True)
         key = "embeds" if "embeds" in batch else "tokens"
         S = batch[key].shape[1]
         return logits[:, -1], lm.prefill_cache(cfg, cache, S)
 
     return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# Sharding assembly for a cell
+# ---------------------------------------------------------------------------
+
+def shardings_for_cell(cfg, shape, mesh):
+    """Everything a train/serve run on ``mesh`` needs: abstract values
+    (``meta`` tensors, where JAX has ShapeDtypeStructs) and
+    ``partitioning.NamedSharding``s (placements on ``mesh``).
+
+    Returns dict with keys:
+      rules, params_abs, params_sh, opt_abs, opt_sh, batch_abs, batch_sh,
+      cache_abs, cache_sh, logits_sh (the last three for decode and
+      prefill)
+    """
+    wide = shape.kind == "decode" and shape.global_batch == 1
+    rules = part.rules_for(mesh, shape.global_batch, wide_kv=wide)
+    params_abs = lm.abstract_params(cfg)
+    params_sh = lm.param_shardings(cfg, mesh, rules)
+    out: Dict[str, Any] = dict(rules=rules, params_abs=params_abs,
+                               params_sh=params_sh)
+    # optimizer state shards like params
+    out["opt_abs"] = adamw_init(params_abs)
+    out["opt_sh"] = AdamWState(step=part.sharding_for((), mesh),
+                               m=params_sh, v=params_sh)
+    batch_abs, batch_sh = {}, {}
+    for name, (shp, dt, logical) in lm.input_defs(cfg, shape).items():
+        batch_abs[name] = torch.empty(shp, dtype=getattr(torch, dt),
+                                      device="meta")
+        batch_sh[name] = part.sharding_for(logical, mesh, rules)
+    out["batch_abs"] = batch_abs
+    out["batch_sh"] = batch_sh
+    if shape.kind in ("decode", "prefill"):
+        defs = lm.cache_spec_defs(cfg, shape.seq_len, shape.global_batch)
+        out["cache_abs"] = lm.abstract_cache(cfg, shape.seq_len,
+                                             shape.global_batch)
+        out["cache_sh"] = {n: part.sharding_for(pd.logical, mesh, rules)
+                           for n, pd in defs.items()}
+        lg_ax = ("batch", None, "vocab") if cfg.n_codebooks else \
+            ("batch", "vocab")
+        out["logits_sh"] = part.sharding_for(lg_ax, mesh, rules)
+    return out

@@ -20,6 +20,16 @@ nope + rope (192 at full width) and a v head dim of v_head_dim (128);
 ``mla_decode`` is the absorbed form in plain torch, attention in the
 latent space against the compressed cache (the JAX package has no kernel
 for it either).
+
+On a mesh (``mesh=``, ``rules=``) the flash op runs on each rank's block
+of JAX's heads-sharded layout (``repro/models/attention.py:162-188``):
+batch on the batch axes, query heads on ``model``. K/V with as many heads
+as q are split the same way. GQA K/V (fewer heads, ``kv_heads`` being
+replicated) reach every rank whole, and each rank takes the KV heads its
+query heads use, a slice where the groups line up with the shards: the
+kernel keeps its G and no repeated copy is made (JAX repeats K/V to H
+heads instead; the values are the same). Their gradient is then each
+rank's share of a sum over the ranks (``Partial``).
 """
 
 from __future__ import annotations
@@ -28,19 +38,21 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import Shard
 
 from repro_torch.kernels.flash_attention import ops as _flash_ops
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     NEG_INF, reference_attention)
+from repro_torch.models import partitioning as part
 from repro_torch.models.layers import apply_rope, rms_norm
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_chunk: int = 512, k_chunk: int = 0,
                     scale: Optional[float] = None,
-                    schedule: str = "triangular"):
+                    schedule: str = "triangular", mesh=None, rules=None):
     """q: (B, S, H, hd); k: (B, Sk, KH, hd), v: (B, Sk, KH, hd_v) with
-    H % KH == 0 (GQA).
+    H % KH == 0 (GQA); DTensors on ``mesh``.
 
     Returns (B, S, H, hd_v) in q's dtype, differentiable in q, k and v. On
     a CUDA tensor this launches the flash kernels, which map query head h
@@ -52,6 +64,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Sk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    opts = dict(causal=causal, window=window, q_chunk=q_chunk,
+                k_chunk=k_chunk, scale=scale, schedule=schedule)
+    if mesh is not None:
+        return _flash_blocks(q, k, v, mesh, rules, opts)
     if q.device.type == "cpu":
         qc = min(q_chunk, S)
         kc = min(k_chunk or qc, Sk)
@@ -59,6 +75,39 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                       scale=float(scale), q_chunk=q_chunk,
                                       k_chunk=k_chunk, schedule=schedule)
+
+
+def _flash_blocks(q, k, v, mesh, rules, opts):
+    """The flash op on each rank's block (see the module docstring)."""
+    H, KH = q.shape[2], k.shape[2]
+    qpl = part.placements_for(
+        part.spec_for(("batch", None, "heads", None), mesh, rules), mesh)
+    hdims = [i for i, p in enumerate(qpl) if p == Shard(2)]
+    if KH == H:
+        kpl = qpl
+        r = 0
+    else:
+        kpl = part.placements_for(
+            part.spec_for(("batch", None, None, None), mesh, rules), mesh)
+        # this rank's index along the mesh dims that split the heads
+        coord, r = mesh.get_coordinate(), 0
+        for i in hdims:
+            r = r * mesh.size(i) + coord[i]
+    G = H // KH
+
+    def local(ql, kl, vl):
+        Hl = ql.shape[2]
+        if KH != H:
+            h0 = r * Hl
+            if Hl % G == 0 or G % Hl == 0:     # whole groups: a slice
+                lo, n = h0 // G, max(Hl // G, 1)
+                kl, vl = kl[:, :, lo:lo + n], vl[:, :, lo:lo + n]
+            else:                              # one KV head a query head
+                idx = torch.arange(h0, h0 + Hl, device=kl.device) // G
+                kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return flash_attention(ql, kl, vl, **opts)
+
+    return part.local_map(local, mesh, (qpl, kpl, kpl), qpl)(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +148,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
 # DeepSeek-V2 Multi-head Latent Attention
 # ---------------------------------------------------------------------------
 
-def mla_prefill(p, x, cos, sin, cfg, dtype):
+def mla_prefill(p, x, cos, sin, cfg, dtype, mesh=None, rules=None):
     """Full (decompressed) MLA for train/prefill. Returns (out, (ckv,
     k_rope)) so serving can keep only the compressed cache."""
     m = cfg.mla
@@ -120,7 +169,8 @@ def mla_prefill(p, x, cos, sin, cfg, dtype):
     k = torch.cat([kn, kr.expand(B, S, H, rope_d)], -1)
     qf = torch.cat([qn, qr], -1)
     y = flash_attention(qf, k, v, causal=True, q_chunk=cfg.attn_q_chunk,
-                        scale=1.0 / math.sqrt(nope + rope_d))
+                        scale=1.0 / math.sqrt(nope + rope_d), mesh=mesh,
+                        rules=rules)
     out = y.reshape(B, S, H * vd) @ p["wo"].to(dtype)
     return out, (ckv, kr[:, :, 0, :])
 

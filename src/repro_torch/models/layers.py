@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 
 # ---------------------------------------------------------------------------
-# Declarative parameters: one definition drives init and shapes
+# Declarative parameters: one definition drives init, abstract shapes & specs
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +72,20 @@ def materialize(defs: dict, generator: torch.Generator,
         return out
 
     return tree_map_defs(init_one, defs)
+
+
+def abstract(defs: dict) -> dict:
+    """The tree as ``meta`` tensors (shapes and dtypes, no storage): the
+    counterpart of JAX's ``ShapeDtypeStruct`` tree."""
+    return tree_map_defs(
+        lambda pd: torch.empty(pd.shape, dtype=getattr(torch, pd.dtype),
+                               device="meta"), defs)
+
+
+def specs(defs: dict, mesh, rules=None) -> dict:
+    """Each leaf's partition spec on ``mesh`` (``partitioning.spec_for``)."""
+    from repro_torch.models.partitioning import spec_for
+    return tree_map_defs(lambda pd: spec_for(pd.logical, mesh, rules), defs)
 
 
 # ---------------------------------------------------------------------------

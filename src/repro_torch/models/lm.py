@@ -1,5 +1,6 @@
 """Model assembly for every family: dense / vlm / audio / moe / ssm /
-hybrid (the ``mesh=None`` path of ``repro.models.lm``).
+hybrid (the port's counterpart of ``repro.models.lm``, its ``mesh=None``
+path and its mesh path).
 
 ``param_defs(cfg)`` declares the parameter tree with the JAX package's
 shapes (layers stacked on a leading axis); ``forward`` / ``prefill_cache``
@@ -42,6 +43,14 @@ kernels' ``FlashAttention`` function, every Mamba2 layer's SSD through
 (``_maybe_remat``). Every family trains on the CPU through the plain
 versions and on the card through the kernels (MLA through the flash
 backward at q/k 192, v 128).
+
+The mesh path (``forward(mesh=, rules=)``, JAX's): parameters are
+DTensors placed by ``param_specs`` (``place_params``), the batch is placed
+by ``input_defs``' logical axes, and every sharding constraint of the JAX
+package is a ``partitioning.constrain`` at the same place (the residual
+stream at each layer's entry, ``sp_norm``'s two, attention's heads-sharded
+blocks, Mamba2's heads, the MoE dispatch's six). Kernels see local shards
+only (``partitioning.local_map``). Decode has no mesh path, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,10 +68,13 @@ from repro_torch.kernels.paged_attn import ops as _paged_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (ParamDef, apply_rope, materialize,
-                                       mlp_apply, mlp_defs, mrope_cos_sin,
-                                       padded_vocab, rms_norm, rope_cos_sin,
-                                       sinusoidal_positions, tree_map_defs)
+from repro_torch.models import partitioning as part
+from repro_torch.models.layers import (ParamDef, abstract, apply_rope,
+                                       materialize, mlp_apply, mlp_defs,
+                                       mrope_cos_sin, padded_vocab, rms_norm,
+                                       rope_cos_sin, sinusoidal_positions,
+                                       specs, tree_map_defs)
+from repro_torch.tree import tree_map
 
 PAGE_SIZE = 16          # tokens per page of the decode op's pool view
 _CONV = ("conv_x", "conv_b", "conv_c")
@@ -158,6 +170,27 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda") -> dict:
                        device=dev)
 
 
+def abstract_params(cfg) -> dict:
+    """The parameter tree as ``meta`` tensors (no storage)."""
+    return abstract(_apply_param_dtype(cfg, param_defs(cfg)))
+
+
+def param_specs(cfg, mesh, rules=None) -> dict:
+    return specs(param_defs(cfg), mesh, rules)
+
+
+def param_shardings(cfg, mesh, rules=None) -> dict:
+    """Each parameter's ``NamedSharding`` on ``mesh`` (by ``param_specs``)."""
+    return tree_map_defs(lambda pd: part.sharding_for(pd.logical, mesh, rules),
+                         param_defs(cfg))
+
+
+def place_params(cfg, params, mesh, rules=None) -> dict:
+    """``params`` (full tensors, the same on every rank) as DTensors placed
+    by ``param_specs``."""
+    return tree_map(part.place, params, param_shardings(cfg, mesh, rules))
+
+
 # leaves the model reads in fp32 (rms_norm scales, MLA's latent norm; the
 # Mamba2 A_log, D, dt_bias and gated-norm scale; the MoE router):
 # casting them would change their values
@@ -215,13 +248,28 @@ def _from_module(mod: nn.Module) -> dict:
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg, params, tokens, dtype):
+def embed_tokens(cfg, params, tokens, dtype, mesh=None, rules=None):
     """tokens (B, S) -> (B, S, D); audio (B, S, K) -> the sum over the K
     codebooks of their embeddings, added left to right in ``dtype`` as the
     JAX package adds them (a bf16 sum rounds after each add). Rows are
     gathered first, then cast: the same values as casting the whole
-    table."""
-    emb = params["embed"]
+    table. On a mesh each rank gathers its sequences' rows from the whole
+    table (``local_map``): the same gather, and the same gradient, as
+    without one (DTensor 2.11 has no sharding rule for the gradient of a
+    gather by index)."""
+    if mesh is None:
+        return _gather_rows(cfg, params["embed"], tokens, dtype)
+
+    def pl(*logical):
+        return part.placements_for(part.spec_for(logical, mesh, rules), mesh)
+    table = pl(*(None,) * params["embed"].ndim)
+    return part.local_map(
+        lambda emb, tok: _gather_rows(cfg, emb, tok, dtype), mesh,
+        (table, pl("batch", *(None,) * (tokens.ndim - 1))),
+        pl("batch", None, None))(params["embed"], tokens)
+
+
+def _gather_rows(cfg, emb, tokens, dtype):
     if cfg.n_codebooks:
         x = emb[0][tokens[..., 0].long()].to(dtype)
         for k in range(1, cfg.n_codebooks):
@@ -261,38 +309,97 @@ def _layers(stacked: dict, cast=None) -> list:
     return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
+def residual(t, mesh, rules):
+    """The residual stream's layout (JAX's constraint at each layer's
+    entry): sequence-sharded on a mesh; ``t`` itself without one. A
+    block's output is put in it before it is added, so that the gradient
+    reaching the block's last projection is laid out as that projection's
+    output, not sequence-split (which DTensor 2.11 cannot view as
+    (B·S, D))."""
+    return part.constrain(t, mesh, "batch", "act_seq", None, rules=rules)
+
+
+def whole_seq(h, mesh, rules, sp_norm=False):
+    """Normed activations (B, S, D) as the projections read them on a
+    mesh: whole sequences. With ``sp_norm`` (Megatron-SP) they are first
+    constrained sequence-sharded (JAX's two constraints). DTensor (torch
+    2.11) refuses the (B·S, D) view of a matmul whose S is split, so the
+    port gathers before every projection, not only under ``sp_norm``."""
+    if sp_norm:
+        h = part.constrain(h, mesh, "batch", "act_seq", None, rules=rules)
+    return part.constrain(h, mesh, "batch", None, None, rules=rules)
+
+
+def _heads_whole(t, n_heads, tp, axis, mesh, rules):
+    """A (B, S, heads·hd) DTensor constrained to ``axis`` on its last dim
+    when the model axis divides its heads, else replicated there."""
+    ax = axis if n_heads % tp == 0 else None
+    return part.constrain(t, mesh, "batch", None, ax, rules=rules)
+
+
 def _transformer_block(cfg, p, x, cos, sin, dtype, *, moe_layer=False,
-                       collect_cache: bool = False):
+                       collect_cache: bool = False, mesh=None, rules=None):
     """Returns (x, aux, cache): aux the MoE layer's load-balance loss (0.0
     elsewhere); cache (k, v), or MLA's (ckv, k_rope), with
     ``collect_cache``."""
     B, S, D = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mesh is not None:
+        h = whole_seq(h, mesh, rules, cfg.sp_norm)
     if cfg.mla is not None:
-        y, cache = attn.mla_prefill(p["attn"], h, cos, sin, cfg, dtype)
+        y, cache = attn.mla_prefill(p["attn"], h, cos, sin, cfg, dtype,
+                                    mesh=mesh, rules=rules)
     else:
         pa = p["attn"]
-        q = (h @ pa["wq"].to(dtype)).reshape(B, S, H, hd)
-        k = (h @ pa["wk"].to(dtype)).reshape(B, S, KH, hd)
-        v = (h @ pa["wv"].to(dtype)).reshape(B, S, KH, hd)
+        tp = part.axis_sizes(mesh).get("model", 1) if mesh is not None \
+            else 1
+        q, k, v = (h @ pa[w].to(dtype) for w in ("wq", "wk", "wv"))
+        if mesh is not None:
+            # DTensor splits a (B, S, heads·hd) projection into (heads, hd)
+            # only with whole heads in each shard
+            q = _heads_whole(q, H, tp, "heads", mesh, rules)
+            k = _heads_whole(k, KH, tp, "kv_heads", mesh, rules)
+            v = _heads_whole(v, KH, tp, "kv_heads", mesh, rules)
+        q = q.reshape(B, S, H, hd)
+        k = k.reshape(B, S, KH, hd)
+        v = v.reshape(B, S, KH, hd)
         if cos is not None:                # audio: absolute positions
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         cache = (k, v)
+        # heads that don't divide the model axis (yi: 56, qwen2-vl: 12)
+        # are zero-padded AFTER the GQA group expansion so the q→kv-group
+        # mapping stays correct; padded heads are sliced off again
+        Hp = -(-H // tp) * tp
+        if Hp != H:
+            k = k.repeat_interleave(H // KH, dim=2)
+            v = v.repeat_interleave(H // KH, dim=2)
+            pad = (0, 0, 0, Hp - H)
+            q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
         o = attn.flash_attention(q, k, v, causal=True,
                                  window=cfg.swa_window,
                                  q_chunk=cfg.attn_q_chunk,
                                  scale=1.0 / math.sqrt(hd),
-                                 schedule=cfg.attn_schedule)
-        y = o.reshape(B, S, H * hd) @ pa["wo"].to(dtype)
-    x = x + y
+                                 schedule=cfg.attn_schedule,
+                                 mesh=mesh, rules=rules)
+        if Hp != H:
+            o = o[:, :, :H, :]
+        o = o.reshape(B, S, H * hd)
+        if mesh is not None:       # and so must its gradient, back
+            o = _heads_whole(o, H, tp, "heads", mesh, rules)
+        y = o @ pa["wo"].to(dtype)
+    x = x + residual(y, mesh, rules)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if mesh is not None:
+        h2 = whole_seq(h2, mesh, rules, cfg.sp_norm and not moe_layer)
     if moe_layer:
-        f, aux = moe_mod.moe_ffn(cfg, p["moe"], h2, dtype)
+        f, aux = moe_mod.moe_ffn(cfg, p["moe"], h2, dtype, mesh=mesh,
+                                 rules=rules)
     else:
         f, aux = mlp_apply(cfg, p["mlp"], h2, dtype), 0.0
-    return x + f, aux, (cache if collect_cache else None)
+    return x + residual(f, mesh, rules), aux, \
+        (cache if collect_cache else None)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +429,21 @@ def _stacks(cfg, params):
     return out + [(params["layers"], cfg.family == "moe")]
 
 
-def forward(cfg, params, batch, *, collect_cache: bool = False):
+def place_batch(cfg, batch, mesh, rules=None) -> dict:
+    """A batch's plain tensors (the same on every rank) as DTensors placed
+    by their logical axes (``input_defs``: the batch axis sharded; "pos3"
+    on its axis 1); its DTensors as they are."""
+    def placed(name, t):
+        if isinstance(t, part.DTensor):
+            return t
+        logical = (None, "batch") if name == "pos3" else ("batch",)
+        logical += (None,) * (t.ndim - len(logical))
+        return part.place(t, part.sharding_for(logical, mesh, rules))
+    return {k: placed(k, v) for k, v in batch.items()}
+
+
+def forward(cfg, params, batch, *, mesh=None, rules=None,
+            collect_cache: bool = False):
     """batch: dict with 'tokens' (B, S) (audio: (B, S, K)) or 'embeds'
     (B, S, D), and for vlm optionally 'pos3' (3, B, S) (default: three
     equal streams 0..S-1).
@@ -335,39 +456,54 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
     (G, B, S, rope)) of the MoE layers, and "kv_dense" those of the dense
     layers before them). The ssm and hybrid families always
     return their per-layer "ssm" (L, B, nh, hp, ns) and "conv_x/b/c"
-    (L, B, d_conv-1, C) states (``repro/models/lm.py:381-382``)."""
+    (L, B, d_conv-1, C) states (``repro/models/lm.py:381-382``).
+
+    On a mesh (``mesh``/``rules``, the JAX package's): ``params`` are
+    DTensors (``place_params``), plain batch tensors are placed
+    (``place_batch``), and the outputs are DTensors."""
+    if mesh is not None:
+        batch = place_batch(cfg, batch, mesh, rules)
     dtype = cfg.compute_dt()
     if "embeds" in batch:
         x = batch["embeds"].to(dtype)
     else:
-        x = embed_tokens(cfg, params, batch["tokens"], dtype)
+        x = embed_tokens(cfg, params, batch["tokens"], dtype, mesh, rules)
     B, S = x.shape[:2]
     dev = x.device
     fam = cfg.family
+    # position tables are made whole on every rank: on a mesh they enter
+    # as replicated DTensors
+    rep = (lambda t: t) if mesh is None else \
+        (lambda t: part.replicate(t, mesh))
     cos = sin = None
     if fam == "audio":
         pos_tab = torch.from_numpy(sinusoidal_positions(S, cfg.d_model))
-        x = x + pos_tab.to(dev, dtype)[None]
+        x = x + rep(pos_tab.to(dev, dtype)[None])
     elif fam == "vlm":
         pos3 = batch.get("pos3")
         if pos3 is None:
             pos3 = torch.arange(S, device=dev)[None, None].expand(3, B, S)
-        cos, sin = mrope_cos_sin(pos3, cfg.hd, cfg.rope_theta,
-                                 cfg.mrope_sections)
+        cos, sin = map(rep, mrope_cos_sin(part.full(pos3), cfg.hd,
+                                          cfg.rope_theta,
+                                          cfg.mrope_sections))
     elif fam != "ssm":
         rope_dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
             else cfg.hd
-        cos, sin = rope_cos_sin(torch.arange(S, device=dev), rope_dim,
-                                cfg.rope_theta)
+        cos, sin = map(rep, rope_cos_sin(torch.arange(S, device=dev),
+                                         rope_dim, cfg.rope_theta))
     cast = dtype if cfg.bf16_stacked_params else None
     run = _maybe_remat(cfg)
     kvs = {"kv_dense": [], "kv": []}     # per layer: (k, v) or (ckv, kr)
     states, convs, auxs = [], [], []
 
+    def cstr(t):
+        return residual(t, mesh, rules)
+
     def attn_body(p, x, moe_layer):
-        return _transformer_block(cfg, p, x, cos, sin, dtype,
+        return _transformer_block(cfg, p, cstr(x), cos, sin, dtype,
                                   moe_layer=moe_layer,
-                                  collect_cache=collect_cache)
+                                  collect_cache=collect_cache, mesh=mesh,
+                                  rules=rules)
 
     def attend(p, x, moe_layer=False, key="kv"):
         x, aux, kv = run(attn_body, p, x, moe_layer)
@@ -378,8 +514,10 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
         return x
 
     def mamba_body(p_l, x):
-        y, st, conv = mam.mamba_block(cfg, p_l, x, dtype, return_state=True)
-        return x + y, st, conv
+        y, st, conv = mam.mamba_block(cfg, p_l, cstr(x), dtype,
+                                      return_state=True, mesh=mesh,
+                                      rules=rules)
+        return x + cstr(y), st, conv
 
     if fam in _ATTN_ONLY:
         for stack, moe_layer in _stacks(cfg, params):
@@ -393,7 +531,9 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
             convs.append(conv)
             if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
                 x = attend(params["shared_attn"], x)     # the tied block
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = cstr(rms_norm(x, params["final_norm"], cfg.norm_eps))
+    if mesh is not None:
+        x = whole_seq(x, mesh, rules)
     logits = lm_head(cfg, params, x, dtype)
     caches: Dict[str, Any] = {}
     if states:
@@ -404,6 +544,9 @@ def forward(cfg, params, batch, *, collect_cache: bool = False):
         if per_layer:
             caches[key] = tuple(torch.stack(t) for t in zip(*per_layer))
     aux = torch.stack(auxs).sum() if auxs else 0.0
+    if mesh is not None:         # whole values, safe to cast (prefill_cache)
+        logits = part.settle(logits)
+        caches = tree_map(part.settle, caches)
     return logits, aux, (caches if collect_cache or states else None)
 
 
@@ -507,6 +650,39 @@ def init_cache(cfg, max_len, batch, *, device="cuda") -> dict:
                                  device=dev)[:, :, :S]
         else:
             out[n] = torch.zeros(pd.shape, dtype=dt, device=dev)
+    return out
+
+
+def abstract_cache(cfg, max_len, batch) -> dict:
+    """The cache tree as ``meta`` tensors (``cache_spec_defs``' shapes)."""
+    return abstract(cache_spec_defs(cfg, max_len, batch))
+
+
+def cache_specs(cfg, max_len, batch, mesh, rules=None) -> dict:
+    return specs(cache_spec_defs(cfg, max_len, batch), mesh, rules)
+
+
+def input_defs(cfg, shape) -> dict:
+    """name -> (shape, dtype, logical axes) of the model inputs of an
+    (arch × shape) cell, as the JAX package's: VLM inputs are
+    precomputed patch embeddings, audio inputs EnCodec token ids."""
+    B, S = shape.global_batch, shape.seq_len
+    K = cfg.n_codebooks
+    tok = ((B, S, K), "int32", ("batch", None, None)) if K else \
+        ((B, S), "int32", ("batch", None))
+    out = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            out["embeds"] = ((B, S, cfg.d_model), "bfloat16",
+                             ("batch", None, None))
+            out["pos3"] = ((3, B, S), "int32", (None, "batch", None))
+        else:
+            out["tokens"] = tok
+        if shape.kind == "train":
+            out["labels"] = tok
+    else:  # decode: one new token against a seq_len cache
+        out["tokens"] = ((B, 1, K), "int32", ("batch", None, None)) if K \
+            else ((B, 1), "int32", ("batch", None))
     return out
 
 

@@ -1,5 +1,5 @@
-"""Mamba2 (SSD — state-space duality) block (``mesh=None`` path of
-``repro.models.mamba``).
+"""Mamba2 (SSD — state-space duality) block (the port's counterpart of
+``repro.models.mamba``, its ``mesh=None`` path and its mesh path).
 
 ``ssd_chunked`` is the plain chunked SSD of the JAX package: a loop over
 chunks with the quadratic intra-chunk part inside, the state carried
@@ -7,6 +7,12 @@ between chunks. ``mamba_block`` sends its SSD through
 ``kernels.ssd_scan.ops.ssd``: the CUDA SSD chunk kernel on the card, its
 plain version on the CPU. That is the JAX package's ``use_pallas`` path,
 taken at prefill and at decode alike (decode is a chunk of one token).
+
+On a mesh, the SSD inputs are constrained as the JAX package constrains
+them (x, z and dt heads-sharded on ``ssm_heads``, or replicated on
+``ssm_heads_rep``; B and C batch-sharded) and the SSD op runs on each
+rank's block (``partitioning.local_map``): its heads and sequences are
+independent, so the blocks compute what the whole does.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models import partitioning as part
 from repro_torch.models.layers import ParamDef, rms_norm
 
 
@@ -150,8 +157,26 @@ def ssd_decode_step(x, dt, A_log, B_, C_, D_, state):
 # Full Mamba2 block
 # ---------------------------------------------------------------------------
 
+def _ssd_blocks(x, dt, A_log, B_, C_, D_, chunk, state, hax, mesh, rules):
+    """``ssd_ops.ssd`` on each rank's block: batch on the batch axes, the
+    heads on ``hax``'s axes."""
+    def pl(*logical):
+        return part.placements_for(part.spec_for(logical, mesh, rules), mesh)
+    xp, dtp, hp, bp = (pl("batch", None, hax, None), pl("batch", None, hax),
+                       pl(hax), pl("batch", None, None))
+    sp = pl("batch", hax, None, None)
+
+    def local(x, dt, A_log, B_, C_, D_, state):
+        return ssd_ops.ssd(x, dt, A_log, B_, C_, D_, chunk=chunk,
+                           state=state)
+    return part.local_map(
+        local, mesh, (xp, dtp, hp, bp, bp, hp,
+                      None if state is None else sp),
+        (xp, sp))(x, dt, A_log, B_, C_, D_, state)
+
+
 def mamba_block(cfg, p, u, dtype, *, state=None, conv_state=None,
-                return_state: bool = False):
+                return_state: bool = False, mesh=None, rules=None):
     """u: (B, S, D). ``state``/``conv_state`` continue a sequence (decode
     passes one token); None starts one."""
     s = cfg.ssm
@@ -159,6 +184,8 @@ def mamba_block(cfg, p, u, dtype, *, state=None, conv_state=None,
     di = s.d_inner(D)
     nh = s.n_heads(D)
 
+    if mesh is not None:       # the projections read whole sequences
+        u = part.constrain(u, mesh, "batch", None, None, rules=rules)
     z = u @ p["wz"].to(dtype)
     xs = u @ p["wx"].to(dtype)
     bs = u @ p["wb"].to(dtype)
@@ -175,10 +202,21 @@ def mamba_block(cfg, p, u, dtype, *, state=None, conv_state=None,
     bs = F.silu(bs)
     cs2 = F.silu(cs2)
 
+    hax = "ssm_heads" if nh % 16 == 0 else "ssm_heads_rep"
+    if mesh is not None:
+        xs = part.constrain(xs, mesh, "batch", None, hax, rules=rules)
+        z = part.constrain(z, mesh, "batch", None, hax, rules=rules)
+        dt = part.constrain(dt, mesh, "batch", None, hax, rules=rules)
+        bs = part.constrain(bs, mesh, "batch", None, None, rules=rules)
+        cs2 = part.constrain(cs2, mesh, "batch", None, None, rules=rules)
     xh = xs.reshape(B, S, nh, s.headdim)
     chunk = cfg.ssm_chunk or s.chunk
-    y, new_state = ssd_ops.ssd(xh, dt, p["A_log"], bs, cs2, p["D"],
-                               chunk=chunk, state=state)
+    if mesh is not None:
+        y, new_state = _ssd_blocks(xh, dt, p["A_log"], bs, cs2, p["D"],
+                                   chunk, state, hax, mesh, rules)
+    else:
+        y, new_state = ssd_ops.ssd(xh, dt, p["A_log"], bs, cs2, p["D"],
+                                   chunk=chunk, state=state)
     y = y.reshape(B, S, di)
     # gated RMSNorm (Mamba2): norm(y * silu(z))
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)

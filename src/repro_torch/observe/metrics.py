@@ -38,7 +38,7 @@ docs/observability.md for the naming scheme.
 
 Usage (or ``benchmarks/run.py --metrics out.json``)::
 
-    from repro.observe import metrics
+    from repro_torch.observe import metrics
     reg = metrics.MetricsRegistry(interval_s=1e-3)
     metrics.install(reg)
     ...                       # run anything on the ring runtime

@@ -26,8 +26,9 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
+    """Zero moments like ``params`` (DTensors with their placements)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     dev = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))

@@ -7,8 +7,10 @@
   manifest).
 * failure injection: ``fail_at_step`` raises mid-run (tests restart).
 * straggler mitigation: the data pipeline hedges slow reads (LINK_TIMEOUT).
+* elastic: ``restore(shardings)`` places the checkpoint on any mesh.
 
-The loop runs on ``device`` ("cuda" unless the caller asks for the CPU);
+On a mesh (``mesh``, ``rules``) the parameters are placed by
+``lm.param_specs`` and every step is the mesh train step. The loop runs on ``device`` ("cuda" unless the caller asks for the CPU);
 numpy batches from the loader are moved there with ``torch.as_tensor``.
 The train step updates ``params`` and the optimizer state in place.
 """
@@ -46,26 +48,34 @@ class TrainLoopConfig:
 
 class TrainLoop:
     def __init__(self, cfg, loop_cfg: TrainLoopConfig, data: Iterator,
-                 *, params=None, seed: int = 0, device="cuda"):
+                 *, mesh=None, rules=None, params=None, seed: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.lc = loop_cfg
         self.data = data
-        self.step_fn = make_train_step(cfg, peak_lr=loop_cfg.peak_lr,
+        self.mesh = mesh
+        self.step_fn = make_train_step(cfg, mesh, rules,
+                                       peak_lr=loop_cfg.peak_lr,
                                        total_steps=loop_cfg.total_steps)
         if params is None:
             params = lm.init_params(
                 cfg, torch.Generator(self.device).manual_seed(seed),
                 device=self.device)
+        if mesh is not None:
+            params = lm.place_params(cfg, params, mesh, rules)
         self.params = params
         self.opt_state = adamw_init(params)
         self.ckpt = Checkpointer(loop_cfg.ckpt_dir, every=loop_cfg.ckpt_every)
         self.start_step = 0
         self.metrics_log: list = []
 
-    def restore(self) -> int:
+    def restore(self, shardings=None) -> int:
+        """Resume from the latest checkpoint, if any: its leaves placed by
+        ``shardings`` (a tree like {"params", "opt"} of NamedShardings, on
+        any mesh), else plain tensors on the loop's device."""
         state = {"params": self.params, "opt": self.opt_state}
-        restored, step = self.ckpt.restore_or(state)
+        restored, step = self.ckpt.restore_or(state, shardings)
         if restored is not None:
             self.params = restored["params"]
             self.opt_state = restored["opt"]

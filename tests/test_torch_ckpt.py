@@ -178,15 +178,16 @@ def test_checkpoints_cross_load_between_packages(tmpdir, param_dtype):
 
 
 def _code_lines(text):
-    """The lines of a module other than its import statements (with the
-    continuation lines of a parenthesised or backslash-continued one)."""
+    """The lines of a module other than its import statements, at any
+    indent (a function's, or a docstring's usage example), with the
+    continuation lines of a parenthesised or backslash-continued one."""
     out, in_parens, continued = [], False, False
     for line in text.splitlines():
         if in_parens:
             in_parens = ")" not in line
         elif continued:
             continued = line.rstrip().endswith("\\")
-        elif line.startswith(("import ", "from ")):
+        elif line.lstrip().startswith(("import ", "from ")):
             in_parens = "(" in line and ")" not in line
             continued = line.rstrip().endswith("\\")
         else:
@@ -197,12 +198,13 @@ def _code_lines(text):
 @pytest.mark.parametrize("rel", COPIED)
 def test_core_copy_equals_the_original_but_its_imports(rel):
     """The port's ring runtime is a copy: read as text, each file equals
-    ``src/repro/<rel>`` except for its import lines, which name
-    ``repro_torch`` where the original names ``repro``."""
+    ``src/repro/<rel>`` except for its import lines (a docstring's usage
+    example among them), which name ``repro_torch`` where the original
+    names ``repro``."""
     orig = (ROOT / "src" / "repro" / rel).read_text()
     copy = (ROOT / "src" / "repro_torch" / rel).read_text()
     assert _code_lines(copy) == _code_lines(orig)
-    imports = [l for l in copy.splitlines()
-               if l.startswith(("import ", "from "))]
+    imports = [l.lstrip() for l in copy.splitlines()
+               if l.lstrip().startswith(("import ", "from "))]
     assert not any(l.split()[1].split(".")[0] == "repro" for l in imports)
     assert len(copy.splitlines()) == len(orig.splitlines())

@@ -2,7 +2,9 @@
 (the twin of ``examples/serve_paged.py``) serves mixtral's smoke model,
 pages KV through the buffer pool and prints the serving ladder; from its
 pager section on, it prints what the JAX example prints, line for line
-(both pagers and ladders run on the simulated clock)."""
+(both pagers and ladders run on the simulated clock).
+``examples/train_lm_torch.py`` (the twin of ``examples/train_lm.py``)
+trains on the ring loader."""
 
 import importlib.util
 import pathlib
@@ -33,3 +35,18 @@ def test_serve_paged_torch_example_runs_on_cpu(capsys):
     jax_text = capsys.readouterr().out
     assert _from_pager(torch_text) == _from_pager(jax_text)
     assert len(_from_pager(torch_text)) == 8          # 2 pager + 6 ladder
+
+
+def test_train_lm_torch_example_runs_on_cpu(capsys, tmp_path):
+    """``examples/train_lm_torch.py`` (the twin of ``examples/train_lm.py``)
+    trains a few steps on the CPU from the ring loader and logs every
+    tenth step and the last."""
+    args = ["--device", "cpu", "--steps", "3", "--d-model", "64",
+            "--layers", "2", "--batch", "2", "--seq", "32",
+            "--ckpt-dir", str(tmp_path)]
+    loop = _load("train_lm_torch").main(args)
+    text = capsys.readouterr().out
+    assert text.startswith("arch=stablelm-1.6b params=")
+    assert "done: loss=" in text
+    assert [m["step"] for m in loop.metrics_log] == [0, 2]
+    assert all(m["loss"] > 0 for m in loop.metrics_log)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card, each held against its plain PyTorch
-version, and the smoke serving path on the card against the CPU. Every
+version, the smoke serving path on the card against the CPU, and the
+mesh path on a one-rank NCCL mesh against the path without one. Every
 test here carries the ``gpu`` marker and skips without a card; the file
 imports no JAX, so it runs where only PyTorch is installed:
 
@@ -931,3 +932,67 @@ def test_smoke_hybrid_serve_on_card_matches_cpu(cuda):
     assert [c.launches - b for c, b in zip(counts, before)] == \
         [cfg.n_layers * 6, G, G * 5]
     assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.fixture
+def card_mesh(cuda, tmp_path):
+    """The 1 x 1 ("data", "model") mesh over a one-rank NCCL group (a
+    FileStore: no network), destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        yield make_local_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_train_step_on_card(card_mesh):
+    """A smoke stablelm train step (head_dim 32, remat) on the 1 x 1 mesh:
+    the kernels run on the local blocks, the same kernels on the same
+    bytes as the step without a mesh, so the loss and every updated leaf
+    are the same bits."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import partitioning as part
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+    cuda = torch.device("cuda")
+    cfg = get_smoke_config("stablelm-1.6b").replace(head_dim=32, remat=True)
+    params = lm.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                            device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=g,
+                         device=cuda)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    rules = part.rules_for(card_mesh, 2)
+    p0 = tree_map(lambda t: t.clone(), params)
+    p0, _, m0 = make_train_step(cfg)(p0, adamw_init(p0), batch)
+    p1 = lm.place_params(cfg, params, card_mesh, rules)
+    fwd0 = flash_kernel.flash_attention_fwd.launches
+    bwd0 = flash_kernel.flash_attention_bwd.launches
+    p1, _, m1 = make_train_step(cfg, card_mesh, rules)(p1, adamw_init(p1),
+                                                       batch)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_fwd.launches - fwd0 == 2 * cfg.n_layers
+    assert flash_kernel.flash_attention_bwd.launches - bwd0 == cfg.n_layers
+    assert float(part.full(m1["loss"])) == float(m0["loss"])
+    for a, b in zip(tree_leaves(p0), tree_leaves(p1)):
+        assert torch.equal(a, part.full(b))
+
+
+def test_a2a_over_one_rank_is_identity_on_card(card_mesh):
+    """The explicit all-to-all through NCCL's all_to_all_single over the
+    one-rank 'model' group, and the MoE dispatch/combine on DTensors."""
+    from repro_torch.distributed.a2a import a2a, moe_dispatch_combine
+    from repro_torch.models import partitioning as part
+    x = torch.arange(2 * 16 * 4 * 3 * 5, dtype=torch.float32,
+                     device="cuda").reshape(2, 16, 4, 3, 5)
+    group = card_mesh.get_group("model")
+    assert torch.equal(a2a(x, group, split_axis=2, concat_axis=1), x)
+    dispatch, combine = moe_dispatch_combine(card_mesh, ("data",))
+    xg = part.place(x, part.sharding_for(("batch", "act_seq"), card_mesh))
+    xe = dispatch(xg)
+    assert torch.equal(xe.full_tensor(), x)
+    assert torch.equal(combine(xe).full_tensor(), x)
