@@ -49,7 +49,10 @@ Phases (any failure raises, and the script exits nonzero):
    cache: its smoke model (hd 32, window 64) decoding from a prompt of
    128 to position 160 through the paged kernel, against the forward,
    and again at window 40 (a cache of 2.5 pages, wrapping at pos % 40)
-   from 80 to 120;
+   from 80 to 120; the paged kernel's (out, lse) against the plain
+   version's (bf16 and fp32, hd 64, qwen2-vl-2b's G 6, granite-34b's G
+   48 in row tiles, a zero-length row with lse <= -1e30; out bit-identical
+   to the launch without lse);
 3. the main paths, each through ``ServeLoop.generate`` at full width with
    random weights from a seeded CUDA generator and bf16 compute, 4 prompts
    of 512 tokens and 32 new tokens: ``stablelm-1.6b`` (dense: flash at
@@ -109,7 +112,13 @@ Phases (any failure raises, and the script exits nonzero):
    its ``mesh=None`` twin from the same seed (losses and watched leaves
    within 1e-5 relative; deepseek's routes replayed; zamba2's logits and
    cache within the hybrid tolerance), whether bit-identical printed,
-   with both runs' step times and launches;
+   with both runs' step times and launches; then decode on that mesh
+   (``lm.decode_step(mesh=, rules=)``: the cache placed by
+   ``cache_specs``, the paged kernel with lse on the rank's shard and the
+   fp32 merge of shards; MLA on DTensors) for ``stablelm-1.6b``,
+   ``zamba2-2.7b`` and ``deepseek-v2-lite-16b`` (2 layers, shard_map), 8
+   steps after a prefill, bit for bit its mesh=None twin in logits and
+   tokens, with equal paged and SSD launches;
 4. device times (CUDA events over launches queued behind a held stream,
    after warm-up) of each kernel, its plain version, its bound and, where
    one PyTorch call computes the same function, that call as a yardstick
@@ -120,7 +129,11 @@ Phases (any failure raises, and the script exits nonzero):
    flash at granite-34b's, yi-34b's and deepseek-67b's decode and
    prefill; the SSD kernel with its plan, also at a decode
    step's chunk of one token, bound at the TF32 tensor-core rate or the
-   bytes); each model's prefill and decode times; the train step's time
+   bytes; the paged kernel also writing lse, at hd 64, G 6 and G 48);
+   each model's prefill and decode times (stablelm's and zamba2's decode
+   walls also with the kernel ops' entry points calling the wrappers
+   directly, as before the ops were torch custom ops, in turns); the
+   train step's time
    and tokens/s of each training run, the flash backward at the training
    shapes (stablelm's, qwen2-vl's, mixtral's, deepseek-v2-lite's at q/k
    192, v 128) beside its bound and the
@@ -136,7 +149,14 @@ Phases (any failure raises, and the script exits nonzero):
    granite-34b only), and over one train step of each training
    run (forward and backward, then the optimizer), device busy share,
    kernel time by kind, the SSD backward's kernels one by one and the MoE
-   layers' time by stage (router, dispatch, experts, combine, shared).
+   layers' time by stage (router, dispatch, experts, combine, shared);
+6. the dry run (``launch/dryrun.py``) in subprocesses started together,
+   on fake CUDA tensors over a fake process group (no card memory):
+   stablelm-1.6b's train_4k and decode_32k cells on the 16 x 16 mesh
+   (FLOPs, bytes, collectives by kind, peak, bound, trace time), and
+   phase 4's stablelm training step on one device, whose traced FLOPs
+   over the measured step are printed as TFLOP/s and as a share of 989
+   TFLOP/s beside the card's name and power limit.
 
 The last lines are a JSON object with one entry per kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -183,11 +203,11 @@ from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref  # noqa
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel           # noqa
 from repro_torch.kernels.ssd_scan import ops as ssd_ops                 # noqa
-from repro_torch.kernels.ssd_scan.ref import (BWD_PIECES,  # noqa: E402
-                                              ssd_chunk_bwd_ref,
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_bwd_ref,  # noqa
                                               ssd_chunk_bwd_split_ref,
                                               ssd_chunk_ref,
                                               ssd_chunk_split_ref, ssd_ref)
+from repro_torch.launch.mesh import HBM_BW                     # noqa: E402
 from repro_torch.launch.steps import (loss_and_grads,        # noqa: E402
                                       make_prefill_step, make_train_step)
 from repro_torch.models import attention as attn               # noqa: E402
@@ -196,16 +216,19 @@ from repro_torch.models import moe as moe_mod                  # noqa: E402
 from repro_torch.models import partitioning as part           # noqa: E402
 from repro_torch.optim import (adamw_init, adamw_update,       # noqa: E402
                                cosine_schedule)
+from repro_torch.roofline import work                          # noqa: E402
 from repro_torch.serve import KVPager, PagerConfig, ServeLoop  # noqa: E402
 from repro_torch.train import TrainLoop, TrainLoopConfig       # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map             # noqa: E402
 
-# NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit,
+# and each kernel's work: roofline/work.py, which the dry run reads too
+PEAK_BYTES_PER_S = HBM_BW
+PEAK_FLOPS = {torch.bfloat16: work.PEAK_FLOPS["bfloat16"],
+              torch.float32: work.PEAK_FLOPS["float32"]}
 # the SSD kernel's products run on the tensor cores from split operands:
 # its bound takes the function's operations at the TF32 rate
-SSD_RATE = ("TF32 tensor cores", 495e12)
+SSD_RATE = ("TF32 tensor cores", work.TF32_FLOPS)
 
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}     # tests/test_kernels.py
 PAGED_TOL_F32 = 3e-5
@@ -449,10 +472,7 @@ def cuda_ms(fn, n_sets, reps, warmup=3):
 
 
 def bound(bytes_moved, flops, dtype):
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return work.bound_ms(bytes_moved, flops, PEAK_FLOPS[dtype])
 
 
 def free_card():
@@ -908,6 +928,50 @@ def check_paged_row_tiles(rng, dev, G, KH, hd=128, page=lm.PAGE_SIZE,
     return worst
 
 
+def check_paged_lse(rng, dev):
+    """The paged kernel's (out, lse) against the plain version's, bf16 and
+    fp32, at hd 64 (G 1), qwen2-vl-2b's G 6 and granite-34b's G 48 (row
+    tiles), 34 pages of 16 under a permuted table, one zero-length row:
+    out within TOLS (PAGED_TOL_F32) and bit-identical to the launch
+    without lse, lse within LSE_TOL (absolute and relative), the
+    zero-length row's lse <= -1e30. Returns the largest out error."""
+    worst = 0.0
+    B, page, nblk = BATCH, lm.PAGE_SIZE, 34
+    for H, KH, hd in ((32, 32, 64), (12, 2, 128), (48, 1, 128)):
+        for dt, tol in ((torch.float32, PAGED_TOL_F32),
+                        (torch.bfloat16, TOLS[torch.bfloat16])):
+            npool = nblk * B + 4
+            q = rand(rng, (B, H, hd), dt, dev)
+            kp = rand(rng, (npool, page, KH, hd), dt, dev)
+            vp = rand(rng, (npool, page, KH, hd), dt, dev)
+            table = torch.from_numpy(rng.permutation(npool)[:B * nblk]
+                                     .reshape(B, nblk).astype(np.int32)).to(dev)
+            lens_np = rng.integers(1, nblk * page + 1, B).astype(np.int32)
+            lens_np[0] = 0
+            lens = torch.from_numpy(lens_np).to(dev)
+            out, lse = paged_kernel.paged_attention(q, kp, vp, table, lens,
+                                                    with_lse=True)
+            plain = paged_kernel.paged_attention(q, kp, vp, table, lens)
+            what = f"paged +lse B={B} H={H} KH={KH} hd={hd} {str(dt)[6:]}"
+            if not torch.equal(out, plain):
+                raise AssertionError(f"{what}: out with lse is not the bits "
+                                     f"of the launch without it")
+            ref_o, ref_lse = paged_ops.paged_attention_ref(
+                q.cpu(), kp.cpu(), vp.cpu(), table.cpu(), lens.cpu(),
+                with_lse=True)
+            e = check_close(what, out, ref_o.to(dev), tol, tol)
+            if not bool((lse[0] <= -1e30).all()):
+                raise AssertionError(f"{what}: the zero-length row's lse "
+                                     f"{lse[0].tolist()} > -1e30")
+            el = check_close(f"{what} lse", lse[1:], ref_lse[1:].to(dev),
+                             LSE_TOL, LSE_TOL)
+            log(f"{what}: out max abs err {e:.3e} (tol {tol}), bits equal to "
+                f"the launch without lse; lse max abs err {el:.3e} (tol "
+                f"{LSE_TOL}); zero-length row lse {float(lse[0].max()):.3e}")
+            worst = max(worst, e)
+    return worst
+
+
 def check_paged_permuted(rng, dev, B, H, KH, hd, page, nblk):
     """The same pages under a permuted table give the same bits; the kernel
     also agrees with the plain split-merge version."""
@@ -1039,6 +1103,7 @@ def phase_kernels_vs_plain(dev):
                   (BATCH, 32, 32, 80, 16, 34), (2, 8, 2, 64, 16, 11)):
         check_paged_permuted(rng, dev, *shape)
     check_paged_decode_lengths(rng, dev)
+    check_paged_lse(rng, dev)
     # qwen2-vl-2b's decode: G = 6 query heads a KV head (not a power of
     # two) at hd 128, 34 pages of 16
     check_paged_permuted(rng, dev, BATCH, 12, 2, 128, lm.PAGE_SIZE, 34)
@@ -2303,6 +2368,85 @@ def mesh_zamba2(dev, mesh):
     return launches, result
 
 
+# decode on the 1 x 1 mesh (PR 23): 8 steps after a mesh=None prefill of
+# the serving prompts; deepseek-v2-lite at 2 layers, shard_map
+MESH_DECODE = ("stablelm-1.6b", "zamba2-2.7b", "deepseek-v2-lite-16b")
+MESH_DECODE_STEPS = 8
+
+
+def mesh_decode(dev, mesh, arch):
+    """``lm.decode_step(mesh=, rules=)`` on the 1 x 1 mesh (the cache placed
+    by cache_specs, attention through the paged kernel with lse on the
+    rank's shard and the fp32 merge; MLA on DTensors) against mesh=None
+    from the same prefill cache: logits and greedy tokens bit for bit over
+    MESH_DECODE_STEPS steps, and the same paged and SSD launches."""
+    cfg = serve_config(arch)
+    if arch in MESH_TRAIN_LAYERS:
+        cfg = cfg.replace(n_layers=MESH_TRAIN_LAYERS[arch],
+                          moe_impl="shard_map")
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    params = lm.cast_params(cfg, params, torch.bfloat16)
+    rules = part.rules_for(mesh, BATCH)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        logits0, cache = make_prefill_step(cfg)(params, {"tokens": tokens})
+        cache = lm.grow_cache(cfg, cache, MAX_LEN)
+    tok0 = logits0[..., :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+    defs = lm.cache_spec_defs(cfg, MAX_LEN, BATCH)
+    out = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        c = {n: t.clone() for n, t in cache.items()}
+        p = params
+        if m is not None:
+            p = lm.place_params(cfg, params, m, rules)
+            c = {n: part.place(t, part.sharding_for(defs[n].logical, m,
+                                                    rules))
+                 for n, t in c.items()}
+        torch.cuda.synchronize()
+        for fn in KERNELS.values():
+            fn.launches = 0
+        logits, toks, t = [], [], tok0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(MESH_DECODE_STEPS):
+                lg, c = lm.decode_step(cfg, p, c, t, PROMPT + i, mesh=m,
+                                       rules=rules if m is not None
+                                       else None)
+                lg = part.full(lg)
+                t = lg[..., :cfg.vocab_size].argmax(-1).to(
+                    torch.int32)[:, None]
+                logits.append(lg)
+                toks.append(t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MESH_DECODE_STEPS
+        out[name] = (torch.stack(logits), torch.cat(toks, 1),
+                     {n: fn.launches for n, fn in KERNELS.items()}, ms)
+        del c, p
+    same = torch.equal(out["mesh"][0], out["none"][0]) and \
+        torch.equal(out["mesh"][1], out["none"][1])
+    err = float((out["mesh"][0].float() - out["none"][0].float())
+                .abs().max())
+    if not same or out["mesh"][2] != out["none"][2]:
+        raise AssertionError(f"mesh decode {arch}: logits max abs err "
+                             f"{err:.3e}, tokens equal "
+                             f"{torch.equal(out['mesh'][1], out['none'][1])}"
+                             f", launches {out['mesh'][2]} vs "
+                             f"{out['none'][2]}")
+    launches = out["mesh"][2]
+    log(f"mesh[{arch}] decode: {MESH_DECODE_STEPS} steps on the 1 x 1 mesh "
+        f"after a {BATCH}x{PROMPT} prefill: logits and tokens bit-identical "
+        f"to mesh=None; {out['mesh'][3]:.3f} ms a step (mesh) vs "
+        f"{out['none'][3]:.3f} ms (mesh=None), host clock; launches "
+        f"{launches} each")
+    result = {"bit_identical": same, "step_ms": out["mesh"][3],
+              "step_ms_mesh_none": out["none"][3]}
+    del out, params, cache
+    free_card()
+    return launches, result
+
+
 def phase_mesh(dev, tmp):
     """The mesh path on the card: a 1 x 1 ("data", "model") mesh
     (``make_local_mesh``) over a one-rank NCCL group (a FileStore: no
@@ -2330,6 +2474,9 @@ def phase_mesh(dev, tmp):
             kind = "prefill" if arch == "zamba2-2.7b" else "train"
             launches[f"mesh {kind} {arch}"], results[arch] = fn()
             free_card()
+        for arch in MESH_DECODE:
+            launches[f"mesh decode {arch}"], \
+                results[f"decode {arch}"] = mesh_decode(dev, mesh, arch)
     finally:
         dist.destroy_process_group()
     return launches, results
@@ -2461,59 +2608,6 @@ def phase_pager(dev, arch, cfg, serve, prompts):
 # phase 4: times
 # ---------------------------------------------------------------------------
 
-def ssd_work(B, S, nh, hp, ns, cl, esz):
-    """(bytes, flops) of one ssd_chunk_call: each input read once, each
-    output written once; C B^T once per chunk and the products only on the
-    lower triangle (FMA = 2), plus the elementwise x·dt, L (sub, exp, mul)
-    and decay weights."""
-    nc = S // cl
-    tri = cl * (cl + 1) // 2
-    byt = (B * S * nh * hp * esz + B * S * nh * 4 + nh * 4
-           + 2 * B * S * ns * esz                       # x, dt, A_log, B, C
-           + B * S * nh * hp * 4 + B * nc * nh * hp * ns * 4
-           + B * S * nh * 4 + B * nc * nh * 4)          # y, states, exps
-    flops = (2 * B * nc * tri * ns + 2 * B * nc * nh * tri * hp
-             + 3 * B * nc * nh * tri + 2 * B * S * nh * hp * ns
-             + 2 * B * S * nh * hp + 2 * B * S * nh)
-    return byt, flops
-
-
-def ssd_bwd_work(B, S, nh, hp, ns, cl, esz):
-    """(bytes, flops) of one ssd_chunk_bwd: each input (x, dt, A_log, B, C
-    and the four fp32 cotangents) read once, each output (dx, ddt, dA_log,
-    dB, dC) written once; the products on the lower triangle of each
-    chunk: s = C Bᵀ, dC and dB from ds once a chunk, g = dy xdtᵀ and
-    dxdt += Pᵀ dy a head, dst B and the states' term of dB a head (FMA =
-    2), plus the elementwise L, P, r and ds and the per-token dx, ddt."""
-    nc = S // cl
-    tri = cl * (cl + 1) // 2
-    byt = (2 * B * S * nh * hp * esz + 2 * B * S * nh * 4 + 2 * nh * 4
-           + 4 * B * S * ns * esz                  # x, dx, dt, ddt, A, B, C
-           + B * S * nh * hp * 4 + B * nc * nh * hp * ns * 4
-           + B * S * nh * 4 + B * nc * nh * 4)     # dy, dst, decs, detot
-    flops = B * nc * (6 * tri * ns + 4 * nh * tri * hp
-                      + 4 * nh * cl * hp * ns + 6 * nh * tri) \
-        + 4 * B * S * nh * hp
-    return byt, flops
-
-
-def ssd_bwd_mma_work(B, S, nh, hp, ns, cl):
-    """bf16 tensor-core FLOPs the bf16 backward kernels issue (FMA = 2),
-    the split passes and the padding of hp and ns to 32 and of the tiles
-    to 64 included (csrc/ssd_bwd.cu): s once a tile pair and head group;
-    dst B_j and x_j · dst a head and key tile; gᵀ and Pᵀ·dy a head and
-    tile pair; dC and dB a tile pair."""
-    pe, pb = BWD_PIECES
-    hpp, nsp = -(-hp // 32) * 32, -(-ns // 32) * 32
-    n_kt = -(-cl // 64)
-    pairs, BC, ngrp = n_kt * (n_kt + 1) // 2, B * (S // cl), -(-nh // 8)
-    tile = 64 * 64 * 2
-    return BC * (ngrp * pairs * tile * nsp
-                 + nh * n_kt * 2 * pe * 64 * hpp * nsp * 2
-                 + nh * pairs * tile * hpp * (pe + pb * (pb + 1) // 2)
-                 + pairs * 2 * pe * tile * nsp)
-
-
 def time_flash(rng, dev, H, KH, hd, B=BATCH, S=PROMPT, with_lse=False,
                hdv=None, window=0):
     """Device ms of the bf16 kernel (writing lse, as training calls it,
@@ -2543,10 +2637,8 @@ def time_flash(rng, dev, H, KH, hd, B=BATCH, S=PROMPT, with_lse=False,
                 *t_sets[i], is_causal=True, scale=scale, **gqa), 4, reps), ""
     except RuntimeError as exc:           # no backend takes the shapes
         lib_ms, lib_note = None, f" ({str(exc).splitlines()[0][:120]})"
-    pairs = S * (S + 1) // 2
-    bnd = bound(B * S * H * hd * 2 + B * S * KH * (hd + hdv) * 2
-                + B * S * H * hdv * 2 + (B * H * S * 4 if with_lse else 0),
-                2 * B * H * (hd + hdv) * pairs, dt)
+    bnd = bound(*work.flash_fwd_work(B, S, S, H, KH, hd, hdv, 2,
+                                     with_lse=with_lse, window=window), dt)
     dims = f"q/k {hd} v {hdv}" if hdv != hd else f"hd {hd}"
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     log(f"  flash  q {(B, S, H)} {dims}, k/v {KH} heads bf16 causal"
@@ -2592,10 +2684,8 @@ def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64, KH=None,
             lib[i][0], lib[i][1], lib[i][2], retain_graph=True), 2, 10), ""
     except RuntimeError as exc:           # no backend takes the shapes
         lib_ms, lib_note = None, f" ({str(exc).splitlines()[0][:120]})"
-    pairs = S * (S + 1) // 2
-    flops = 2 * B * H * (3 * hd + 2 * hdv) * pairs
-    bnd = bound(2 * B * S * H * (2 * hd + 2 * hdv)
-                + 4 * B * S * KH * (hd + hdv) + B * H * S * 4, flops, dt)
+    n_bytes, flops = work.flash_bwd_work(B, S, S, H, KH, hd, hdv, 2)
+    bnd = bound(n_bytes, flops, dt)
     dims = f"hd {hd}" if hdv == hd else f"q/k {hd} v {hdv}"
     log(f"  flash bwd q {(B, S, H)} {dims}, k/v {KH} heads bf16 causal: "
         f"kernel "
@@ -2608,8 +2698,10 @@ def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64, KH=None,
     return ms, plain_ms, lib_ms, bnd
 
 
-def time_paged(rng, dev, H, KH, hd, length):
-    """Device ms at one decode length (the split depends on the pages)."""
+def time_paged(rng, dev, H, KH, hd, length, with_lse=False):
+    """Device ms at one decode length (the split depends on the pages);
+    with ``with_lse`` the kernel also writes each row's lse (the mesh
+    decode's call), and the plain version returns it too."""
     dt = torch.bfloat16
     B = BATCH
     per_seq = MAX_LEN // lm.PAGE_SIZE
@@ -2618,9 +2710,9 @@ def time_paged(rng, dev, H, KH, hd, length):
     pools = [tuple(rand(rng, (B * per_seq, lm.PAGE_SIZE, KH, hd), dt, dev)
                    for _ in range(2)) for _ in range(8)]   # 8 x 17.8 MB
     ms = cuda_ms(lambda i: paged_kernel.paged_attention(
-        q, *pools[i], table, lens), 8, 200)
+        q, *pools[i], table, lens, with_lse=with_lse), 8, 200)
     plain_ms = cuda_ms(lambda i: paged_ops.paged_attention_ref(
-        q, *pools[i], table, lens), 8, 20)
+        q, *pools[i], table, lens, with_lse=with_lse), 8, 20)
     # one PyTorch call for the same function: the identity table reads a
     # dense cache, so the single query over that cache, (B,H,1,hd) x
     # (B,KH,L,hd) in the layout SDPA takes (laid out beforehand)
@@ -2633,12 +2725,12 @@ def time_paged(rng, dev, H, KH, hd, length):
     check_close("sdpa vs paged kernel", lib, ref, TOLS[dt], TOLS[dt])
     lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
         q4, *dense[i], **gqa), 8, 200)
-    bnd = bound(2 * B * length * KH * hd * 2 + 2 * B * H * hd * 2
-                + table.numel() * 4 + lens.numel() * 4,
-                4 * B * H * hd * length, dt)
+    bnd = bound(*work.paged_work(B, H, KH, hd, length, table.shape[1], 2,
+                                 with_lse=with_lse), dt)
     plan = paged_kernel.plan(table.shape[1], lm.PAGE_SIZE, H // KH, hd, dt)
     R = plan["row_tiles"]
-    log(f"  paged  q {(B, H, hd)} over {table.shape[1]} pages x "
+    log(f"  paged{' +lse' if with_lse else ''}  q {(B, H, hd)} over "
+        f"{table.shape[1]} pages x "
         f"{lm.PAGE_SIZE}, length {length}, {R} row tiles of "
         f"{plan['rows_per_tile']} query rows, clusters of {plan['n_split']} "
         f"CTAs x {plan['pages_per_split']} pages ({plan['pages_per_stage']} "
@@ -2660,7 +2752,7 @@ def time_ssd(rng, dev, nh, hp, ns, S, cl, what, B=BATCH):
                  n_sets, reps)
     plain_ms = cuda_ms(lambda i: ssd_chunk_ref(*sets[i], chunk=cl), n_sets,
                        max(5, reps // 10))
-    byt, flops = ssd_work(B, S, nh, hp, ns, cl, 2)
+    byt, flops = work.ssd_work(B, S, nh, hp, ns, cl, 2)
     t_bytes, t_ops = byt / PEAK_BYTES_PER_S, flops / SSD_RATE[1]
     bnd = (max(t_bytes, t_ops) * 1e3,
            "bytes" if t_bytes >= t_ops else "operations")
@@ -2690,11 +2782,11 @@ def time_ssd_bwd(rng, dev, B, S, nh, hp, ns, cl, what):
                  10, warmup=2)
     plain_ms = cuda_ms(lambda i: ssd_chunk_bwd_ref(*sets[i], chunk=cl), 2,
                        3, warmup=1)
-    byt, flops = ssd_bwd_work(B, S, nh, hp, ns, cl, 2)
+    byt, flops = work.ssd_bwd_work(B, S, nh, hp, ns, cl, 2)
     t_bytes, t_ops = byt / PEAK_BYTES_PER_S, flops / SSD_RATE[1]
     bnd = (max(t_bytes, t_ops) * 1e3,
            "bytes" if t_bytes >= t_ops else "operations")
-    mma = ssd_bwd_mma_work(B, S, nh, hp, ns, cl)
+    mma = work.ssd_bwd_mma_work(B, S, nh, hp, ns, cl)
     log(f"  ssd bwd {what}: x {(B, S, nh, hp)} ns {ns} cl {cl} bf16: kernel "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of its "
         f"{flops / 1e9:.2f} GFLOP; its split issues {mma / 1e9:.2f} GFLOP "
@@ -2741,10 +2833,15 @@ def phase_kernel_times(dev):
     # the first and last decode steps' lengths: 33 and 34 pages
     time_paged(rng, dev, 32, 32, 64, PROMPT + 1)
     out["paged_attention"] = time_paged(rng, dev, 32, 32, 64, MAX_LEN - 1)
+    # with lse: the call of the mesh decode (a shard's partial softmax)
+    out["paged_attention lse"] = time_paged(rng, dev, 32, 32, 64,
+                                            MAX_LEN - 1, with_lse=True)
     time_paged(rng, dev, 32, 32, 80, PROMPT + 1)      # zamba2-2.7b
     time_paged(rng, dev, 32, 32, 80, MAX_LEN - 1)
     time_paged(rng, dev, 12, 2, 128, PROMPT + 1)      # qwen2-vl-2b: G = 6
     qwen["paged_attention"] = time_paged(rng, dev, 12, 2, 128, MAX_LEN - 1)
+    qwen["paged_attention lse"] = time_paged(rng, dev, 12, 2, 128,
+                                             MAX_LEN - 1, with_lse=True)
     # mixtral-8x22b's decode (G = 6 over 8 KV heads), its prefill and its
     # training call's forward (window 4096 >= S); deepseek-v2-lite's
     # prefill at q/k 192, v 128
@@ -2778,6 +2875,9 @@ def phase_kernel_times(dev):
         dense[label] = {"paged_attention": time_paged(
             rng, dev, G * KH, KH, 128, MAX_LEN - 1),
             "flash_attention_fwd": time_flash(rng, dev, G * KH, KH, 128)}
+    # granite-34b's row tiles with lse
+    dense["granite_34b"]["paged_attention lse"] = time_paged(
+        rng, dev, 48, 1, 128, MAX_LEN - 1, with_lse=True)
     free_card()
     out["ssd_chunk_call"] = time_ssd(rng, dev, 80, 64, 64, PROMPT, 256,
                                      "zamba2-2.7b prefill")
@@ -2817,16 +2917,37 @@ def phase_serve_times(dev, arch, cfg, serve, prompts):
         serve.step(serve.params, full, nxt, PROMPT)       # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        e0.record()
-        for pos in range(PROMPT, PROMPT + NEW - 1):
-            nxt, full = serve.step(serve.params, full, nxt, pos)
-        e1.record()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
-        decode_ms = e0.elapsed_time(e1) / (NEW - 1)
+
+        def decode():
+            """ms a decode step by CUDA events and by the host clock."""
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t, t0 = nxt, time.perf_counter()
+            e0.record()
+            for pos in range(PROMPT, PROMPT + NEW - 1):
+                t, _ = serve.step(serve.params, full, t, pos)
+            e1.record()
+            torch.cuda.synchronize()
+            return (e0.elapsed_time(e1) / (NEW - 1),
+                    (time.perf_counter() - t0) * 1e3 / (NEW - 1))
+        decode_ms, host_ms = decode()
+        walls = {}
+        if arch in DISPATCH_ARCHS:
+            # the kernel ops' dispatch: the same steps with the ops' entry
+            # points calling the kernels' wrappers directly (as before they
+            # were torch custom ops), in turns: ops, direct, direct, ops
+            runs = {"ops": [(decode_ms, host_ms)], "direct": []}
+            with direct_kernel_calls():
+                runs["direct"] += [decode(), decode()]
+            runs["ops"].append(decode())
+            walls = {k: float(np.mean([h for _, h in v]))
+                     for k, v in runs.items()}
+            log(f"serve[{arch}]: decode wall through the custom ops "
+                f"{walls['ops']:.3f} ms/step, calling the wrappers directly "
+                f"{walls['direct']:.3f} ms/step (host clock, synchronized, "
+                f"each the mean of 2 runs of {NEW - 1} steps, in turns; "
+                f"device {np.mean([d for d, _ in runs['ops']]):.3f} / "
+                f"{np.mean([d for d, _ in runs['direct']]):.3f} ms)")
         del full
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve[{arch}]: prefill {BATCH}x{PROMPT}: {prefill_ms:.3f} ms (host "
@@ -2834,7 +2955,39 @@ def phase_serve_times(dev, arch, cfg, serve, prompts):
         f"ms/step by CUDA events ({host_ms:.3f} ms host), "
         f"{BATCH * 1e3 / decode_ms:.1f} tokens/s at batch {BATCH}; peak "
         f"memory {peak_gb:.2f} GB")
-    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms}
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms}
+    if walls:
+        out.update(decode_wall_ms_ops=walls["ops"],
+                   decode_wall_ms_direct=walls["direct"])
+    return out
+
+
+# the serving runs whose decode walls are taken with the kernel ops'
+# dispatch and without it (phase 4)
+DISPATCH_ARCHS = ("stablelm-1.6b", "zamba2-2.7b")
+
+
+@contextlib.contextmanager
+def direct_kernel_calls():
+    """The kernel ops' entry points (``paged_attention``, ``FlashAttention``,
+    ``SSDChunk``) call each op's implementation directly, as they called
+    the kernels' wrappers before the ops were torch custom ops: the same
+    launches without the dispatcher, to time what the dispatch costs."""
+    swaps = [(paged_ops, "paged_op", paged_ops._route),
+             (paged_ops, "paged_lse_op", paged_ops._route_lse),
+             (flash_ops, "fwd_op", flash_ops._fwd),
+             (flash_ops, "fwd_lse_op", flash_ops._fwd_lse),
+             (flash_ops, "bwd_op", flash_ops._bwd),
+             (ssd_ops, "chunk_op", ssd_ops._chunk),
+             (ssd_ops, "chunk_bwd_op", ssd_ops._chunk_bwd)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -2955,6 +3108,94 @@ def phase_profile(dev, arch, cfg, serve, prompts):
         _report(f"decode step (mean of {steps})", wall, kern, host, steps)
 
 
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py) on the card machine's CUDA build
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "decode_32k"))
+DRYRUN_TIMEOUT = 600
+# phase 4's stablelm training step, traced on one device (a 1 x 1 mesh)
+ONE_CARD_CELL = """
+import json, sys
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.dryrun import run_cell
+r = run_cell("stablelm-1.6b", ShapeConfig("train_4k", {S}, {B}, "train"),
+             False, sys.argv[1], tag="one_card", device="cuda",
+             mesh_shape=((1, 1), ("data", "model")))
+print(json.dumps({{"flops": r["flops_per_device"],
+                  "bytes": r["bytes_per_device"],
+                  "peak": r["memory"]["peak_est_bytes"],
+                  "trace_s": r["trace_s"]}}))
+"""
+
+
+def phase_dryrun(train_ms, smi_line):
+    """``launch/dryrun.py`` in subprocesses (a fake process group cannot
+    share a process with the NCCL one), all started together, with fake
+    CUDA tensors (no card memory): stablelm-1.6b's train_4k and decode_32k
+    cells on the 16 x 16 mesh, and phase 4's stablelm training step (2 x
+    4096, one device), whose FLOPs over the measured step give its
+    TFLOP/s. Any failed trace raises."""
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    try:
+        procs = {cell: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cell[0], "--shape", cell[1], "--device", "cuda", "--out", tmp],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for cell in DRYRUN_CELLS}
+        procs["one card"] = subprocess.Popen(
+            [sys.executable, "-c", ONE_CARD_CELL.format(S=TRAIN_S, B=TRAIN_B),
+             tmp], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        outs = {}
+        for key, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if proc.returncode != 0:
+                raise AssertionError(f"dry run {key}: exit {proc.returncode}"
+                                     f"\n{out[-2000:]}\n{err[-4000:]}")
+            outs[key] = out
+        results = {}
+        for arch, shape in DRYRUN_CELLS:
+            with open(os.path.join(tmp, f"{arch}_{shape}_16x16.json")) as f:
+                r = json.load(f)
+            kinds = {k: (v["count"], v["bytes"]) for k, v in
+                     r["collectives"].items()}
+            log(f"dryrun[{arch} {shape} 16x16, {r['mesh_device']}, torch "
+                f"{r['torch']}]: {r['flops_per_device'] / 1e12:.3f} TFLOP, "
+                f"{r['bytes_per_device'] / 1e9:.3f} GB moved, collectives "
+                f"(count, bytes) {kinds}, peak "
+                f"{r['memory']['peak_est_bytes'] / 1e9:.2f} GB a device, "
+                f"t_bound {r['roofline']['t_bound_s']:.4f} s "
+                f"({r['roofline']['bottleneck']}), trace {r['trace_s']} s; "
+                f"CommDebugMode {r['comm_debug_counts']} (agrees: "
+                f"{r['comm_debug_agrees']})")
+            results[f"{arch} {shape}"] = {
+                "flops": r["flops_per_device"],
+                "bytes": r["bytes_per_device"],
+                "peak_gb": r["memory"]["peak_est_bytes"] / 1e9,
+                "t_bound_s": r["roofline"]["t_bound_s"],
+                "trace_s": r["trace_s"]}
+        one = json.loads(outs["one card"].strip().splitlines()[-1])
+        tflops = one["flops"] / train_ms / 1e9
+        log(f"dryrun[stablelm-1.6b train step, one device, {TRAIN_B} x "
+            f"{TRAIN_S}]: {one['flops'] / 1e12:.3f} TFLOP traced over the "
+            f"measured step of {train_ms:.3f} ms: {tflops:.1f} TFLOP/s, "
+            f"{100 * tflops * 1e12 / PEAK_FLOPS[torch.bfloat16]:.1f}% of "
+            f"989 TFLOP/s; card {smi_line}; traced peak "
+            f"{one['peak'] / 1e9:.2f} GB, trace {one['trace_s']} s")
+        results["one card train"] = dict(one, step_ms=train_ms,
+                                         tflops_per_s=tflops)
+        return results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3009,6 +3250,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     times, extra_times = phase_kernel_times(dev)
+    dryrun = phase_dryrun(train_times["stablelm-1.6b"]["step_ms"], smi_line)
     paths = ARCHS + tuple(f"train {a}" for a in TRAIN_ARCHS) \
         + tuple(f"pager {a}" for a in PAGER_ARCHS) + tuple(mesh_launches)
     kernels = []
@@ -3030,6 +3272,10 @@ def main() -> int:
                  "launches_by_path": by_path, "max_abs_err": errs[kname],
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": lib_ms}
+        if f"{kname} lse" in times:        # paged, writing lse as well
+            l_ms, l_plain, _, (l_bound, _) = times[f"{kname} lse"]
+            entry.update(lse_ms=l_ms, lse_plain_ms=l_plain,
+                         lse_bound_ms=l_bound)
         if kname == "flash_attention_fwd":      # also at the training shape
             t_ms, t_plain, t_lib, (t_bound, _) = \
                 times["flash_attention_fwd train"]
@@ -3045,6 +3291,10 @@ def main() -> int:
                 k_ms, k_plain, k_lib, (k_bound, k_by) = tms[kname]
                 sub.update(ms=k_ms, plain_ms=k_plain, bound_ms=k_bound,
                            bound_by=k_by, library_ms=k_lib)
+            if f"{kname} lse" in tms:
+                l_ms, l_plain, _, (l_bound, _) = tms[f"{kname} lse"]
+                sub.update(lse_ms=l_ms, lse_plain_ms=l_plain,
+                           lse_bound_ms=l_bound)
             if f"{kname} train" in tms:
                 t_ms, t_plain, t_lib, (t_bound, _) = tms[f"{kname} train"]
                 sub.update(train_ms=t_ms, train_plain_ms=t_plain,
@@ -3059,7 +3309,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve_times,
                       "train": train_times, "pager": pager,
-                      "mesh": mesh_results}))
+                      "mesh": mesh_results, "dryrun": dryrun}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -11,7 +11,11 @@
 // lists the pages of sequence b in logical order; positions >= lengths[b]
 // are masked to -1e30, so a zero-length row gives the mean of V over the
 // table's slots, as the Pallas kernel does. Softmax is fp32; l is clamped
-// to 1e-30; the output is written in q's dtype.
+// to 1e-30; the output is written in q's dtype. Given an lse pointer, each
+// (b, h) row's fp32 log-sum-exp of its scaled scores over its lengths
+// positions is written too (-1e30 for a zero-length row), so that the
+// partial results of shards of one sequence can be merged; a null pointer
+// launches exactly what serving launches.
 //
 // What bounds it on the card: by the data sheet, bytes. A decode step
 // reads every cached K/V byte of the sequence once and does 4 FLOPs per
@@ -97,6 +101,7 @@ constexpr int MAX_ROW_ELEMS = 1024;        // Gt * hd, a row tile
 #define PAGED_MAX_TILE_ROWS 0              // 0: as many as MAX_ROW_ELEMS
 #endif
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -146,6 +151,7 @@ struct Params {
   const int* table;
   const int* lengths;
   void* out;
+  float* lse;        // (B, H) fp32 log-sum-exp of each row, or null
   int G;             // query rows a CTA (a row tile)
   int G_all;         // query rows a KV head
   int R;             // row tiles a KV head: ceil(G_all / G)
@@ -157,6 +163,7 @@ struct Params {
   int lg;            // lanes per token row in the score step
   int aligned;       // rows may be copied with 16-byte cp.async
   long long q_sb, q_sh, k_sp, k_st, k_sh, v_sp, v_st, v_sh, t_sb, o_sb, o_sh;
+  long long lse_sb;  // lse's batch stride (H)
   float scale;
 };
 
@@ -508,6 +515,12 @@ paged_split_kernel(const Params p) {
         a = fmaf(*cluster.map_shared_rank(fs + L.cacc + e, s), wt, a);
       }
       out[g * p.o_sh + d] = from_f<T>(a / fmaxf(l, 1e-30f));
+      // the row's natural-log lse over its lengths positions; a
+      // zero-length row (every score masked, M = -1e30) gets -1e30, so
+      // that its weight in a merge of shards underflows to 0
+      if (d == 0 && p.lse != nullptr)
+        p.lse[b * p.lse_sb + kh * p.G_all + g0 + g] =
+            M <= NEG_INF ? NEG_INF : (M + log2f(l)) * LN2;
     }
   }
   cluster.sync();
@@ -613,7 +626,7 @@ extern "C" {
            int page_sz, int nblk, long long q_sb, long long q_sh,            \
            long long k_sp, long long k_st, long long k_sh, long long v_sp,   \
            long long v_st, long long v_sh, long long t_sb, long long o_sb,   \
-           long long o_sh, float scale, void* stream) {                      \
+           long long o_sh, float scale, void* lse, void* stream) {           \
     Params p = {};                                                           \
     p.q = q; p.kp = kp; p.vp = vp;                                           \
     p.table = static_cast<const int*>(table);                                \
@@ -622,6 +635,7 @@ extern "C" {
     p.q_sb = q_sb; p.q_sh = q_sh; p.k_sp = k_sp; p.k_st = k_st;              \
     p.k_sh = k_sh; p.v_sp = v_sp; p.v_st = v_st; p.v_sh = v_sh;              \
     p.t_sb = t_sb; p.o_sb = o_sb; p.o_sh = o_sh; p.scale = scale;            \
+    p.lse = static_cast<float*>(lse); p.lse_sb = H;                          \
     return launch<T>(p, B, H, KH, stream);                                   \
   }
 

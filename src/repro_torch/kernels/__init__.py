@@ -23,3 +23,37 @@ def reject_dtensor(*tensors) -> None:
     if any(isinstance(t, DTensor) for t in tensors):
         raise TypeError("a kernel op takes plain tensors, not DTensors: "
                         "call it on local shards (partitioning.local_map)")
+
+
+# the kernel ops' namespace, ``torch.ops.repro_torch`` (registered at the
+# dispatcher's level: a torch.library.custom_op costs the host ~20 us more
+# a call, and decode makes 24-63 such calls a step)
+_LIB = torch.library.Library("repro_torch", "DEF")
+
+
+def kernel_op(name: str, route, fake, flops=None):
+    """Register ``route`` as the torch op ``repro_torch::<name>``
+    (``torch.ops.repro_torch.<name>``, its schema inferred from ``route``'s
+    annotations): its CPU and CUDA implementation, ``route``, runs the
+    plain version on a CPU tensor and the hand-written kernel's wrapper on
+    a CUDA tensor; ``fake``, the output shapes, dtypes and strides alone,
+    which ``FakeTensorMode`` runs in place of either on a fake tensor of
+    any device (a trace takes the card's route and launches nothing); and
+    ``flops``, ``FlopCounterMode``'s formula (of shapes, from
+    ``roofline.work``). Returns a function that calls the op, except on a
+    ``meta`` tensor, which it hands to ``route`` itself: the kernel's
+    wrapper then refuses it, as it refuses any tensor off the card."""
+    from torch.utils.flop_counter import register_flop_formula
+    _LIB.define(name + torch.library.infer_schema(route, mutates_args=()))
+    for key in ("CPU", "CUDA"):
+        _LIB.impl(name, route, key)
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    packet = getattr(torch.ops.repro_torch, name)
+    if flops is not None:
+        register_flop_formula(packet)(flops)
+
+    def call(*args):
+        if args[0].device.type == "meta":
+            return route(*args)
+        return packet(*args)
+    return call

@@ -24,15 +24,17 @@ SOURCE = "paged_attn"
 _SYMBOLS = {torch.bfloat16: "paged_attn_bf16", torch.float32: "paged_attn_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_int64] * 11
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
-                    scale: float | None = None):
+                    scale: float | None = None, with_lse: bool = False):
     """q: (B, H, hd); pools: (n_pages, page_sz, KH, hd), same dtype as q
     (bf16 or fp32), any strides with a contiguous head dim;
     page_table: (B, nblk) int32; lengths: (B,) int32. Returns (B, H, hd)
-    in q's dtype."""
+    in q's dtype and, with ``with_lse``, the (B, H) fp32 log-sum-exp of
+    each row's scaled scores over its ``lengths`` positions (-1e30 for a
+    zero-length row); without it the kernel writes none."""
     B, H, hd = q.shape
     n_pages, page_sz, KH, hd_k = k_pages.shape
     for t in (q, k_pages, v_pages, page_table, lengths):
@@ -62,6 +64,8 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
         scale = 1.0 / math.sqrt(hd)
     nblk = page_table.shape[1]
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     symbol = _SYMBOLS[q.dtype]
     fn = _build.bind(SOURCE, symbol, _ARGTYPES)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -71,10 +75,11 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
              k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
              v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
              page_table.stride(0), out.stride(0), out.stride(1),
-             float(scale), _build.stream_handle(q.device))
+             float(scale), lse.data_ptr() if with_lse else None,
+             _build.stream_handle(q.device))
     _build.check(SOURCE, symbol, err)
     paged_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 paged_attention.launches = 0

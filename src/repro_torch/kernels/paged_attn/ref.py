@@ -2,7 +2,8 @@
 
 ``paged_attention_ref`` gathers the pages into a dense cache and runs
 decode attention over the whole batch at once, with the mask built from
-``lengths`` on the tensors' device (no host sync). It keeps
+``lengths`` on the tensors' device (no host sync); with ``with_lse`` it
+also returns each row's log-sum-exp, as the kernel writes it. It keeps
 ``decode_attention``'s casts: q is cast to the cache dtype before the
 scores and p to the V dtype before the weighted sum.
 
@@ -45,14 +46,22 @@ def _dense(q, k_pages, v_pages, page_table, lengths, scale):
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
-                        scale=None):
+                        scale=None, with_lse=False):
+    """(B, H, hd) in q's dtype and, with ``with_lse``, the (B, H) fp32
+    log-sum-exp of each row's scaled scores over its positions, m +
+    log(l): -1e30 for a zero-length row, whose masked scores are all
+    -1e30 (its output stays the mean of V)."""
     B, H, hd = q.shape
     s, v = _dense(q, k_pages, v_pages, page_table, lengths, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
-    p = p / p.sum(-1, keepdim=True)
+    l = p.sum(-1, keepdim=True)
+    p = p / l
     y = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
-    return y.reshape(B, H, hd).to(q.dtype)
+    y = y.reshape(B, H, hd).to(q.dtype)
+    if not with_lse:
+        return y
+    return y, (m + torch.log(l)).reshape(B, H)
 
 
 def paged_attention_split_ref(q, k_pages, v_pages, page_table, lengths, *,

@@ -4,21 +4,72 @@ inter-chunk recurrence, which stays plain PyTorch as it stays jnp around
 the Pallas kernel (``repro/kernels/ssd_scan/ops.py``) and is
 differentiated by autograd.
 
-``SSDChunk`` differentiates the pieces: on CUDA tensors its forward is
-the chunk kernel ``ssd_chunk_call`` and its backward the hand-written
-``ssd_chunk_bwd`` (``csrc/ssd_bwd.cu``); on CPU tensors ``ssd_chunk_ref``
-and its explicit gradient ``ssd_chunk_bwd_ref``. The forward saves only
-its inputs and the backward recomputes cs and L, as the JAX package's
-``ssd_chunked`` recomputes each chunk under ``jax.checkpoint``."""
+``SSDChunk`` differentiates the pieces: its forward calls the torch custom
+op ``repro_torch::ssd_chunk`` and its backward ``repro_torch::ssd_chunk_bwd``
+(``kernels.kernel_op``): on CUDA tensors the chunk kernel
+``ssd_chunk_call`` and the hand-written ``ssd_chunk_bwd``
+(``csrc/ssd_bwd.cu``), on CPU tensors ``ssd_chunk_ref`` and its explicit
+gradient ``ssd_chunk_bwd_ref``, on fake tensors the output shapes alone
+(with ``roofline.work``'s FLOPs for ``FlopCounterMode``). The forward
+saves only its inputs and the backward recomputes cs and L, as the JAX
+package's ``ssd_chunked`` recomputes each chunk under
+``jax.checkpoint``."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import reject_dtensor
+from repro_torch.kernels import kernel_op, reject_dtensor
 from repro_torch.kernels.ssd_scan.kernel import ssd_chunk_bwd, ssd_chunk_call
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
+from repro_torch.roofline import work
+
+Tensor = torch.Tensor
+
+
+def _chunk(x: Tensor, dt: Tensor, A_log: Tensor, B_: Tensor, C_: Tensor,
+           chunk: int) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    if x.device.type == "cpu":
+        return tuple(t.contiguous() for t in ssd_chunk_ref(
+            x, dt, A_log, B_, C_, chunk=chunk))
+    return ssd_chunk_call(x, dt, A_log, B_, C_, chunk=chunk)
+
+
+def _chunk_bwd(x: Tensor, dt: Tensor, A_log: Tensor, B_: Tensor,
+               C_: Tensor, dy: Tensor, dst: Tensor, decs: Tensor,
+               detot: Tensor, chunk: int
+               ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    grad = ssd_chunk_bwd_ref if x.device.type == "cpu" else ssd_chunk_bwd
+    return tuple(t.contiguous() for t in grad(
+        x, dt, A_log, B_, C_, dy, dst, decs, detot, chunk=chunk))
+
+
+def _fake_chunk(x, dt, A_log, B_, C_, chunk):
+    B, S, nh, hp = x.shape
+    ns = B_.shape[-1]
+    cl = min(chunk, S)
+    nc = S // cl
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty((B, nc, cl, nh, hp), **f32),
+            x.new_empty((B, nc, nh, hp, ns), **f32),
+            x.new_empty((B, nc, cl, nh), **f32),
+            x.new_empty((B, nc, nh), **f32))
+
+
+def _fake_chunk_bwd(x, dt, A_log, B_, C_, dy, dst, decs, detot, chunk):
+    return tuple(t.new_empty(t.shape) for t in (x, dt, A_log, B_, C_))
+
+
+def _flops(name):
+    def formula(*args, out_shape=None, **kwargs):
+        return work.op_work(name, args)[1]
+    return formula
+
+
+chunk_op = kernel_op("ssd_chunk", _chunk, _fake_chunk, _flops("ssd_chunk"))
+chunk_bwd_op = kernel_op("ssd_chunk_bwd", _chunk_bwd, _fake_chunk_bwd,
+                         _flops("ssd_chunk_bwd"))
 
 
 class SSDChunk(torch.autograd.Function):
@@ -29,8 +80,7 @@ class SSDChunk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A_log, B_, C_, chunk):
         reject_dtensor(x, dt, A_log, B_, C_)
-        pieces = ssd_chunk_ref if x.device.type == "cpu" else ssd_chunk_call
-        out = pieces(x, dt, A_log, B_, C_, chunk=chunk)
+        out = chunk_op(x, dt, A_log, B_, C_, chunk)
         if any(ctx.needs_input_grad[:5]):
             ctx.save_for_backward(x, dt, A_log, B_, C_)
             ctx.chunk = chunk
@@ -39,10 +89,9 @@ class SSDChunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dst, decs, detot):
         x, dt, A_log, B_, C_ = ctx.saved_tensors
-        grad = ssd_chunk_bwd_ref if x.device.type == "cpu" else ssd_chunk_bwd
         cot = [t.float().contiguous() for t in (dy, dst, decs, detot)]
-        dx, ddt, dA_log, dB, dC = grad(x, dt, A_log, B_, C_, *cot,
-                                       chunk=ctx.chunk)
+        dx, ddt, dA_log, dB, dC = chunk_bwd_op(x, dt, A_log, B_, C_, *cot,
+                                               ctx.chunk)
         return dx, ddt, dA_log, dB, dC, None
 
 

@@ -14,22 +14,24 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 
-def make_mesh(shape, axes):
+def make_mesh(shape, axes, *, device=None):
     """A DeviceMesh of ``shape`` with axis names ``axes`` over the ranks of
     the default process group (their count must be the product of
-    ``shape``)."""
+    ``shape``), on ``device`` ("cuda" or "cpu"; by default the device of
+    the group's backend: NCCL ``cuda``, any other ``cpu``). A dry run's
+    fake group takes either: ``cuda`` gives the card's collectives."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed's default "
                            "process group (init_process_group)")
-    backend = dist.get_backend()
-    device = "cuda" if backend == "nccl" else "cpu"
+    if device is None:
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device, tuple(shape), mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device=None):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device=device)
 
 
 def make_local_mesh():
@@ -43,4 +45,13 @@ def make_local_mesh():
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s
 HBM_BW = 3.35e12                  # B/s
 NVLINK_BW = 450e9                 # B/s a direction (NVLink 4, 18 links)
+# between nodes: one 400 Gb/s ConnectX-7 a GPU (DGX H100 data sheet)
+INTERNODE_BW = 50e9               # B/s a GPU
 HBM_BYTES = 80 * 10**9            # capacity per card
+# ranks are GPUS_PER_NODE to a node, in row-major order of the mesh
+GPUS_PER_NODE = 8
+
+
+def crosses_nodes(ranks) -> bool:
+    """Whether a group of global ranks spans more than one node."""
+    return len({r // GPUS_PER_NODE for r in ranks}) > 1

@@ -32,21 +32,67 @@ def ce_loss(cfg, logits, labels, mesh=None, rules=None):
     """Cross-entropy over the (padded) vocab, the mean over every position
     (audio: (B, S, K, V) logits and (B, S, K) labels, every codebook's
     position counted); on a mesh the logits are constrained vocab-sharded
-    first, as JAX's."""
+    first, as JAX's, and the loss is taken on each rank's vocab shard
+    (``_vocab_parallel``): no rank holds a whole vocab row."""
     lf = logits.float()
     if mesh is not None:
         ax = ("batch", None, None, "vocab") if cfg.n_codebooks else \
             ("batch", None, "vocab")
         lf = part.constrain(lf, mesh, *ax, rules=rules)
+        lse, true_logit = _vocab_parallel(lf, labels, mesh, rules)
+        return (lse - true_logit).mean()
     lse = torch.logsumexp(lf, dim=-1)
-    true_logit = torch.gather(lf, -1, labels.long()[..., None])
-    if mesh is not None:
-        # reduced while it still has its gathered dim: DTensor cannot
-        # reduce a vocab-masked partial sum once that dim is dropped
-        true_logit = part.constrain(true_logit, mesh, "batch",
-                                    *(None,) * (lf.ndim - 1), rules=rules)
-    true_logit = true_logit[..., 0]
+    true_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     return (lse - true_logit).mean()
+
+
+def _vocab_parallel(lf, labels, mesh, rules):
+    """(logsumexp, the label's logit) of vocab-sharded fp32 logits, each a
+    DTensor (B, S[, K]) reduced over the vocab shards, as GSPMD partitions
+    JAX's: the largest logit by a max over the shards, then each rank's
+    sum of exp(x - max) and its label's logit (zero where the label is in
+    another rank's shard) summed over them. DTensor would gather whole
+    vocab rows for the logsumexp and, in the gather's backward, allocate
+    the global (B, S, V) gradient on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    lpl = lf.placements
+    vdim = lf.ndim - 1
+    vdims = [i for i, p in enumerate(lpl) if isinstance(p, Shard)
+             and p.dim == vdim and mesh.size(i) > 1]
+    # this rank's first vocab entry: DTensor splits as torch.chunk does
+    # (shards of ceil(n / k), the last ones shorter), mesh dim by mesh dim
+    coord, v0, n = mesh.get_coordinate(), 0, lf.shape[-1]
+    for i in vdims:
+        size = -(-n // mesh.size(i))
+        v0 += coord[i] * size
+        n = max(0, min(size, n - coord[i] * size))
+    row = tuple(Replicate() if isinstance(p, Shard) and p.dim == vdim
+                else p for p in lpl)
+    tok = part.placements_for(part.spec_for(
+        ("batch",) + (None,) * (labels.ndim - 1), mesh, rules), mesh)
+
+    if not vdims:                 # whole rows: mesh=None's operators
+        return part.local_map(
+            lambda x, lab: (torch.logsumexp(x, dim=-1), torch.gather(
+                x, -1, lab.long()[..., None])[..., 0]),
+            mesh, (lpl, tok), (row, row))(lf, labels)
+
+    def red(op):
+        return tuple(Partial(op) if i in vdims else p
+                     for i, p in enumerate(row))
+    m = part.local_map(lambda x: x.detach().amax(-1), mesh, (lpl,),
+                       red("max"))(lf)
+    m = part.settle(m)
+
+    def pieces(x, lab, mx):
+        idx = lab.long() - v0
+        mine = (idx >= 0) & (idx < x.shape[-1])
+        t = torch.gather(x, -1, idx.clamp(0, x.shape[-1] - 1)[..., None])
+        return (torch.exp(x - mx[..., None]).sum(-1),
+                torch.where(mine, t[..., 0], 0.0))
+    s, t = part.local_map(pieces, mesh, (lpl, tok, row),
+                          (red("sum"), red("sum")))(lf, labels, m)
+    return m + torch.log(part.settle(s)), part.settle(t)
 
 
 def loss_fn(cfg, params, batch, mesh=None, rules=None):
@@ -83,22 +129,48 @@ def loss_and_grads(cfg, params, batch, mesh=None, rules=None):
     nmb = cfg.microbatches
     if nmb <= 1:
         return _loss_and_grads_one(cfg, params, batch, mesh, rules)
-    mbs = {k: v.reshape((nmb, v.shape[0] // nmb) + tuple(v.shape[1:]))
-           for k, v in batch.items() if k != "pos3"}
-    if "pos3" in batch:
-        p3 = batch["pos3"]
-        mbs["pos3"] = p3.reshape((3, nmb, p3.shape[1] // nmb)
-                                 + tuple(p3.shape[2:])).transpose(0, 1)
+    if any(isinstance(v, part.DTensor) for v in batch.values()):
+        mbs = _local_microbatches(batch, nmb)
+    else:
+        mbs = [{k: v.reshape((nmb, v.shape[0] // nmb)
+                             + tuple(v.shape[1:]))[i]
+                for k, v in batch.items() if k != "pos3"}
+               for i in range(nmb)]
+        if "pos3" in batch:
+            p3 = batch["pos3"]
+            p3 = p3.reshape((3, nmb, p3.shape[1] // nmb)
+                            + tuple(p3.shape[2:])).transpose(0, 1)
+            for i, mb in enumerate(mbs):
+                mb["pos3"] = p3[i]
     loss = 0.0
     grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                      params)
     for i in range(nmb):
-        l, g = _loss_and_grads_one(cfg, params,
-                                   {k: v[i] for k, v in mbs.items()},
-                                   mesh, rules)
+        l, g = _loss_and_grads_one(cfg, params, mbs[i], mesh, rules)
         loss = loss + l
         tree_map(lambda acc, x: acc.add_(x), grads, g)
     return loss / nmb, tree_map(lambda g: g / nmb, grads)
+
+
+def _local_microbatches(batch, nmb):
+    """A placed batch (DTensors, the batch axis split over the mesh) cut
+    into ``nmb`` microbatches on each rank: microbatch i is every rank's
+    i-th block of its local rows (DTensor cannot view a split batch axis
+    as (nmb, B / nmb)). Each holds B / nmb rows, as the plain split's do,
+    and the sum of their gradients is the whole batch's."""
+    out = [{} for _ in range(nmb)]
+    for k, v in batch.items():
+        ax = 1 if k == "pos3" else 0
+        loc = v.to_local()
+        n = loc.shape[ax] // nmb
+        for i in range(nmb):
+            shape = list(v.shape)
+            shape[ax] //= nmb
+            out[i][k] = part.DTensor.from_local(
+                loc.narrow(ax, i * n, n), v.device_mesh, v.placements,
+                run_check=False, shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+    return out
 
 
 def make_train_step(cfg, mesh=None, rules=None, *, peak_lr: float = 3e-4,
@@ -137,12 +209,19 @@ def make_train_step(cfg, mesh=None, rules=None, *, peak_lr: float = 3e-4,
     return train_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, mesh=None, rules=None):
     """decode: (params, cache, tokens, pos) -> (next_tokens (B,1) (audio:
-    (B,1,K)), cache); the cache is updated in place."""
+    (B,1,K)), cache); the cache is updated in place. On a mesh
+    (``lm.decode_step``'s) params and cache are DTensors and so are the
+    next tokens."""
 
     def serve_step(params, cache, tokens, pos):
-        logits, cache = lm.decode_step(cfg, params, cache, tokens, pos)
+        logits, cache = lm.decode_step(cfg, params, cache, tokens, pos,
+                                       mesh=mesh, rules=rules)
+        if mesh is not None:         # the vocab whole before its slice
+            logits = part.constrain(logits, mesh, "batch",
+                                    *(None,) * (logits.ndim - 1),
+                                    rules=rules)
         nxt = logits[..., :cfg.vocab_size].argmax(-1).to(torch.int32)
         return nxt[:, None], cache
 

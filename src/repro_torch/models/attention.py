@@ -38,7 +38,7 @@ import math
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.kernels.flash_attention import ops as _flash_ops
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
@@ -144,6 +144,36 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
     return y.reshape(B, H, v_cache.shape[-1]).to(q.dtype)
 
 
+def merge_shards(o, lse):
+    """The whole softmax-weighted sum from the partials of R shards of one
+    sequence, in fp32: o (R, B, H, hd) each shard's normalised output, lse
+    (R, B, H) its log-sum-exp; returns Σ_r exp(lse_r − LSE)·o_r with LSE
+    = logsumexp_r lse_r. A shard without a position (lse <= -1e30) weighs
+    0. ``merge_over`` is the same sum across ranks."""
+    lse = lse.float()
+    w = torch.exp(lse - torch.logsumexp(lse, 0))
+    return (w[..., None] * o.float()).sum(0)
+
+
+def merge_over(o, lse, groups):
+    """``merge_shards`` across the ranks of ``groups`` (process groups,
+    one a mesh dim the sequence is split over), each rank holding its
+    shard's o (B, H, hd) and lse (B, H): the largest lse by an all-reduce,
+    then the weighted outputs and weights summed (one all-reduce of
+    (B, H, hd + 1) fp32 a dim), Σ exp(lse_r − M)·o_r / Σ exp(lse_r − M),
+    which is Σ exp(lse_r − LSE)·o_r. Returns (B, H, hd) in o's dtype."""
+    from torch.distributed import _functional_collectives as funcol
+    m = lse
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    w = torch.exp(lse - m)[..., None]
+    part = torch.cat([o.float() * w, w], dim=-1)
+    for g in groups:
+        part = funcol.all_reduce(part, "sum", g)
+    part = funcol.wait_tensor(part) if groups else part
+    return (part[..., :-1] / part[..., -1:]).to(o.dtype)
+
+
 # ---------------------------------------------------------------------------
 # DeepSeek-V2 Multi-head Latent Attention
 # ---------------------------------------------------------------------------
@@ -175,12 +205,18 @@ def mla_prefill(p, x, cos, sin, cfg, dtype, mesh=None, rules=None):
     return out, (ckv, kr[:, :, 0, :])
 
 
-def mla_decode(p, x, ckv_cache, kr_cache, pos, cos, sin, cfg, dtype):
+def mla_decode(p, x, ckv_cache, kr_cache, pos, cos, sin, cfg, dtype,
+               mesh=None, rules=None):
     """Absorbed-matrix MLA decode: attention runs in the latent space
     (scores against the compressed cache), never forming per-head K/V.
     x: (B, 1, D); caches (B, Smax, lora) / (B, Smax, rope_d), written at
     ``pos`` in place (JAX returns updated copies). Products of cache-dtype
-    operands accumulate in fp32, as JAX's ``preferred_element_type``."""
+    operands accumulate in fp32, as JAX's ``preferred_element_type``.
+
+    On a mesh (DTensors, the caches split on ``kv_seq``) the same plain
+    torch on DTensors: the rank holding ``pos`` writes it at its local
+    index (``write_at``), and DTensor gathers the scores over the
+    sequence for the softmax, as GSPMD may; the values are JAX's."""
     m = cfg.mla
     B, _, D = x.shape
     H = cfg.n_heads
@@ -194,17 +230,29 @@ def mla_decode(p, x, ckv_cache, kr_cache, pos, cos, sin, cfg, dtype):
     dkv = x[:, 0] @ p["wdkv"].to(dtype)
     ckv_new = rms_norm(dkv[..., :lora], p["ckv_norm"], cfg.norm_eps)
     kr_new = apply_rope(dkv[:, None, None, lora:], cos, sin)[:, 0, 0]
-    ckv_cache[:, pos] = ckv_new.to(ckv_cache.dtype)
-    kr_cache[:, pos] = kr_new.to(kr_cache.dtype)
+    if mesh is None:
+        ckv_cache[:, pos] = ckv_new.to(ckv_cache.dtype)
+        kr_cache[:, pos] = kr_new.to(kr_cache.dtype)
+    else:
+        write_at(ckv_cache, ckv_new, pos)
+        write_at(kr_cache, kr_new, pos)
 
     wuk = p["wuk"].to(dtype).reshape(lora, H, nope)
     q_abs = torch.einsum("bhn,lhn->bhl", qn, wuk)          # absorb W_uk
+    if mesh is not None:
+        # the queries whole over their heads (small), as the paged path
+        # gathers them: DTensor's einsum gives wrong scores from heads and
+        # positions split on one mesh axis
+        q_abs, qr = (part.constrain(t, mesh, "batch", None, None,
+                                    rules=rules) for t in (q_abs, qr))
     s = (torch.einsum("bhl,bsl->bhs", q_abs.to(ckv_cache.dtype).float(),
                       ckv_cache.float())
          + torch.einsum("bhr,bsr->bhs", qr.to(kr_cache.dtype).float(),
                         kr_cache.float()))
     s = s * (1.0 / math.sqrt(nope + rope_d))
     valid = torch.arange(ckv_cache.shape[1], device=x.device) <= pos
+    if mesh is not None:
+        valid = part.replicate(valid, mesh)
     s = torch.where(valid[None, None], s, NEG_INF)
     p_att = torch.softmax(s, dim=-1)
     ol = torch.einsum("bhs,bsl->bhl", p_att.to(ckv_cache.dtype).float(),
@@ -214,3 +262,40 @@ def mla_decode(p, x, ckv_cache, kr_cache, pos, cos, sin, cfg, dtype):
     out = torch.einsum("bhv,hvd->bd", y,
                        p["wo"].to(dtype).reshape(H, vd, D))
     return out[:, None], ckv_cache, kr_cache
+
+
+# ---------------------------------------------------------------------------
+# Decode caches split along their sequence (a mesh's ``kv_seq``)
+# ---------------------------------------------------------------------------
+
+def seq_shard(mesh, placements, seq_dim, length):
+    """(this rank's shard index along a cache's sequence, the length of a
+    shard, the process groups of the mesh dims that split it) for a cache
+    whose ``placements`` split dim ``seq_dim`` of ``length`` positions:
+    the shards are in row-major order of those mesh dims, as DTensor lays
+    them out, and must be of one length."""
+    dims = [i for i, p in enumerate(placements)
+            if isinstance(p, Shard) and p.dim == seq_dim]
+    coord, r, n = mesh.get_coordinate(), 0, 1
+    for i in dims:
+        r = r * mesh.size(i) + coord[i]
+        n *= mesh.size(i)
+    if length % n:
+        raise ValueError(f"a cache of {length} positions does not split "
+                         f"evenly over {n} shards")
+    return r, length // n, [mesh.get_group(i) for i in dims]
+
+
+def write_at(cache, new, idx, seq_dim=1):
+    """Writes ``new`` (B, ...) at sequence position ``idx`` of ``cache``
+    (a DTensor whose dim ``seq_dim`` is split on ``kv_seq``; dim 0 the
+    batch) in place: only the rank whose shard holds ``idx`` writes, at
+    its local index."""
+    mesh, cpl = cache.device_mesh, cache.placements
+    r, s_loc, _ = seq_shard(mesh, cpl, seq_dim, cache.shape[seq_dim])
+    npl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+           for p in cpl]
+    n = new.redistribute(mesh, npl).to_local()
+    lo = r * s_loc
+    if lo <= idx < lo + s_loc:
+        cache.to_local().select(seq_dim, idx - lo).copy_(n)

@@ -50,7 +50,10 @@ by ``input_defs``' logical axes, and every sharding constraint of the JAX
 package is a ``partitioning.constrain`` at the same place (the residual
 stream at each layer's entry, ``sp_norm``'s two, attention's heads-sharded
 blocks, Mamba2's heads, the MoE dispatch's six). Kernels see local shards
-only (``partitioning.local_map``). Decode has no mesh path, as in JAX.
+only (``partitioning.local_map``). ``decode_step(mesh=, rules=)`` is
+JAX's decode as GSPMD partitions it: the cache split on ``kv_seq``, each
+rank attending over its shard of the sequence and the shards merged by
+their log-sum-exps.
 """
 
 from __future__ import annotations
@@ -278,13 +281,19 @@ def _gather_rows(cfg, emb, tokens, dtype):
     return emb[tokens.long()].to(dtype)
 
 
-def lm_head(cfg, params, x, dtype):
-    """(B, S, D) -> logits (B, S, V_padded); audio (B, S, K, V_padded)."""
+def lm_head(cfg, params, x, dtype, mesh=None, rules=None):
+    """(B, S, D) -> logits (B, S, V_padded); audio (B, S, K, V_padded). On
+    a mesh an audio head's (K·V) logits are gathered before they are cut
+    into K codebooks: DTensor cannot view a dim split 16 ways as (K, V)
+    when 16 does not divide K."""
     w = params["embed"].to(dtype).t() if cfg.tie_embeddings \
         else params["head"].to(dtype)
     logits = x @ w
     if cfg.n_codebooks:
         B, S = x.shape[:2]
+        if mesh is not None:
+            logits = part.constrain(logits, mesh, "batch", None, None,
+                                    rules=rules)
         return logits.reshape(B, S, cfg.n_codebooks,
                               padded_vocab(cfg.vocab_size))
     return logits
@@ -337,6 +346,16 @@ def _heads_whole(t, n_heads, tp, axis, mesh, rules):
     return part.constrain(t, mesh, "batch", None, ax, rules=rules)
 
 
+def _on_shards(fn, t, mesh):
+    """``fn`` of ``t``; on a mesh, of each rank's shard (``local_map``, the
+    placements kept), for an ``fn`` that acts on dims no mesh dim splits:
+    DTensor 2.11 (the card's) fails to redistribute around the pad of
+    padded heads and its slice."""
+    if mesh is None:
+        return fn(t)
+    return part.local_map(fn, mesh, (t.placements,), t.placements)(t)
+
+
 def _transformer_block(cfg, p, x, cos, sin, dtype, *, moe_layer=False,
                        collect_cache: bool = False, mesh=None, rules=None):
     """Returns (x, aux, cache): aux the MoE layer's load-balance loss (0.0
@@ -376,7 +395,9 @@ def _transformer_block(cfg, p, x, cos, sin, dtype, *, moe_layer=False,
             k = k.repeat_interleave(H // KH, dim=2)
             v = v.repeat_interleave(H // KH, dim=2)
             pad = (0, 0, 0, Hp - H)
-            q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+            q, k, v = (_on_shards(
+                lambda t: torch.nn.functional.pad(t, pad), t, mesh)
+                for t in (q, k, v))
         o = attn.flash_attention(q, k, v, causal=True,
                                  window=cfg.swa_window,
                                  q_chunk=cfg.attn_q_chunk,
@@ -384,7 +405,10 @@ def _transformer_block(cfg, p, x, cos, sin, dtype, *, moe_layer=False,
                                  schedule=cfg.attn_schedule,
                                  mesh=mesh, rules=rules)
         if Hp != H:
-            o = o[:, :, :H, :]
+            if mesh is not None:       # the padded heads whole first
+                o = part.constrain(o, mesh, "batch", None, None, None,
+                                   rules=rules)
+            o = _on_shards(lambda t: t[:, :, :H, :], o, mesh)
         o = o.reshape(B, S, H * hd)
         if mesh is not None:       # and so must its gradient, back
             o = _heads_whole(o, H, tp, "heads", mesh, rules)
@@ -534,7 +558,7 @@ def forward(cfg, params, batch, *, mesh=None, rules=None,
     x = cstr(rms_norm(x, params["final_norm"], cfg.norm_eps))
     if mesh is not None:
         x = whole_seq(x, mesh, rules)
-    logits = lm_head(cfg, params, x, dtype)
+    logits = lm_head(cfg, params, x, dtype, mesh, rules)
     caches: Dict[str, Any] = {}
     if states:
         caches["ssm"] = torch.stack(states)
@@ -701,14 +725,16 @@ def grow_cache(cfg, cache, max_len) -> dict:
     return full
 
 
-def identity_pages(B, Smax, pos, window, device):
+def identity_pages(B, Smax, pos, window, device, length=None):
     """Page table and lengths that make the paged op read a dense cache of
     logical length Smax laid out in whole pages (``page_pool``): row b is
     pages b·ceil(Smax/P) + j for the pages holding positions <= pos (ring
-    order for a window cache), lengths = pos + 1 (<= Smax)."""
+    order for a window cache), lengths = pos + 1 (<= Smax); or, given
+    ``length`` (a shard's, which may be 0), its pages (at least one)."""
     per_seq = whole_pages(Smax) // PAGE_SIZE
-    length = min(pos + 1, Smax) if window else pos + 1
-    nblk = -(-length // PAGE_SIZE)
+    if length is None:
+        length = min(pos + 1, Smax) if window else pos + 1
+    nblk = max(1, -(-length // PAGE_SIZE))
     table = (torch.arange(B, device=device, dtype=torch.int32)[:, None]
              * per_seq
              + torch.arange(nblk, device=device, dtype=torch.int32)[None])
@@ -763,26 +789,93 @@ def _decode_attn_block(cfg, p, x, kc, vc, pos, cos, sin, dtype, pages):
     return x + y[:, None]
 
 
-def _decode_ffn(cfg, p, x, dtype, moe_layer=False):
+def _decode_attn_mesh(cfg, p, x, kc, vc, pos, cos, sin, dtype, mesh, rules):
+    """``_decode_attn_block`` on a mesh: kc/vc (B, S, KH, hd) DTensor views
+    of one layer of the cache, split on ``kv_seq`` (and ``batch``). q, k
+    and v are gathered over their heads (small); the rank holding the
+    token's slot writes its K/V at its local index; each rank runs the
+    paged op with lse over its shard of the sequence (a length of
+    clamp(length − r·S_local, 0, S_local), in ``local_map``), for all
+    query heads, and the ranks merge their (o, lse) in fp32
+    (``attention.merge_over``)."""
+    B = x.shape[0]
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Smax = kc.shape[1]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    pa = p["attn"]
+
+    def proj(w, n):
+        t = part.constrain(h @ pa[w].to(dtype), mesh, "batch", None, None,
+                           rules=rules)
+        return t.reshape(B, 1, n, hd)
+    q, k, v = proj("wq", H), proj("wk", KH), proj("wv", KH)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    idx = pos % Smax if cfg.swa_window else pos
+    length = min(pos + 1, Smax) if cfg.swa_window else pos + 1
+    cpl = kc.placements
+    r, s_loc, groups = attn.seq_shard(mesh, cpl, 1, Smax)
+    tpl = part.placements_for(part.spec_for(("batch", None, None), mesh,
+                                            rules), mesh)
+    scale = 1.0 / math.sqrt(hd)
+    n_loc = min(max(length - r * s_loc, 0), s_loc)
+
+    def local(ql, kn, vn, kl, vl):
+        lo = r * s_loc
+        if lo <= idx < lo + s_loc:
+            kl[:, idx - lo] = kn.to(kl.dtype)
+            vl[:, idx - lo] = vn.to(vl.dtype)
+        table, lengths = identity_pages(ql.shape[0], s_loc, 0, 0, ql.device,
+                                        length=n_loc)
+        o, lse = _paged_ops.paged_attention(
+            ql, page_pool(kl, dtype), page_pool(vl, dtype), table, lengths,
+            scale=scale, with_lse=True)
+        return attn.merge_over(o, lse, groups)
+    o = part.local_map(local, mesh, (tpl, tpl, tpl, cpl, cpl), tpl)(
+        q[:, 0], k[:, 0], v[:, 0], kc, vc)
+    y = o.reshape(B, H * hd) @ pa["wo"].to(dtype)
+    return x + y[:, None]
+
+
+def _decode_ffn(cfg, p, x, dtype, moe_layer=False, mesh=None, rules=None):
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe_layer:
-        # route the whole token batch jointly (B plays the sequence role)
-        f, _ = moe_mod.moe_ffn(cfg, p["moe"], h2[:, 0][None], dtype)
+        # route the whole token batch jointly (B plays the sequence role):
+        # one group, so on a mesh its (1, B) batch and sequence stay whole
+        r = None if mesh is None else \
+            dict(rules or part.DEFAULT_RULES, batch=(), act_seq=())
+        f, _ = moe_mod.moe_ffn(cfg, p["moe"], h2[:, 0][None], dtype,
+                               mesh=mesh, rules=r)
         return x + f[0][:, None]
     return x + mlp_apply(cfg, p["mlp"], h2, dtype)
 
 
-def decode_step(cfg, params, cache, tokens, pos: int):
+def decode_step(cfg, params, cache, tokens, pos: int, *, mesh=None,
+                rules=None):
     """One decode step. tokens: (B,1) int (audio: (B,1,K)); pos: the new
     token's position. Writes the token's K/V (MLA: its ckv and k_rope) and
     each layer's new SSM and conv state into ``cache`` in place and returns
-    (logits (B, V_padded) (audio: (B, K, V_padded)), cache)."""
+    (logits (B, V_padded) (audio: (B, K, V_padded)), cache).
+
+    On a mesh (``mesh``, ``rules``; JAX's decode partitioned by GSPMD)
+    ``params`` are DTensors (``place_params``), the cache is DTensors
+    placed by ``cache_specs`` (k/v, ckv and kr split on ``kv_seq``, the
+    SSM state on ``ssm_heads``, all on ``batch``), plain tokens are placed
+    by their logical axes, and the logits are a DTensor: attention runs
+    on each rank's shard of the sequence and merges the shards
+    (``_decode_attn_mesh``), MLA on DTensors, each Mamba2 layer on the
+    rank's SSM heads, MoE as one group."""
     dtype = cfg.compute_dt()
     pos = int(pos)
     B = tokens.shape[0]
-    x = embed_tokens(cfg, params, tokens, dtype)           # (B,1,D)
+    if mesh is not None:
+        tokens = place_batch(cfg, {"tokens": tokens}, mesh, rules)["tokens"]
+    x = embed_tokens(cfg, params, tokens, dtype, mesh, rules)   # (B,1,D)
     dev = x.device
     fam = cfg.family
+    rep = (lambda t: t) if mesh is None else \
+        (lambda t: part.replicate(t, mesh))
     cos = sin = None
     if fam == "audio":
         # the absolute sinusoidal row at ``pos``, computed in fp32 here as
@@ -794,22 +887,22 @@ def decode_step(cfg, params, cache, tokens, pos: int):
         pe = torch.zeros(cfg.d_model, dtype=torch.float32, device=dev)
         pe[0::2] = torch.sin(base)
         pe[1::2] = torch.cos(base)
-        x = x + pe.to(dtype)[None, None]
+        x = x + rep(pe.to(dtype)[None, None])
     elif fam == "vlm":
         # all three M-RoPE streams at ``pos`` (the JAX package's decode)
         p3 = torch.full((3, B, 1), pos, device=dev)
-        cos, sin = mrope_cos_sin(p3, cfg.hd, cfg.rope_theta,
-                                 cfg.mrope_sections)
+        cos, sin = map(rep, mrope_cos_sin(p3, cfg.hd, cfg.rope_theta,
+                                          cfg.mrope_sections))
     elif fam != "ssm":
         rope_dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
             else cfg.hd
-        cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), rope_dim,
-                                cfg.rope_theta)
+        cos, sin = map(rep, rope_cos_sin(torch.tensor([pos], device=dev),
+                                         rope_dim, cfg.rope_theta))
     if fam != "ssm":
         Smax = cache["ckv" if cfg.mla is not None else "k"].shape[2]
         if not cfg.swa_window and not 0 <= pos < Smax:
             raise ValueError(f"position {pos} is outside the cache ({Smax})")
-        if cfg.mla is None:
+        if cfg.mla is None and mesh is None:
             pages = identity_pages(B, Smax, pos, cfg.swa_window, dev)
 
     def attend(p, x, g, moe_layer=False):
@@ -817,12 +910,15 @@ def decode_step(cfg, params, cache, tokens, pos: int):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             y, _, _ = attn.mla_decode(p["attn"], h, cache["ckv"][g],
                                       cache["kr"][g], pos, cos, sin, cfg,
-                                      dtype)
+                                      dtype, mesh=mesh, rules=rules)
             x = x + y
+        elif mesh is not None:
+            x = _decode_attn_mesh(cfg, p, x, cache["k"][g], cache["v"][g],
+                                  pos, cos, sin, dtype, mesh, rules)
         else:
             x = _decode_attn_block(cfg, p, x, cache["k"][g], cache["v"][g],
                                    pos, cos, sin, dtype, pages)
-        return _decode_ffn(cfg, p, x, dtype, moe_layer)
+        return _decode_ffn(cfg, p, x, dtype, moe_layer, mesh, rules)
 
     if fam in _ATTN_ONLY:
         g = 0                              # the layer's index in the cache
@@ -841,7 +937,8 @@ def decode_step(cfg, params, cache, tokens, pos: int):
         for i, p_l in enumerate(_layers(params["layers"])):
             y, st, conv = mam.mamba_decode_block(
                 cfg, p_l, x, cache["ssm"][i],
-                tuple(cache[n][i] for n in _CONV), dtype)
+                tuple(cache[n][i] for n in _CONV), dtype, mesh=mesh,
+                rules=rules)
             x = x + y
             cache["ssm"][i] = st
             for n, t in zip(_CONV, conv):
@@ -849,5 +946,7 @@ def decode_step(cfg, params, cache, tokens, pos: int):
             if fam == "hybrid" and (i + 1) % cfg.attn_every == 0:
                 x = attend(params["shared_attn"], x, i // cfg.attn_every)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_head(cfg, params, x, dtype)                # (B,1,V[,K])
+    logits = lm_head(cfg, params, x, dtype, mesh, rules)                # (B,1,V[,K])
+    if mesh is not None:
+        logits = part.settle(logits)
     return logits[:, 0], cache

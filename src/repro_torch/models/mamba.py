@@ -218,6 +218,11 @@ def mamba_block(cfg, p, u, dtype, *, state=None, conv_state=None,
         y, new_state = ssd_ops.ssd(xh, dt, p["A_log"], bs, cs2, p["D"],
                                    chunk=chunk, state=state)
     y = y.reshape(B, S, di)
+    if mesh is not None:
+        # the gradient back in y's layout: DTensor may split its d_inner,
+        # which it cannot then view as heads that do not divide the axis
+        # (mamba2-130m: 24 over 16)
+        y = part.constrain(y, mesh, "batch", None, hax, rules=rules)
     # gated RMSNorm (Mamba2): norm(y * silu(z))
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["wo"].to(dtype)
@@ -226,7 +231,10 @@ def mamba_block(cfg, p, u, dtype, *, state=None, conv_state=None,
     return out
 
 
-def mamba_decode_block(cfg, p, u, state, conv_state, dtype):
-    """u: (B, 1, D) single step."""
+def mamba_decode_block(cfg, p, u, state, conv_state, dtype, mesh=None,
+                       rules=None):
+    """u: (B, 1, D) single step; on a mesh (DTensors) each rank's SSM
+    heads, the SSD chunk of one token in ``local_map``, as the prefill's
+    ``mamba_block``."""
     return mamba_block(cfg, p, u, dtype, state=state, conv_state=conv_state,
-                       return_state=True)
+                       return_state=True, mesh=mesh, rules=rules)

@@ -480,6 +480,70 @@ def test_paged_kernel_matches_plain(cuda, dtype, B, H, KH, hd, page, nblk):
                   else TOLS[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,hd,page,nblk", PAGED_SHAPES)
+def test_paged_kernel_lse_matches_plain(cuda, dtype, B, H, KH, hd, page,
+                                        nblk):
+    """With an lse pointer the kernel writes each row's log-sum-exp (1e-5
+    relative of the plain version's) and the same ``out`` bits as without
+    one; a zero-length row keeps the mean of V and gets lse <= -1e30."""
+    q, kp, vp, table, lens = _paged_inputs(cuda, dtype, B, H, KH, hd, page,
+                                           nblk)
+    lens[0] = 0
+    out, lse = paged_kernel.paged_attention(q, kp, vp, table, lens,
+                                            with_lse=True)
+    plain = paged_kernel.paged_attention(q, kp, vp, table, lens)
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    ref_o, ref_lse = paged_ops.paged_attention_ref(
+        *[a.cpu() for a in (q, kp, vp, table, lens)], with_lse=True)
+    _assert_close(out.cpu(), ref_o, 3e-5 if dtype == torch.float32
+                  else TOLS[dtype])
+    assert bool((lse[0] <= -1e30).all()) and bool((ref_lse[0] <= -1e30).all())
+    torch.testing.assert_close(lse[1:].cpu(), ref_lse[1:], atol=1e-5,
+                               rtol=1e-5)
+    via_op = paged_ops.paged_attention(q, kp, vp, table, lens, with_lse=True)
+    assert torch.equal(via_op[0], out) and torch.equal(via_op[1], lse)
+
+
+def _op_args(dev):
+    """One small call of each kernel op on ``dev`` (bf16; the SSD's dt and
+    A_log fp32): name -> positional arguments."""
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    q, k, v = (_rand(rng, (1, 128, 4, 64), bf, dev),
+               _rand(rng, (1, 128, 2, 64), bf, dev),
+               _rand(rng, (1, 128, 2, 64), bf, dev))
+    o, lse = flash_kernel.flash_attention_fwd(q, k, v, with_lse=True) \
+        if dev.type == "cuda" else flash_attention_fwd_ref(q, k, v)
+    flash = (True, 0, 0.125, 64, 0, "triangular")
+    paged = _paged_inputs(dev, bf, 2, 4, 2, 64, 16, 3)
+    x = _rand(rng, (1, 64, 2, 16), bf, dev)
+    dt = torch.nn.functional.softplus(
+        _rand(rng, (1, 64, 2), torch.float32, dev))
+    A_log = _rand(rng, (2,), torch.float32, dev)
+    Bm, Cm = (_rand(rng, (1, 64, 8), bf, dev) for _ in range(2))
+    cots = [_rand(rng, s, torch.float32, dev) for s in
+            ((1, 2, 32, 2, 16), (1, 2, 2, 16, 8), (1, 2, 32, 2), (1, 2, 2))]
+    return {"flash_fwd": (q, k, v, *flash),
+            "flash_fwd_lse": (q, k, v, *flash),
+            "flash_bwd": (q, k, v, o.contiguous(), lse.contiguous(),
+                          o.contiguous(), *flash),
+            "paged_attention": (*paged, 0.125),
+            "paged_attention_lse": (*paged, 0.125),
+            "ssd_chunk": (x, dt, A_log, Bm, Cm, 32),
+            "ssd_chunk_bwd": (x, dt, A_log, Bm, Cm, *cots, 32)}
+
+
+@pytest.mark.parametrize("name", sorted(_op_args(torch.device("cpu"))))
+def test_kernel_ops_pass_opcheck_on_card(cuda, name):
+    """Each kernel op passes ``torch.library.opcheck`` on CUDA tensors: its
+    schema, its fake version against the kernel's outputs (shapes,
+    dtypes, strides) and its dispatch under AOT tracing."""
+    torch.library.opcheck(getattr(torch.ops.repro_torch, name),
+                          _op_args(cuda)[name])
+
+
 def test_paged_kernel_permuted_table_is_bit_identical(cuda):
     """The same pages under a permuted table give the same bits: the
     reduction order depends on logical position only."""

@@ -14,7 +14,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + \
-    sorted((ROOT / "examples").glob("*_torch.py"))
+    sorted((ROOT / "examples").glob("*_torch.py")) + \
+    sorted((ROOT / "scripts").glob("*_torch.py"))
 
 
 def _imported_roots(path):
