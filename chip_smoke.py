@@ -156,7 +156,18 @@ Phases (any failure raises, and the script exits nonzero):
    (FLOPs, bytes, collectives by kind, peak, bound, trace time), and
    phase 4's stablelm training step on one device, whose traced FLOPs
    over the measured step are printed as TFLOP/s and as a share of 989
-   TFLOP/s beside the card's name and power limit.
+   TFLOP/s beside the card's name and power limit;
+7. the paper's storage and network engines (``repro_torch.storage``,
+   ``wal``, ``lsm``, ``replication``, ``shuffle``), host code on the
+   simulated clock that touches no tensor: the Fig. 5 ladder at 200,000
+   tuples and 300 transactions (``+SQPoll``'s tx/s above ``posix``'s), a
+   ``+GroupCommit`` crash recovered by ``recover`` and an LSM crash during
+   compaction by ``recover_lsm`` (every acknowledged commit read back), a
+   ``+SyncRepl`` failover (no acknowledged commit lost; after a quiesced
+   run the standby's log and promoted map are the primary's), and
+   ``ShuffleEngine``'s egress within 20% of ``ShuffleSim``'s at 512 B and
+   4 KiB tuples. Its numbers are marked simulated (virtual clock), beside
+   the phase's host wall seconds.
 
 The last lines are a JSON object with one entry per kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -172,6 +183,7 @@ import json
 import os
 import pathlib
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -210,16 +222,24 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_bwd_ref,  # noqa
 from repro_torch.launch.mesh import HBM_BW                     # noqa: E402
 from repro_torch.launch.steps import (loss_and_grads,        # noqa: E402
                                       make_prefill_step, make_train_step)
+from repro_torch.lsm import recover_lsm                         # noqa: E402
 from repro_torch.models import attention as attn               # noqa: E402
 from repro_torch.models import lm                              # noqa: E402
 from repro_torch.models import moe as moe_mod                  # noqa: E402
 from repro_torch.models import partitioning as part           # noqa: E402
 from repro_torch.optim import (adamw_init, adamw_update,       # noqa: E402
                                cosine_schedule)
+from repro_torch.replication import ReplicatedCluster         # noqa: E402
 from repro_torch.roofline import work                          # noqa: E402
 from repro_torch.serve import KVPager, PagerConfig, ServeLoop  # noqa: E402
+from repro_torch.shuffle import (ShuffleConfig, ShuffleEngine,  # noqa: E402
+                                 ShuffleSim)
+from repro_torch.storage.engine import (EngineConfig,       # noqa: E402
+                                        StorageEngine, make_engine)
+from repro_torch.storage.workloads import ycsb_update_txn       # noqa: E402
 from repro_torch.train import TrainLoop, TrainLoopConfig       # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map             # noqa: E402
+from repro_torch.wal import recover                            # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit,
 # and each kernel's work: roofline/work.py, which the dry run reads too
@@ -3196,6 +3216,162 @@ def phase_dryrun(train_ms, smi_line):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the storage and network engines (host code, simulated clock)
+# ---------------------------------------------------------------------------
+
+SIM = "simulated (virtual clock)"
+ENGINE_TUPLES, ENGINE_TXNS = 200_000, 300           # the Fig. 5 example's
+
+
+def _tracked_writers(eng, n_fibers, keys_per_fiber):
+    """Fibers writing values that name their txn into disjoint key
+    slices, recording each acked txn, the last acked value of each key
+    and every staged write."""
+    acked, expect, staged = [], {}, {}
+
+    def fiber(fid):
+        rng = np.random.default_rng(1000 + fid)
+        lo = fid * keys_per_fiber
+        while True:
+            t = eng.begin()
+            key = lo + int(rng.integers(0, keys_per_fiber))
+            val = struct.pack("<qq", t.id, key)
+            val += bytes(eng.cfg.value_size - len(val))
+            yield from t.update(key, val)
+            staged[t.id] = (key, val)
+            yield from eng.commit(t)
+            acked.append(t.id)
+            expect[key] = val
+
+    return [fiber(f) for f in range(n_fibers)], acked, expect, staged
+
+
+def _check_acked(what, get, expect, staged):
+    """Every acknowledged write reads back, or a later txn that staged
+    exactly the value found overwrote it (its COMMIT went durable before
+    its ack resumed)."""
+    for key, val in expect.items():
+        v = get(key)
+        if v == val:
+            continue
+        writer = struct.unpack_from("<q", v)[0] if v is not None else -1
+        if not (writer > struct.unpack_from("<q", val)[0] and
+                staged.get(writer) == (key, v)):
+            raise AssertionError(f"{what}: acked write to key {key} lost")
+
+
+def phase_engines():
+    """The engines the paper's use cases run on, checked by their
+    invariants (this script cannot import the JAX package the CPU tests
+    hold them against). Host only; any failed check raises."""
+    t0 = time.perf_counter()
+    rungs = {c.name: c for c in EngineConfig.ladder()}
+    ladder = {}
+    for cfg in EngineConfig.ladder():     # Fig. 5: non-durable, one core
+        if cfg.durability != "none" or cfg.n_cores > 1:
+            continue
+        eng = StorageEngine(dataclasses.replace(cfg, pool_frames=2048),
+                            n_tuples=ENGINE_TUPLES)
+        res = eng.run_fibers(lambda rng, e=eng: ycsb_update_txn(e, rng),
+                             ENGINE_TXNS)
+        assert res["txns"] == ENGINE_TXNS, (cfg.name, res["txns"])
+        ladder[cfg.name] = res["tps"]
+    if not ladder["+SQPoll"] > ladder["posix"]:
+        raise AssertionError(f"Fig. 5 ladder: +SQPoll {ladder['+SQPoll']} "
+                             f"tx/s not above posix {ladder['posix']}")
+    log(f"engines: Fig. 5 ladder at {ENGINE_TUPLES} tuples, {ENGINE_TXNS} "
+        f"txns, tx/s {SIM}: " +
+        ", ".join(f"{k} {v:.1f}" for k, v in ladder.items()))
+
+    # +GroupCommit: pull the plug mid-run, redo recovery
+    eng = StorageEngine(dataclasses.replace(
+        rungs["+GroupCommit"], n_fibers=32, pool_frames=128, ckpt_every=40),
+        n_tuples=8_000)
+    fibers, acked, expect, staged = _tracked_writers(eng, 32, 8_000 // 32)
+    for f in fibers:
+        eng.sched.spawn(f)
+    eng.sched.run(until=lambda: eng.tl.now >= 40e-3)
+    rec, rep = recover(*eng.crash_images(), pool_frames=512)
+    missing = set(acked) - rep.winners
+    assert acked and not missing, ("+GroupCommit recovery", missing)
+    got = rec.get_many(sorted(expect))
+    _check_acked("+GroupCommit recovery", got.get, expect, staged)
+    group = {"acked": len(acked), "winners": len(rep.winners),
+             "crash_at_s": eng.tl.now}
+
+    # LSM: crash while a compaction is in flight
+    lsm = make_engine(EngineConfig.lsm(n_fibers=32, pool_frames=256),
+                      n_tuples=4_000, seed=0)
+    fibers, l_acked, l_expect, l_staged = _tracked_writers(lsm, 16, 200)
+    workers = [lsm.sched.spawn(f) for f in fibers]
+    lsm.spawn_service_fibers(workers, done=lambda: False)
+    lsm.sched.run(until=lambda: (lsm.compactor.jobs >= 1 and
+                                 lsm.tl.now >= 6e-3))
+    assert l_acked and lsm.flushes > 0 and lsm.compactor.jobs >= 1
+    data, log_img = lsm.crash_images()
+    lrec = recover_lsm(log_img, data)
+    _check_acked("LSM recovery", lrec.get, l_expect, l_staged)
+    lsm_res = {"acked": len(l_acked), "flushes": lsm.flushes,
+               "compaction_jobs": lsm.compactor.jobs,
+               "crash_at_s": lsm.tl.now}
+
+    # +SyncRepl: fail over after a crash, and a quiesced standby
+    def cluster():
+        return ReplicatedCluster(dataclasses.replace(
+            rungs["+SyncRepl"], n_fibers=16, pool_frames=256),
+            n_tuples=4_000)
+    cl = cluster()
+    fibers, r_acked, r_expect, r_staged = _tracked_writers(cl.primary, 16,
+                                                           4_000 // 16)
+    cl.crash_run(fibers, steps=4_000)
+    frec, frep = cl.standby.promote(durable_only=True, pool_frames=512)
+    missing = set(r_acked) - frep.winners
+    assert r_acked and not missing, ("+SyncRepl failover", missing)
+    got = frec.get_many(sorted(r_expect))
+    _check_acked("+SyncRepl failover", got.get, r_expect, r_staged)
+    cl = cluster()
+    res = cl.run(lambda rng, e=cl.primary: ycsb_update_txn(e, rng), 120)
+    p, s = cl.primary.wal, cl.standby.wal
+    assert p.durable_lsn == s.durable_lsn == cl.sender.shipped
+    assert bytes(p.buf[:p.durable_lsn]) == bytes(s.buf[:s.durable_lsn])
+    srec, _ = cl.standby.promote(pool_frames=512)
+    prec, _ = recover(*cl.primary.crash_images(), pool_frames=512)
+    if srec.get_many(range(4_000)) != prec.get_many(range(4_000)):
+        raise AssertionError("+SyncRepl: the promoted standby differs from "
+                             "the primary")
+    repl = {"failover_acked": len(r_acked), "commit_wait_us":
+            res["commit_wait_us"], "standby_commits": res["standby_commits"]}
+
+    # the shuffle: the ring-driven engine against the closed-form oracle
+    shuffle = {}
+    for ts in (512, 4096):
+        cfg = ShuffleConfig(n_nodes=3, n_workers=16, tuple_size=ts,
+                            total_bytes_per_node=16 << 20)
+        e_gib = ShuffleEngine(cfg).run()["egress_gib_per_node"]
+        o_gib = ShuffleSim(cfg).run()["egress_gib_per_node"]
+        if not 0.8 <= e_gib / o_gib <= 1.2:
+            raise AssertionError(f"shuffle at {ts} B: engine {e_gib} GiB/s "
+                                 f"vs oracle {o_gib}, outside 20%")
+        shuffle[ts] = {"engine_gib_s": e_gib, "oracle_gib_s": o_gib}
+    wall = time.perf_counter() - t0
+    log(f"engines: +GroupCommit crash {SIM} at {group['crash_at_s']} s: "
+        f"{group['acked']} acked txns, all read back by recover; LSM crash "
+        f"during compaction {SIM} at {lsm_res['crash_at_s']} s "
+        f"({lsm_res['flushes']} flushes, {lsm_res['compaction_jobs']} "
+        f"compaction jobs): {lsm_res['acked']} acked, all read back by "
+        f"recover_lsm; +SyncRepl failover: {repl['failover_acked']} acked, "
+        f"none lost; quiesced standby equals the primary, commit wait "
+        f"{repl['commit_wait_us']} us {SIM}; shuffle egress GiB/s/node "
+        f"{SIM}, engine vs oracle: " +
+        ", ".join(f"{ts} B {v['engine_gib_s']} vs {v['oracle_gib_s']}"
+                  for ts, v in shuffle.items()) +
+        f"; host wall {wall:.3f} s")
+    return {"clock": SIM, "ladder_tx_per_s": ladder, "group_commit": group,
+            "lsm": lsm_res, "sync_repl": repl, "shuffle": shuffle,
+            "host_wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3251,6 +3427,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     times, extra_times = phase_kernel_times(dev)
     dryrun = phase_dryrun(train_times["stablelm-1.6b"]["step_ms"], smi_line)
+    engines = phase_engines()
     paths = ARCHS + tuple(f"train {a}" for a in TRAIN_ARCHS) \
         + tuple(f"pager {a}" for a in PAGER_ARCHS) + tuple(mesh_launches)
     kernels = []
@@ -3309,7 +3486,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve_times,
                       "train": train_times, "pager": pager,
-                      "mesh": mesh_results, "dryrun": dryrun}))
+                      "mesh": mesh_results, "dryrun": dryrun,
+                      "engines": engines}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the ``repro`` model substrate.
+"""PyTorch/CUDA port of the ``repro`` package: the model substrate, and
+copies of the io_uring simulator and the engines on it.
 
 Mirrors ``repro``'s module paths and public names; imports ``torch`` and
 numpy, never JAX and never the ``repro`` package. Entry points run on

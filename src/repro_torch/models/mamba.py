@@ -7,6 +7,8 @@ between chunks. ``mamba_block`` sends its SSD through
 ``kernels.ssd_scan.ops.ssd``: the CUDA SSD chunk kernel on the card, its
 plain version on the CPU. That is the JAX package's ``use_pallas`` path,
 taken at prefill and at decode alike (decode is a chunk of one token).
+On CPU tensors a config with ``ssm_bf16`` takes ``ssd_chunked`` with bf16
+einsum operands instead, the JAX package's plain route with that flag.
 
 On a mesh, the SSD inputs are constrained as the JAX package constrains
 them (x, z and dt heads-sharded on ``ssm_heads``, or replicated on
@@ -157,9 +159,22 @@ def ssd_decode_step(x, dt, A_log, B_, C_, D_, state):
 # Full Mamba2 block
 # ---------------------------------------------------------------------------
 
-def _ssd_blocks(x, dt, A_log, B_, C_, D_, chunk, state, hax, mesh, rules):
-    """``ssd_ops.ssd`` on each rank's block: batch on the batch axes, the
-    heads on ``hax``'s axes."""
+def _ssd(cfg, x, dt, A_log, B_, C_, D_, chunk, state):
+    """The SSD of one block: ``ssd_ops.ssd`` (the kernel on CUDA tensors,
+    its plain version on CPU tensors) or, on CPU tensors with
+    ``cfg.ssm_bf16``, ``ssd_chunked`` with bf16 einsum operands, as the
+    JAX package's plain route runs it. The kernel route ignores the flag,
+    as the JAX package's Pallas route does."""
+    if cfg.ssm_bf16 and x.device.type == "cpu":
+        return ssd_chunked(x, dt, A_log, B_, C_, D_, chunk, state=state,
+                           return_state=True, einsum_dtype=torch.bfloat16)
+    return ssd_ops.ssd(x, dt, A_log, B_, C_, D_, chunk=chunk, state=state)
+
+
+def _ssd_blocks(cfg, x, dt, A_log, B_, C_, D_, chunk, state, hax, mesh,
+                rules):
+    """``_ssd`` on each rank's block: batch on the batch axes, the heads
+    on ``hax``'s axes."""
     def pl(*logical):
         return part.placements_for(part.spec_for(logical, mesh, rules), mesh)
     xp, dtp, hp, bp = (pl("batch", None, hax, None), pl("batch", None, hax),
@@ -167,8 +182,7 @@ def _ssd_blocks(x, dt, A_log, B_, C_, D_, chunk, state, hax, mesh, rules):
     sp = pl("batch", hax, None, None)
 
     def local(x, dt, A_log, B_, C_, D_, state):
-        return ssd_ops.ssd(x, dt, A_log, B_, C_, D_, chunk=chunk,
-                           state=state)
+        return _ssd(cfg, x, dt, A_log, B_, C_, D_, chunk, state)
     return part.local_map(
         local, mesh, (xp, dtp, hp, bp, bp, hp,
                       None if state is None else sp),
@@ -212,11 +226,11 @@ def mamba_block(cfg, p, u, dtype, *, state=None, conv_state=None,
     xh = xs.reshape(B, S, nh, s.headdim)
     chunk = cfg.ssm_chunk or s.chunk
     if mesh is not None:
-        y, new_state = _ssd_blocks(xh, dt, p["A_log"], bs, cs2, p["D"],
-                                   chunk, state, hax, mesh, rules)
+        y, new_state = _ssd_blocks(cfg, xh, dt, p["A_log"], bs, cs2,
+                                   p["D"], chunk, state, hax, mesh, rules)
     else:
-        y, new_state = ssd_ops.ssd(xh, dt, p["A_log"], bs, cs2, p["D"],
-                                   chunk=chunk, state=state)
+        y, new_state = _ssd(cfg, xh, dt, p["A_log"], bs, cs2, p["D"], chunk,
+                            state)
     y = y.reshape(B, S, di)
     if mesh is not None:
         # the gradient back in y's layout: DTensor may split its d_inner,

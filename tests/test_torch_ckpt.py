@@ -1,7 +1,7 @@
 """The port's ring-backed checkpoints and data loader on the CPU: twins of
 the JAX package's tests in ``test_substrate.py``, checkpoints that cross
-between the two packages in both directions, and the port's copy of the
-ring runtime held to the text of the original."""
+between the two packages in both directions, and the port's copies of the
+ring runtime and of the engines on it held to the text of the originals."""
 
 import os
 import pathlib
@@ -33,7 +33,16 @@ COPIED = ["core/sqe.py", "core/costs.py", "core/clock.py",
           "observe/trace.py", "core/adaptive.py", "core/fibers.py",
           "core/faults.py", "observe/metrics.py", "observe/slo.py",
           "observe/advisor.py", "bufferpool/pool.py",
-          "bufferpool/__init__.py"]
+          "bufferpool/__init__.py", "core/perfmodel.py", "storage/btree.py",
+          "wal/log.py", "wal/group_commit.py", "wal/recovery.py",
+          "wal/__init__.py", "storage/engine.py", "storage/workloads.py",
+          "storage/__init__.py", "lsm/memtable.py", "lsm/sstable.py",
+          "lsm/compaction.py", "lsm/recovery.py", "lsm/engine.py",
+          "lsm/__init__.py", "replication/frames.py",
+          "replication/sender.py", "replication/standby.py",
+          "replication/cluster.py", "replication/__init__.py",
+          "shuffle/plan.py", "shuffle/sim.py", "shuffle/engine.py",
+          "shuffle/__init__.py"]
 
 
 @pytest.fixture

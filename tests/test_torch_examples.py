@@ -5,11 +5,17 @@ pager section on, it prints what the JAX example prints, line for line
 (both pagers and ladders run on the simulated clock).
 ``examples/train_lm_torch.py`` (the twin of ``examples/train_lm.py``)
 trains on the ring loader; ``examples/quickstart_torch.py`` prints what
-``examples/quickstart.py`` prints; ``scripts/sanity_models_torch.py`` and
+``examples/quickstart.py`` prints, and
+``examples/storage_engine_ycsb_torch.py`` and ``examples/shuffle_join_torch.py``
+what their JAX examples print, on the port's copies of the engines;
+``scripts/sanity_models_torch.py`` and
 ``scripts/render_roofline_torch.py`` are the twins of their scripts."""
 
 import importlib.util
 import pathlib
+import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -63,6 +69,24 @@ def test_quickstart_torch_prints_what_the_jax_quickstart_prints(capsys):
     _load("quickstart").main()
     assert torch_text == capsys.readouterr().out
     assert torch_text.startswith("16 reads:")
+
+
+@pytest.mark.parametrize("name,args,first", [
+    ("storage_engine_ycsb", ["--txns", "300"], "config"),
+    ("shuffle_join", ["--mb-per-node", "16"], "mode"),
+])
+def test_engine_example_twins_print_what_the_jax_examples_print(
+        name, args, first, capsys, monkeypatch):
+    """The Fig. 5 ladder and the zero-copy shuffle sweep, each on the
+    port's copy of its engine: the JAX example's lines, line for line, on
+    the same simulated clock."""
+    _load(f"{name}_torch").main(args)
+    torch_text = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", [name] + args)
+    _load(name).main()
+    assert torch_text == capsys.readouterr().out
+    assert torch_text.split()[0] == first
+    assert len(torch_text.splitlines()) > 3
 
 
 def _script(name):

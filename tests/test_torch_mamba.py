@@ -127,3 +127,45 @@ def test_mamba_block_matches_jax(arch, compute_dtype):
         getattr(torch, dt))
     _close(tout1, jout1, tol, "decode out")
     _close(tst1, jst1, tol, "decode ssm state")
+
+
+# ssm_bf16 on the fp32 block: both round the same einsum operands to bf16,
+# so they agree to fp32 summation order; on the bf16 block, one bf16 ulp
+BF16_SSD_TOLS = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _bf16_ssd_block(compute_dtype, ssm_bf16):
+    jcfg, tcfg, jl, tl = _layer0("mamba2-130m", compute_dtype)
+    jcfg, tcfg = (c.replace(ssm_bf16=ssm_bf16) for c in (jcfg, tcfg))
+    u = (np.random.default_rng(3).standard_normal((2, 40, jcfg.d_model))
+         * 0.5).astype(np.float32)
+    ju, tu = _both(u, compute_dtype)
+    jout, jst, _ = jmamba.mamba_block(jcfg, jl, ju, jnp.dtype(compute_dtype),
+                                      return_state=True, use_pallas=False)
+    tout, tst, _ = tmamba.mamba_block(tcfg, tl, tu,
+                                      getattr(torch, compute_dtype),
+                                      return_state=True)
+    return tout, tst, jout, jst
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_ssm_bf16_block_matches_jax_plain_route(compute_dtype):
+    """``cfg.ssm_bf16`` on CPU tensors: the port's plain route puts the
+    intra-chunk einsums in bf16 as JAX's ``ssd_chunked(einsum_dtype=
+    jnp.bfloat16)`` does (the smoke mamba2-130m block, 40 tokens)."""
+    tout, tst, jout, jst = _bf16_ssd_block(compute_dtype, True)
+    tol = BF16_SSD_TOLS[compute_dtype]
+    assert tout.dtype == getattr(torch, compute_dtype)
+    _close(tout, jout, tol, "out")
+    _close(tst, jst, tol, "ssm state")
+
+
+def test_ssm_bf16_moves_the_block_output():
+    """The lever is live: on the fp32 block, ``ssm_bf16`` moves the output
+    by more than the parity tolerance, by what it moves JAX's."""
+    on, _, jon, _ = _bf16_ssd_block("float32", True)
+    off, _, joff, _ = _bf16_ssd_block("float32", False)
+    moved = np.abs(_np(on) - _np(off)).max()
+    assert moved > 5 * BF16_SSD_TOLS["float32"], moved
+    np.testing.assert_allclose(moved, np.abs(_np(jon) - _np(joff)).max(),
+                               rtol=0.05)
