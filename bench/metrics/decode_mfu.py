@@ -1,0 +1,12 @@
+"""The traced generates' model FLOPs (bench/work.py: prefill, then each
+decode step) over their walls, as a share of the bf16 peak, in %."""
+
+
+def read(ctx):
+    if ctx.kind != "serve" or not ctx.units:
+        return None
+    w = ctx.work
+    flops = sum(w.generate_flops(ctx.m, u["B"], u["S0"], u["n_new"])
+                for u in ctx.units)
+    return 100 * flops / sum(u["wall_s"] for u in ctx.units) \
+        / w.PEAK_FLOPS_BF16
