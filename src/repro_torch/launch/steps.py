@@ -6,7 +6,8 @@ A train step is: ``lm.forward`` (each layer rematerialised when
 ``cfg.remat``; attention through the flash kernel), ``ce_loss``, the
 backward (the flash backward kernel, cuBLAS for the matmuls), then AdamW
 with a cosine schedule and clipping (``repro_torch.optim``), which
-updates the parameters and the optimizer state in place.
+updates the parameters and the optimizer state in place, inside an
+``optim_adamw`` span (``repro_torch.observe.spans``).
 
 On a mesh (``mesh``, ``rules``) the parameters and optimizer state are
 DTensors (``lm.place_params``; AdamW keeps their placements, and its
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models import partitioning as part
+from repro_torch.observe import spans
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.compression import compress_decompress
@@ -184,10 +186,11 @@ def make_train_step(cfg, mesh=None, rules=None, *, peak_lr: float = 3e-4,
     """
 
     def update(params, opt_state, loss, grads):
-        lr = cosine_schedule(opt_state.step, peak_lr=peak_lr, warmup=warmup,
-                             total=total_steps)
-        params, opt_state, gnorm = adamw_update(grads, opt_state, params,
-                                                lr=lr)
+        with spans.span("optim_adamw"):
+            lr = cosine_schedule(opt_state.step, peak_lr=peak_lr,
+                                 warmup=warmup, total=total_steps)
+            params, opt_state, gnorm = adamw_update(grads, opt_state,
+                                                    params, lr=lr)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    "lr": lr}
 

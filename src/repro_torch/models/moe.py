@@ -19,20 +19,25 @@ The expert products are plain ``torch.einsum`` (cuBLAS on the card), as
 the JAX package leaves them to XLA outside any Pallas kernel; like its
 dense dispatch they multiply every expert's C slots, filled or not.
 
-Each stage runs under a ``torch.profiler.record_function`` range
+Each stage runs under a span of ``repro_torch.observe.spans``
 (``moe_router``, ``moe_dispatch``, ``moe_experts``, ``moe_combine``,
-``moe_shared``), so a profile splits the layer's device time by stage;
-without a profiler a range costs a few host microseconds.
+``moe_shared``), a ``torch.profiler.record_function`` range, so a profile
+splits the layer's device time by stage; without a profiler a range costs
+a few host microseconds. With the recorder on, each dispatch also counts
+its kept slots (``moe_kept_slots``, summed on the device) and all its
+slots (``moe_slots``, B·G·Sg·Ke), in a ``moe_count`` range of its own
+after ``moe_dispatch``; on a mesh each rank counts its own groups, and a
+rematerialised layer counts its recomputation too.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.models import partitioning as part
 from repro_torch.models.layers import ParamDef
+from repro_torch.observe import spans
 
 # Production model-axis width (repro/launch/mesh.py).
 MODEL_AXIS = 16
@@ -99,13 +104,13 @@ def _dispatch(cfg, router, xg, dtype):
     Ee, Ke = E * split, K * split
     C = capacity(cfg, Sg)
     dev = xg.device
-    with record_function("moe_router"):
+    with spans.span("moe_router"):
         logits = xg.float() @ router.float()               # (B,G,Sg,E)
         probs = torch.softmax(logits, dim=-1)
         gates, ids = _top_k(probs, K)                      # (B,G,Sg,K)
         gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 
-    with record_function("moe_dispatch"):
+    with spans.span("moe_dispatch"):
         if split > 1:  # each assignment to every sub-expert of its expert
             ids_e = (ids[..., None] * split
                      + torch.arange(split, device=dev)).reshape(B, G, Sg, Ke)
@@ -134,8 +139,13 @@ def _dispatch(cfg, router, xg, dtype):
         x_e = x_e.reshape(B, G, rows, D)[:, :, :Ee * C] \
             .reshape(B, G, Ee, C, D)
 
+    if spans.on():
+        with spans.span("moe_count"):
+            spans.count("moe_kept_slots", keep)
+            spans.count("moe_slots", keep.numel())
+
     # load-balance terms (Switch/GShard form, on the true experts)
-    with record_function("moe_router"):
+    with spans.span("moe_router"):
         frac_src = onehot.reshape(B, G, Sg * Ke, E, split).sum(-1) \
             if split > 1 else onehot
         frac = (frac_src * keep[..., None]).float().mean(2)  # (B,G,E)
@@ -147,7 +157,7 @@ def _combine(y_e, slot, keep, gates_e, Ke, dtype):
     """Each (token, k) slot's expert output gathered back and weighted by
     its gate, summed over a token's Ke slots: (B, G, Sg, D)."""
     B, G, Ee, C, D = y_e.shape
-    with record_function("moe_combine"):
+    with spans.span("moe_combine"):
         src = slot \
             + torch.arange(B * G, device=y_e.device).reshape(B, G, 1) \
             * (Ee * C)
@@ -209,7 +219,7 @@ def moe_ffn(cfg, p, x, dtype, mesh=None, rules=None):
         # dispatch all-to-all: group-sharded -> expert-sharded
         x_e = c(x_e, "batch", None, "experts", None, None)
 
-    with record_function("moe_experts"):
+    with spans.span("moe_experts"):
         h = torch.einsum("bgecd,edf->bgecf", x_e, p["w1"].to(dtype))
         g_ = torch.einsum("bgecd,edf->bgecf", x_e, p["w3"].to(dtype))
         y_e = torch.einsum("bgecf,efd->bgecd", F.silu(h) * g_,
@@ -232,12 +242,12 @@ def moe_ffn(cfg, p, x, dtype, mesh=None, rules=None):
     y = c(y.reshape(B, S, D), "batch", "act_seq", None)
 
     if m.n_shared:
-        with record_function("moe_shared"):
+        with spans.span("moe_shared"):
             hs = x @ p["shared_w1"].to(dtype)
             gs = x @ p["shared_w3"].to(dtype)
             ys = (F.silu(hs) * gs) @ p["shared_w2"].to(dtype)
             y = y + c(ys, "batch", "act_seq", None)
 
-    with record_function("moe_router"):
+    with spans.span("moe_router"):
         aux = E * (frac * imp).sum(-1).mean() * m.router_aux_weight
     return y, aux

@@ -4,7 +4,12 @@ conv states for Mamba2 layers).
 
 With a mesh (``mesh``, ``rules``) the prefill runs on it, on parameters
 placed by ``lm.param_specs``, and decode runs on the whole values, as the
-JAX package's loop decodes without a mesh."""
+JAX package's loop decodes without a mesh.
+
+Each generate is a ``serve_generate`` span; inside it the prefill (with
+the cache's growth and the first arg-max) is ``serve_prefill`` and each
+decode step ``serve_decode``, both marked on the loop's device
+(``repro_torch.observe.spans``)."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import lm
 from repro_torch.models import partitioning as part
+from repro_torch.observe import spans
 from repro_torch.tree import tree_map
 
 
@@ -38,7 +44,8 @@ class ServeLoop:
         (B, n_new, K)) int32 tensor on the loop's device. Runs under
         inference mode, or under no_grad on a mesh (DTensors keep
         autograd's version counters, which inference mode does not)."""
-        with torch.inference_mode() if self.mesh is None else \
+        with spans.span("serve_generate"), \
+                torch.inference_mode() if self.mesh is None else \
                 torch.no_grad():
             return self._generate(prompt_tokens, n_new)
 
@@ -47,17 +54,19 @@ class ServeLoop:
         tokens = torch.as_tensor(prompt_tokens, device=self.device) \
             .to(torch.int32)
         S0 = tokens.shape[1]
-        logits, cache = self.prefill(self.prefill_params,
-                                     {"tokens": tokens})
-        if self.mesh is not None:
-            logits, cache = part.full(logits), tree_map(part.full, cache)
-        cache = lm.grow_cache(cfg, cache, self.max_len)
-
-        nxt = logits[..., :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+        with spans.span("serve_prefill", mark=self.device):
+            logits, cache = self.prefill(self.prefill_params,
+                                         {"tokens": tokens})
+            if self.mesh is not None:
+                logits, cache = part.full(logits), tree_map(part.full, cache)
+            cache = lm.grow_cache(cfg, cache, self.max_len)
+            nxt = logits[..., :cfg.vocab_size].argmax(-1) \
+                .to(torch.int32)[:, None]
         out = [nxt]
         pos = S0
         for _ in range(n_new - 1):
-            nxt, cache = self.step(self.params, cache, nxt, pos)
+            with spans.span("serve_decode", mark=self.device):
+                nxt, cache = self.step(self.params, cache, nxt, pos)
             out.append(nxt)
             pos += 1
         return torch.cat(out, dim=1)

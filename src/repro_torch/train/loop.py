@@ -13,6 +13,9 @@ On a mesh (``mesh``, ``rules``) the parameters are placed by
 ``lm.param_specs`` and every step is the mesh train step. The loop runs on ``device`` ("cuda" unless the caller asks for the CPU);
 numpy batches from the loader are moved there with ``torch.as_tensor``.
 The train step updates ``params`` and the optimizer state in place.
+Each iteration is a ``train_step`` span, and the wait on the loader with
+the batch's move to the device a ``train_data`` span inside it
+(``repro_torch.observe.spans``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm
+from repro_torch.observe import spans
 from repro_torch.optim import adamw_init
 
 
@@ -89,16 +93,18 @@ class TrainLoop:
             if self.lc.fail_at_step is not None and \
                     step == self.lc.fail_at_step:
                 raise InjectedFailure(f"injected failure at step {step}")
-            batch = {k: torch.as_tensor(v, device=self.device)
-                     for k, v in next(it).items()}
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch)
-            if step % self.lc.log_every == 0 or \
-                    step == self.lc.total_steps - 1:
-                m = {k: float(v) for k, v in metrics.items()}
-                m["step"] = step
-                self.metrics_log.append(m)
-                last = m
-            self.ckpt.maybe_save(
-                step, {"params": self.params, "opt": self.opt_state})
+            with spans.span("train_step"):
+                with spans.span("train_data"):
+                    batch = {k: torch.as_tensor(v, device=self.device)
+                             for k, v in next(it).items()}
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch)
+                if step % self.lc.log_every == 0 or \
+                        step == self.lc.total_steps - 1:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["step"] = step
+                    self.metrics_log.append(m)
+                    last = m
+                self.ckpt.maybe_save(
+                    step, {"params": self.params, "opt": self.opt_state})
         return last or {}

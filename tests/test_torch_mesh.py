@@ -664,6 +664,48 @@ def test_serve_loop_prefills_on_the_mesh(tmp_path):
     np.testing.assert_array_equal(out["mesh"], out["none"])
 
 
+COUNT_SCRIPT = """
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.observe import spans
+    cfg = get_smoke_config("deepseek-v2-lite-16b").replace(
+        compute_dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    B, S = 2, 1024
+    toks = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(1))
+    mesh = make_mesh((1, WORLD), ("data", "model"))
+    rules = part.rules_for(mesh, B)
+    counts = {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        placed = params if m is None else \\
+            lm.place_params(cfg, params, m, rules)
+        spans.enable()
+        make_prefill_step(cfg, m, None if m is None else rules)(
+            placed, {"tokens": toks})
+        c = spans.take()[1]
+        spans.disable()
+        counts[name] = torch.tensor([c["moe_kept_slots"], c["moe_slots"]])
+    rank = counts["mesh"].clone()
+    dist.all_reduce(counts["mesh"])
+    save(none=counts["none"].numpy(), rank=rank.numpy(),
+         total=counts["mesh"].numpy())
+"""
+
+
+def test_moe_counters_count_each_ranks_groups(tmp_path):
+    """With the recorder on, a prefill on a (1, 2) mesh at S = 1024 (16
+    groups, 8 a rank) counts on each rank its own groups' slots, and the
+    ranks' kept and all slots sum to those of the prefill without a
+    mesh."""
+    out = run_ranks(COUNT_SCRIPT, 2, tmp_path)
+    np.testing.assert_array_equal(out["total"], out["none"])
+    assert 2 * out["rank"][1] == out["none"][1]
+    assert out["none"][0] < out["none"][1]
+
+
 def test_hybrid_prefill_and_train_step_on_mesh(tmp_path):
     """The smoke zamba2 (Mamba2 layers with their SSD on each rank's heads
     and batch, and the tied attention block) on a (2, 2) mesh: prefill
