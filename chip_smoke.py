@@ -7,14 +7,17 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``:
 
 Phases (any failure raises, and the script exits nonzero):
 
-1. the card's name, count and power limit; build the five CUDA kernel
+1. the card's name, count and power limit; build the six CUDA kernel
    sources (flash attention forward and backward, paged attention, the
-   Mamba2 SSD chunk step and its backward) from ``src/repro_torch/csrc``
+   Mamba2 SSD chunk step and its backward, the MoE dispatch's slot
+   positions) from ``src/repro_torch/csrc``
    (one ``nvcc`` per
    source, in parallel) and print the compiler's register / shared-memory
    / spill report (the flash forward's MLA instance, q/k 192 and v 128,
    among them), with the flash backward's CTA shapes at each head dim;
 2. each kernel against its plain PyTorch version on CUDA tensors: the
+   MoE slot kernel bit for bit at the benchmark cells' dispatch calls
+   (``moe_slot_shapes``; uniform draws and every slot on one expert), the
    shape sweeps of ``tests/test_kernels.py``, a zero-length decode row, a
    permuted page table (bit-identical output, also at both serving shapes
    and at a page count that is not a multiple of the split), the paged
@@ -120,7 +123,8 @@ Phases (any failure raises, and the script exits nonzero):
    steps after a prefill, bit for bit its mesh=None twin in logits and
    tokens, with equal paged and SSD launches;
 4. device times (CUDA events over launches queued behind a held stream,
-   after warm-up) of each kernel, its plain version, its bound and, where
+   after warm-up) of each kernel (the MoE slot kernel alone at the cells'
+   dispatch calls), its plain version, its bound and, where
    one PyTorch call computes the same function, that call as a yardstick
    the port never calls, at the serving shapes (paged at the first and
    last decode lengths, 33 and 34 pages, with its cluster shape, also at
@@ -210,6 +214,8 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as flash_ops        # noqa
 from repro_torch.kernels.flash_attention.ref import (        # noqa: E402
     flash_attention_bwd_ref, flash_attention_fwd_ref, tile_kinds)
+from repro_torch.kernels.moe_slots import kernel as slots_kernel        # noqa
+from repro_torch.kernels.moe_slots.ref import moe_slots_ref              # noqa
 from repro_torch.kernels.paged_attn import kernel as paged_kernel       # noqa
 from repro_torch.kernels.paged_attn import ops as paged_ops             # noqa
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref  # noqa
@@ -267,7 +273,8 @@ KERNELS = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
            "flash_attention_bwd": flash_kernel.flash_attention_bwd,
            "paged_attention": paged_kernel.paged_attention,
            "ssd_chunk_call": ssd_kernel.ssd_chunk_call,
-           "ssd_chunk_bwd": ssd_kernel.ssd_chunk_bwd}
+           "ssd_chunk_bwd": ssd_kernel.ssd_chunk_bwd,
+           "moe_slots": slots_kernel.moe_slots}
 # the flash backward against the plain block-recompute backward: the same
 # fp32 arithmetic from the same inputs, so TOLS (bf16: one rounding of the
 # outputs); the lse output is fp32 in both (measured <= 9.5e-7)
@@ -1068,8 +1075,48 @@ def check_tile_rule():
         f"{n} cases")
 
 
+def moe_slot_shapes():
+    """The MoE slot kernel's calls in the benchmark's cells, (label, BG, N,
+    Ee, C): deepseek-v2-lite's 16k prompt in one group, its decode step
+    (32 tokens routed jointly, one group), its prefill of 32 x 512 and its
+    training groups (2 x 4096 in 16 groups of 256), mixtral's decode step
+    (16 tokens, 16 sub-experts, 4 slots a token), and 32 groups of 6."""
+    ds, mx = get_config("deepseek-v2-lite-16b"), get_config("mixtral-8x22b")
+    cap = moe_mod.capacity
+    return [("prefill 16k", 1, 16384 * 6, 64, cap(ds, 16384)),
+            ("32 groups of 6", 32, 6, 64, 8),
+            ("decode b32", 1, 32 * 6, 64, cap(ds, 32)),
+            ("mixtral decode b16", 1, 16 * 4, 16, cap(mx, 16)),
+            ("prefill 32 x 512", 32, 512 * 6, 64, cap(ds, 512)),
+            ("train 2 x 4096", 32, 256 * 6, 64, cap(ds, 256))]
+
+
+def check_moe_slots(rng, dev):
+    """The MoE slot kernel bit for bit its plain version (the one-hot
+    cumsum) at the cells' calls, experts drawn uniformly and all on one
+    expert; a second call gives the same bits."""
+    for label, BG, N, Ee, C in moe_slot_shapes():
+        for draw in ("uniform", "one expert"):
+            eid = torch.from_numpy(rng.integers(0, Ee, (BG, N))).to(dev) \
+                if draw == "uniform" else \
+                torch.full((BG, N), Ee - 1, dtype=torch.int64, device=dev)
+            got = slots_kernel.moe_slots(eid, Ee, C)
+            want = moe_slots_ref(eid, Ee, C)
+            again = slots_kernel.moe_slots(eid, Ee, C)
+            for what, a, b, c in zip(("slot", "keep", "dest", "kept"), got,
+                                     want, again):
+                if a.dtype != b.dtype or not torch.equal(a, b) \
+                        or not torch.equal(a, c):
+                    raise AssertionError(f"moe_slots {label} ({draw}): "
+                                         f"{what} differs")
+            log(f"  moe_slots {label} (BG {BG}, N {N}, Ee {Ee}, C {C}, "
+                f"{draw}): bit-identical, kept {int(got[1].sum())} of "
+                f"{BG * N}")
+
+
 def phase_kernels_vs_plain(dev):
     rng = np.random.default_rng(0)
+    check_moe_slots(rng, dev)
     for B, S, H, KH, hd, win in FLASH_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             check_flash(rng, dev, B, S, H, KH, hd, dt, win=win)
@@ -1309,23 +1356,39 @@ def phase_kernels_vs_plain(dev):
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
 
+def slot_launches(cfg, S):
+    """The slot kernel's launches in one forward of the MoE layers over
+    rows of S tokens: each layer's dispatch launches once, twice when a
+    group's slots span more than one of the kernel's tiles."""
+    if cfg.moe is None:
+        return 0
+    slots = S // moe_mod.groups(S) * cfg.moe.top_k * moe_mod.expert_split(cfg)
+    return (cfg.n_layers - cfg.moe.first_k_dense) \
+        * (1 + (slots > slots_kernel.tile()))
+
+
 def expected_launches(cfg):
+    """What ``ServeLoop.generate`` launches: the prefill of BATCH prompts of
+    PROMPT tokens, then NEW - 1 decode steps (a step routes its BATCH
+    tokens as one group)."""
     L, steps = cfg.n_layers, NEW - 1
+    slots = slot_launches(cfg, PROMPT) + steps * slot_launches(cfg, BATCH)
     if cfg.family in ATTN_ONLY:
         return {"flash_attention_fwd": L, "flash_attention_bwd": 0,
                 "paged_attention": 0 if cfg.mla else L * steps,
-                "ssd_chunk_call": 0, "ssd_chunk_bwd": 0}
+                "ssd_chunk_call": 0, "ssd_chunk_bwd": 0, "moe_slots": slots}
     G = L // cfg.attn_every if cfg.family == "hybrid" else 0
     return {"flash_attention_fwd": G, "flash_attention_bwd": 0,
             "paged_attention": G * steps, "ssd_chunk_call": L * (1 + steps),
-            "ssd_chunk_bwd": 0}
+            "ssd_chunk_bwd": 0, "moe_slots": slots}
 
 
 def train_launches(cfg, steps):
     """What ``steps`` train steps launch: each microbatch runs every layer's
     forward once, and again in the backward when the layer is
     rematerialised, and its backward once; attention is each dense layer,
-    or the tied block after every ``attn_every`` Mamba2 layers."""
+    or the tied block after every ``attn_every`` Mamba2 layers; the slot
+    kernel runs in each MoE layer's forward."""
     mb, fwd = max(cfg.microbatches, 1), 2 if cfg.remat else 1
     L = cfg.n_layers
     attn_calls = {"dense": L, "vlm": L, "audio": L, "moe": L,
@@ -1335,7 +1398,8 @@ def train_launches(cfg, steps):
     return {"flash_attention_fwd": fwd * attn_calls * n,
             "flash_attention_bwd": attn_calls * n, "paged_attention": 0,
             "ssd_chunk_call": fwd * ssd_calls * n,
-            "ssd_chunk_bwd": ssd_calls * n}
+            "ssd_chunk_bwd": ssd_calls * n,
+            "moe_slots": fwd * slot_launches(cfg, TRAIN_S) * n}
 
 
 def phase_ring_cache(dev, window=None, steps=33):
@@ -1403,8 +1467,11 @@ def phase_ring_cache(dev, window=None, steps=33):
                         lambda t: t[:, 0].reshape(-1, t.shape[-1]),
                         FLIP_GAPS[cfg.compute_dtype])
     n = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
-    want = (2 * cfg.n_layers, cfg.n_layers * (S1 - S0))
-    if (n["flash_attention_fwd"], n["paged_attention"]) != want:
+    want = (2 * cfg.n_layers, cfg.n_layers * (S1 - S0),
+            slot_launches(cfg, S0) + slot_launches(cfg, S1)
+            + (S1 - S0) * slot_launches(cfg, toks.shape[0]))
+    if (n["flash_attention_fwd"], n["paged_attention"],
+            n["moe_slots"]) != want:
         raise AssertionError(f"ring cache: launches {n}, not {want}")
     log(f"ring cache [mixtral-8x22b smoke, hd 32, window {cfg.swa_window}, "
         f"top-{K} of {cfg.moe.n_experts}, bf16]: prompt {S0}, "
@@ -1417,7 +1484,7 @@ def phase_ring_cache(dev, window=None, steps=33):
         f"routes, all near-ties (relative gaps "
         f"{[f'{g:.2e}' for _, _, g in flips]} <= "
         f"{FLIP_GAPS[cfg.compute_dtype]:.2e}); launches flash {want[0]}, "
-        f"paged {want[1]}")
+        f"paged {want[1]}, moe_slots {want[2]}")
 
 
 def serve_config(arch):
@@ -2004,9 +2071,10 @@ def _plain_ssd(x, dt, A_log, B_, C_, D_, *, chunk=256, state=None):
 def phase_train_grads(dev, corpus, arch):
     """One step's loss and every gradient leaf at full width and one group
     of layers, through the kernels, against the same step with attention
-    through autograd of the plain ``reference_attention`` and the SSD
-    through autograd of the plain chunked SSD (bf16 compute both). In the
-    moe family the plain step routes every token as the kernel step did
+    through autograd of the plain ``reference_attention``, the SSD
+    through autograd of the plain chunked SSD (bf16 compute both) and the
+    MoE slot positions by the one-hot cumsum. In the moe family the plain
+    step routes every token as the kernel step did
     (``MoERoutes``; its own routes may differ only by near-ties): a route
     that a bf16 rounding flips moves a whole token to other experts, which
     says nothing of the kernels."""
@@ -2022,15 +2090,16 @@ def phase_train_grads(dev, corpus, arch):
         loss_k, grads_k = loss_and_grads(cfg, params, batch)
         torch.cuda.synchronize()
     launches = {n: fn.launches for n, fn in KERNELS.items()}
-    kernel_attention, kernel_ssd = attn.flash_attention, ssd_ops.ssd
-    attn.flash_attention, ssd_ops.ssd = _plain_flash, _plain_ssd
+    kernels = attn.flash_attention, ssd_ops.ssd, moe_mod.moe_slots
+    attn.flash_attention, ssd_ops.ssd, moe_mod.moe_slots = \
+        _plain_flash, _plain_ssd, moe_slots_ref
     try:
         with MoERoutes(force=lambda i, probs, ids:
                        kernel_routes.calls[i][1]) as plain_routes:
             loss_p, grads_p = loss_and_grads(cfg, params, batch)
             torch.cuda.synchronize()
     finally:
-        attn.flash_attention, ssd_ops.ssd = kernel_attention, kernel_ssd
+        attn.flash_attention, ssd_ops.ssd, moe_mod.moe_slots = kernels
     gap_tol = FLIP_GAPS[cfg.compute_dtype]
     flips = route_flips(plain_routes.calls,
                         [ids.reshape(-1, ids.shape[-1])
@@ -2718,6 +2787,29 @@ def time_flash_bwd(rng, dev, B=TRAIN_B, S=TRAIN_S, H=32, hd=64, KH=None,
     return ms, plain_ms, lib_ms, bnd
 
 
+def time_moe_slots(rng, dev):
+    """Device ms of the MoE slot kernel alone at the cells' calls
+    (``moe_slot_shapes``), beside the plain version (the one-hot cumsum
+    the layer ran before) and the bound of its bytes: label -> (ms,
+    plain_ms, None, bound); no one PyTorch call computes it."""
+    out = {}
+    for label, BG, N, Ee, C in moe_slot_shapes():
+        eids = [torch.from_numpy(rng.integers(0, Ee, (BG, N))).to(dev)
+                for _ in range(4)]
+        ms = cuda_ms(lambda i: slots_kernel.moe_slots(eids[i], Ee, C), 4,
+                     200)
+        plain_ms = cuda_ms(lambda i: moe_slots_ref(eids[i], Ee, C), 4, 10)
+        bnd = bound(*work.moe_slots_work(BG, N, Ee), torch.bfloat16)
+        tiles = -(-N // slots_kernel.tile())
+        log(f"  moe_slots {label}: BG {BG}, N {N}, Ee {Ee}, C {C} "
+            f"({tiles} tile{'s' if tiles > 1 else ''} of "
+            f"{slots_kernel.tile()} a group, {1 + (tiles > 1)} launch"
+            f"{'es' if tiles > 1 else ''}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        out[label] = (ms, plain_ms, None, bnd)
+    return out
+
+
 def time_paged(rng, dev, H, KH, hd, length, with_lse=False):
     """Device ms at one decode length (the split depends on the pages);
     with ``with_lse`` the kernel also writes each row's lse (the mesh
@@ -2831,7 +2923,8 @@ def phase_kernel_times(dev):
     log("kernel times at the serving and training shapes (device ms a "
         "call: CUDA events over back-to-back calls queued behind a held "
         "stream):")
-    out = {"flash_attention_fwd": time_flash(rng, dev, 32, 32, 64)}
+    out = {"moe_slots": time_moe_slots(rng, dev)}
+    out["flash_attention_fwd"] = time_flash(rng, dev, 32, 32, 64)
     time_flash(rng, dev, 32, 32, 80)                  # zamba2-2.7b
     out["flash_attention_fwd train"] = time_flash(
         rng, dev, 32, 32, 64, B=TRAIN_B, S=TRAIN_S, with_lse=True)
@@ -3483,6 +3576,19 @@ def main() -> int:
             if sub:
                 entry[label] = sub
         kernels.append(entry)
+    by_path = {a: launches[a]["moe_slots"] for a in paths}
+    log(f"moe_slots launches by path (counters): "
+        f"{ {a: n for a, n in by_path.items() if n} }")
+    kernels.append({"name": "moe_slots", "route": "cuda",
+                    "source": "src/repro_torch/csrc/moe_slots.cu",
+                    "replaces": "src/repro/models/moe.py:116",
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "bit_identical": True, **{
+                        label: dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bnd[0], bound_by=bnd[1])
+                        for label, (ms, plain_ms, _, bnd)
+                        in times["moe_slots"].items()}})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve_times,
                       "train": train_times, "pager": pager,

@@ -5,9 +5,11 @@ scatter/gather dispatch (PyTorch counterpart of ``repro.models.moe``, its
 GShard-style group-local dispatch: the sequence is cut into ``G`` groups
 (``MODEL_AXIS`` when S is a multiple of it and at least 64 groups' worth
 long, else one), and routing, each slot's position within its expert
-(an exclusive cumsum) and the capacity are computed per group. Tokens
-past an expert's capacity are dropped (their FFN output is zero; the
-residual carries them).
+(an exclusive count over the group's slots, the op
+``repro_torch::moe_slots``: a CUDA kernel on the card, the JAX package's
+one-hot cumsum on the CPU) and the capacity are computed per group.
+Tokens past an expert's capacity are dropped (their FFN output is zero;
+the residual carries them).
 
 Expert splitting: when the experts do not divide ``MODEL_AXIS`` (mixtral:
 8 experts, split 2), each expert is stored as ``split`` sub-experts of
@@ -35,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.moe_slots.ops import moe_slots
 from repro_torch.models import partitioning as part
 from repro_torch.models.layers import ParamDef
 from repro_torch.observe import spans
@@ -80,6 +83,11 @@ def moe_defs(cfg, ll=()) -> dict:
     return defs
 
 
+def groups(S: int) -> int:
+    """The dispatch groups a sequence of S tokens is cut into."""
+    return MODEL_AXIS if (S % MODEL_AXIS == 0 and S >= 64 * MODEL_AXIS) else 1
+
+
 def capacity(cfg, seq_len: int) -> int:
     m = cfg.moe
     c = int(seq_len * m.top_k * m.capacity_factor / m.n_experts)
@@ -118,20 +126,18 @@ def _dispatch(cfg, router, xg, dtype):
         else:
             ids_e, gates_e = ids, gates
 
-        # group-local position of each (token, k) slot within its expert:
-        # an exclusive count over the slots before it, token-major
-        eid = ids_e.reshape(B, G, Sg * Ke)
-        onehot = F.one_hot(eid, Ee)                        # (B,G,Sg*Ke,Ee)
-        pos = ((torch.cumsum(onehot, dim=2) - onehot) * onehot).sum(-1)
-        keep = pos < C
-        slot = eid * C + torch.clamp_max(pos, C - 1)       # (B,G,Sg*Ke)
+        # group-local position of each (token, k) slot within its expert,
+        # an exclusive count over the slots before it, token-major, and
+        # what follows from it: slot, keep, each slot's scatter row and
+        # each expert's kept slots (B·G, Ee)
+        slot, keep, dest, kept = moe_slots(ids_e.reshape(B * G, Sg * Ke),
+                                           Ee, C)
+        slot, keep = slot.reshape(B, G, -1), keep.reshape(B, G, -1)
 
         # scatter into (Ee·C, D) a group; a dropped slot goes to one extra
         # row that is cut off (each kept slot gets exactly one row, so the
         # sum of index_add is that row's value)
         rows = Ee * C + 1
-        dest = torch.where(keep, slot, Ee * C) \
-            + torch.arange(B * G, device=dev).reshape(B, G, 1) * rows
         x_flat = xg.repeat_interleave(Ke, dim=2) \
             * keep[..., None].to(xg.dtype)
         x_e = torch.zeros((B * G * rows, D), dtype=xg.dtype, device=dev) \
@@ -144,11 +150,12 @@ def _dispatch(cfg, router, xg, dtype):
             spans.count("moe_kept_slots", keep)
             spans.count("moe_slots", keep.numel())
 
-    # load-balance terms (Switch/GShard form, on the true experts)
+    # load-balance terms (Switch/GShard form, on the true experts); frac
+    # is the mean of the kept slots' one-hots: the kept counts over Sg·Ke,
+    # divided as torch's mean divides
     with spans.span("moe_router"):
-        frac_src = onehot.reshape(B, G, Sg * Ke, E, split).sum(-1) \
-            if split > 1 else onehot
-        frac = (frac_src * keep[..., None]).float().mean(2)  # (B,G,E)
+        frac = kept.reshape(B, G, E, split).sum(-1, dtype=torch.float32) \
+            / (Sg * Ke)                                      # (B,G,E)
         imp = probs.mean(2)                                  # (B,G,E)
     return x_e, slot, keep, gates_e.reshape(B, G, Sg * Ke), frac, imp
 
@@ -181,7 +188,7 @@ def moe_ffn(cfg, p, x, dtype, mesh=None, rules=None):
     m = cfg.moe
     B, S, D = x.shape
     E, Ke = m.n_experts, m.top_k * expert_split(cfg)
-    G = MODEL_AXIS if (S % MODEL_AXIS == 0 and S >= 64 * MODEL_AXIS) else 1
+    G = groups(S)
     Sg = S // G
 
     def c(t, *logical):

@@ -141,6 +141,13 @@ def ssd_bwd_mma_work(B, S, nh, hp, ns, cl):
 # the kernel ops' work from their arguments (tensors or shapes)
 # ---------------------------------------------------------------------------
 
+def moe_slots_work(BG, N, Ee):
+    """eid (BG, N) int64 read; slot and dest (BG, N) int64, keep (BG, N)
+    bool and kept (BG, Ee) int32 written: 8 B read and 17 B written a
+    slot. Integers only: no operations."""
+    return BG * N * (8 + 8 + 1 + 8) + BG * Ee * 4, 0
+
+
 def _shape(t):
     return tuple(t.shape) if hasattr(t, "shape") else tuple(t)
 
@@ -183,9 +190,12 @@ def op_work(name: str, args) -> tuple:
         ns = _shape(B_)[-1]
         fn = ssd_work if name == "ssd_chunk" else ssd_bwd_work
         return fn(B, S, nh, hp, ns, min(chunk, S), _esz(x))
+    if name == "moe_slots":
+        BG, N = _shape(args[0])
+        return moe_slots_work(BG, N, args[1])
     raise KeyError(name)
 
 
 __all__ = ["PEAK_FLOPS", "TF32_FLOPS", "attended_pairs", "bound_ms",
-           "flash_bwd_work", "flash_fwd_work", "op_work",
+           "flash_bwd_work", "flash_fwd_work", "moe_slots_work", "op_work",
            "paged_work", "ssd_bwd_mma_work", "ssd_bwd_work", "ssd_work"]

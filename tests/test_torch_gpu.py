@@ -22,6 +22,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_fwd_ref,
                                                      tile_kinds)
+from repro_torch.kernels.moe_slots import kernel as slots_kernel
+from repro_torch.kernels.moe_slots.ref import moe_slots_ref
 from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.paged_attn.ref import paged_attention_split_ref
@@ -35,6 +37,7 @@ from repro_torch.kernels.ssd_scan.ref import (BWD_GROUP, bwd_head_groups,
                                               ssd_chunk_split_ref, ssd_ref)
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
+from repro_torch.models import moe
 from repro_torch.serve import ServeLoop
 
 pytestmark = pytest.mark.gpu
@@ -525,6 +528,8 @@ def _op_args(dev):
     Bm, Cm = (_rand(rng, (1, 64, 8), bf, dev) for _ in range(2))
     cots = [_rand(rng, s, torch.float32, dev) for s in
             ((1, 2, 32, 2, 16), (1, 2, 2, 16, 8), (1, 2, 32, 2), (1, 2, 2))]
+    # 3 groups of 2,500 slots (two tiles each) over 16 experts, C 128
+    eid = torch.from_numpy(rng.integers(0, 16, (3, 2500))).to(dev)
     return {"flash_fwd": (q, k, v, *flash),
             "flash_fwd_lse": (q, k, v, *flash),
             "flash_bwd": (q, k, v, o.contiguous(), lse.contiguous(),
@@ -532,7 +537,8 @@ def _op_args(dev):
             "paged_attention": (*paged, 0.125),
             "paged_attention_lse": (*paged, 0.125),
             "ssd_chunk": (x, dt, A_log, Bm, Cm, 32),
-            "ssd_chunk_bwd": (x, dt, A_log, Bm, Cm, *cots, 32)}
+            "ssd_chunk_bwd": (x, dt, A_log, Bm, Cm, *cots, 32),
+            "moe_slots": (eid, 16, 128)}
 
 
 @pytest.mark.parametrize("name", sorted(_op_args(torch.device("cpu"))))
@@ -542,6 +548,101 @@ def test_kernel_ops_pass_opcheck_on_card(cuda, name):
     dtypes, strides) and its dispatch under AOT tracing."""
     torch.library.opcheck(getattr(torch.ops.repro_torch, name),
                           _op_args(cuda)[name])
+
+
+# the MoE slot kernel's group lengths: 4-6 slots, decode-b32's step (its 32
+# tokens routed as one group of 192), training (1,536), a 16k prompt in
+# one group (98,304), and lengths that are no multiple of its tile of
+# 2,048 slots (3,072, 5,000)
+SLOT_NS = (4, 6, 192, 1536, 3072, 5000, 98304)
+
+
+@pytest.mark.parametrize("draw", ["uniform", "one_expert"])
+@pytest.mark.parametrize("C", [8, "no_drops"])
+@pytest.mark.parametrize("BG", [1, 32])
+@pytest.mark.parametrize("Ee", [16, 64])
+@pytest.mark.parametrize("N", SLOT_NS)
+def test_moe_slots_kernel_matches_plain(cuda, N, Ee, BG, C, draw):
+    """slot, keep, dest and kept bit for bit the plain version's (the
+    one-hot cumsum), with C 8 (heavy drops where an expert takes more
+    slots) and C = N (none), experts drawn uniformly or every slot on one;
+    keep drops exactly where an expert's slots exceed C; a second call
+    gives the same bits."""
+    rng = np.random.default_rng(N + Ee + BG)
+    if draw == "uniform":
+        eid = torch.from_numpy(rng.integers(0, Ee, (BG, N))).to(cuda)
+    else:
+        eid = torch.full((BG, N), Ee - 1, dtype=torch.int64, device=cuda)
+    cap = N if C == "no_drops" else C
+    got = slots_kernel.moe_slots(eid, Ee, cap)
+    want = moe_slots_ref(eid, Ee, cap)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    most = max(int(torch.bincount(r, minlength=Ee).max()) for r in eid)
+    assert bool(got[1].all()) == (most <= cap)
+    again = slots_kernel.moe_slots(eid, Ee, cap)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_moe_slots_kernel_reads_a_strided_view(cuda):
+    """A top-k slice's ids (a view with strides) are read as the plain
+    version reads them."""
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 64, (2, 3000, 8))).to(cuda)[..., :6].reshape(2, 1, 3000, 6)
+    eid = ids.reshape(2, 3000 * 6)
+    for a, b in zip(slots_kernel.moe_slots(eid, 64, 300),
+                    moe_slots_ref(eid, 64, 300)):
+        assert torch.equal(a, b)
+
+
+def test_moe_slots_kernel_counts_its_launches(cuda):
+    """The wrapper counts kernel launches: one while a group fits a tile,
+    two (the histograms, then the ranks) once it spans more; an expert
+    count past the C entry's limit fails as a launch error."""
+    T = slots_kernel.tile()
+    for N, n in ((T, 1), (T + 1, 2)):
+        eid = torch.zeros((2, N), dtype=torch.int64, device=cuda)
+        before = slots_kernel.moe_slots.launches
+        slots_kernel.moe_slots(eid, 64, 8)
+        assert slots_kernel.moe_slots.launches - before == n
+    with pytest.raises(RuntimeError, match="moe_slots launch failed"):
+        slots_kernel.moe_slots(eid, 1 << 20, 8)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
+def test_dispatch_frac_on_card_within_an_ulp(cuda, arch):
+    """``moe._dispatch`` on the card: frac, from the slot kernel's kept
+    counts, within one fp32 ulp of the mean of each kept slot's one-hot
+    on its true expert, the formula it replaced; x_e, slot and keep those
+    of the plain slot positions."""
+    import dataclasses
+    cfg = get_smoke_config(arch)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+    m, split = cfg.moe, moe.expert_split(cfg)
+    g = torch.Generator().manual_seed(1)
+    xg = (torch.randn((2, 1, 1536, cfg.d_model), generator=g)
+          + torch.randn((cfg.d_model,), generator=g)).to(cuda)
+    router = torch.randn((cfg.d_model, m.n_experts), generator=g).to(cuda)
+    x_e, slot, keep, _, frac, _ = moe._dispatch(cfg, router, xg,
+                                                torch.float32)
+    assert not bool(keep.all())
+    C = moe.capacity(cfg, 1536)
+    eid = slot // C
+    want = moe_slots_ref(eid.reshape(2, -1), m.n_experts * split, C)
+    assert torch.equal(slot.reshape(2, -1), want[0])
+    assert torch.equal(keep.reshape(2, -1), want[1])
+    onehot = torch.nn.functional.one_hot(eid // split, m.n_experts)
+    old = (onehot * keep[..., None]).float().mean(2)
+    ulp = torch.finfo(torch.float32).eps * old.abs()
+    assert bool(((frac - old).abs() <= ulp).all())
+    x_flat = xg.repeat_interleave(m.top_k * split, dim=2) \
+        * keep[..., None].float()
+    rows = m.n_experts * split * C + 1
+    plain = torch.zeros((2 * rows, cfg.d_model), device=cuda).index_add(
+        0, want[2].reshape(-1), x_flat.reshape(-1, cfg.d_model))
+    assert torch.equal(x_e.reshape(2, -1, cfg.d_model),
+                       plain.reshape(2, rows, -1)[:, :rows - 1])
 
 
 def test_paged_kernel_permuted_table_is_bit_identical(cuda):

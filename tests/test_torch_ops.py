@@ -2,9 +2,13 @@
 ``torch.library.opcheck``; on fake tensors of any device (a dry run's
 trace) each gives its kernel's output shapes, launches nothing and runs
 no plain version; ``FlopCounterMode`` counts each by its formula in
-``roofline.work``; those formulas give ``PERF.md``'s bound column; and
-the paged op's lse."""
+``roofline.work`` (the MoE slot op, integers only, has none); those
+formulas give ``PERF.md``'s bound column; the paged op's lse; and the MoE
+slot op's plain version against the JAX package's formula."""
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -12,6 +16,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.moe_slots import kernel as slots_kernel
+from repro_torch.kernels.moe_slots import ops as slots_ops
 from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn import ops as paged_ops
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -19,7 +25,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.roofline import work
 
 OPS = ("flash_fwd", "flash_fwd_lse", "flash_bwd", "paged_attention",
-       "paged_attention_lse", "ssd_chunk", "ssd_chunk_bwd")
+       "paged_attention_lse", "ssd_chunk", "ssd_chunk_bwd", "moe_slots")
 FLASH = (True, 0, 0.125, 64, 0, "triangular")
 
 
@@ -42,11 +48,14 @@ def _args(dev="cpu", dtype=torch.float32, seed=0):
     A_log = r(2, dt=torch.float32)
     cots = [r(*s, dt=torch.float32) for s in
             ((1, 2, 32, 2, 16), (1, 2, 2, 16, 8), (1, 2, 32, 2), (1, 2, 2))]
+    # 3 groups of 40 slots over 16 experts, 4 slots an expert: drops
+    eid = torch.randint(0, 16, (3, 40), generator=g).to(dev)
     return {"flash_fwd": (q, k, v, *FLASH), "flash_fwd_lse": (q, k, v, *FLASH),
             "flash_bwd": (q, k, v, o, lse, o, *FLASH),
             "paged_attention": paged, "paged_attention_lse": paged,
             "ssd_chunk": (x, dt, A_log, Bm, Cm, 32),
-            "ssd_chunk_bwd": (x, dt, A_log, Bm, Cm, *cots, 32)}
+            "ssd_chunk_bwd": (x, dt, A_log, Bm, Cm, *cots, 32),
+            "moe_slots": (eid, 16, 4)}
 
 
 @pytest.mark.parametrize("name", OPS)
@@ -62,7 +71,8 @@ def _launches():
             flash_kernel.flash_attention_bwd.launches,
             paged_kernel.paged_attention.launches,
             ssd_kernel.ssd_chunk_call.launches,
-            ssd_kernel.ssd_chunk_bwd.launches)
+            ssd_kernel.ssd_chunk_bwd.launches,
+            slots_kernel.moe_slots.launches)
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
@@ -71,7 +81,7 @@ def test_fake_call_takes_the_kernel_route(name, device, monkeypatch):
     """On fake tensors (of the CPU, or of a card this machine need not
     have) each op gives the shapes and dtypes of its real outputs and
     calls neither the kernel's wrapper nor the plain version; FlopCounterMode
-    counts it by its formula."""
+    counts it by its formula (the MoE slot op, integers only, by none: 0)."""
     real = _args()[name]
     want = getattr(torch.ops.repro_torch, name)(*real)
     want = want if isinstance(want, tuple) else (want,)
@@ -79,8 +89,10 @@ def test_fake_call_takes_the_kernel_route(name, device, monkeypatch):
                     (flash_ops, "flash_attention_bwd_ref"),
                     (paged_ops, "paged_attention_ref"),
                     (ssd_ops, "ssd_chunk_ref"), (ssd_ops, "ssd_chunk_bwd_ref"),
+                    (slots_ops, "moe_slots_ref"),
                     (flash_ops, "flash_attention_fwd"),
-                    (paged_ops, "_kernel"), (ssd_ops, "ssd_chunk_call")):
+                    (paged_ops, "_kernel"), (ssd_ops, "ssd_chunk_call"),
+                    (slots_ops, "_kernel")):
         monkeypatch.setattr(mod, fn, None)   # a call would raise
     before = _launches()
     with FakeTensorMode(allow_non_fake_inputs=False) as mode:
@@ -97,14 +109,17 @@ def test_fake_call_takes_the_kernel_route(name, device, monkeypatch):
     assert [(tuple(t.shape), t.dtype) for t in got] == \
         [(tuple(t.shape), t.dtype) for t in want]
     assert all(t.device.type == device for t in got)
-    assert fc.get_total_flops() == work.op_work(name, real)[1] > 0
+    flops = work.op_work(name, real)[1]
+    assert fc.get_total_flops() == flops
+    assert (flops > 0) == (name != "moe_slots")
 
 
 def test_work_formulas_give_the_bound_column():
     """``PERF.md`` §6's bound column (bf16, ms), from the formulas: flash
     (4, 512, 32, 64), its backward (2, 4096, 32, 64), paged at hd 64 (34
     pages, 543 positions), the SSD at zamba2's prefill and its backward at
-    zamba2's training call."""
+    zamba2's training call, and the MoE slot op at a 16k prompt's one
+    group of 98,304 slots over 64 experts."""
     bf = work.PEAK_FLOPS["bfloat16"]
     got = {
         "flash": work.bound_ms(*work.flash_fwd_work(
@@ -116,10 +131,11 @@ def test_work_formulas_give_the_bound_column():
         "ssd": work.bound_ms(*work.ssd_work(4, 512, 80, 64, 64, 256, 2),
                              work.TF32_FLOPS),
         "ssd bwd": work.bound_ms(*work.ssd_bwd_work(1, 4096, 80, 64, 64, 256,
-                                                    2), work.TF32_FLOPS)}
+                                                    2), work.TF32_FLOPS),
+        "moe slots": work.bound_ms(*work.moe_slots_work(1, 98304, 64), bf)}
     want = {"flash": (0.0100, "bytes"), "flash bwd": (0.3475, "operations"),
             "paged": (0.0053, "bytes"), "ssd": (0.0225, "bytes"),
-            "ssd bwd": (0.0581, "bytes")}
+            "ssd bwd": (0.0581, "bytes"), "moe slots": (0.0007, "bytes")}
     assert {k: (round(ms, 4), by) for k, (ms, by) in got.items()} == want
 
 
@@ -161,3 +177,82 @@ def test_paged_lse_and_zero_length_row(dtype):
                                vmean.repeat_interleave(2, 0).to(dtype).float(),
                                atol=2e-2 if dtype == torch.bfloat16 else 1e-5,
                                rtol=1e-2)
+
+
+def _jax_slot_lines():
+    """The lines of the JAX package's ``moe_ffn`` that give each slot's
+    position, keep flag and slot (``repro/models/moe.py``, from the
+    "group-local position" comment up to the scatter), as its source
+    has them."""
+    import inspect
+    import textwrap
+
+    from repro.models import moe as jax_moe
+    src = inspect.getsource(jax_moe.moe_ffn)
+    start = src.rindex("\n", 0, src.index("# group-local position")) + 1
+    end = src.rindex("\n", 0, src.index("x_flat =")) + 1
+    lines = textwrap.dedent(src[start:end])
+    assert "jnp.cumsum(onehot, axis=2)" in lines and "slot =" in lines
+    return lines
+
+
+@pytest.mark.parametrize("BG,N,Ee,C", [(3, 600, 16, 8), (2, 4100, 64, 8),
+                                       (1, 300, 64, 400)])
+def test_moe_slots_ref_is_the_jax_formula(BG, N, Ee, C):
+    """The slot op's plain version gives the JAX package's pos, keep and
+    slot bit for bit: the lines of ``repro/models/moe.py``'s ``moe_ffn``
+    that compute them, read from its source and run here on the same
+    expert ids (BG groups of N slots as B 1, G BG, Sg N, Ke 1), so a
+    change there reaches this test. Drop-heavy (C 8, one expert taking a
+    third of the slots) and drop-free (C > N); its dest and kept follow
+    from them."""
+    import jax
+    import jax.numpy as jnp
+    g = torch.Generator().manual_seed(N)
+    eid = torch.randint(0, Ee, (BG, N), generator=g)
+    eid[:, ::3] = 5                                  # a skewed expert
+    slot, keep, dest, kept = slots_ops.moe_slots(eid, Ee, C)
+
+    env = {"jax": jax, "jnp": jnp, "B": 1, "G": BG, "Sg": N, "Ke": 1,
+           "Ee": Ee, "C": C,
+           "ids_e": jnp.asarray(eid.numpy()).reshape(1, BG, N, 1)}
+    exec(_jax_slot_lines(), env)
+    jkeep = np.asarray(env["keep"]).reshape(BG, N)
+    jslot = np.asarray(env["slot"]).reshape(BG, N)
+    assert np.array_equal(keep.numpy(), jkeep)
+    assert np.array_equal(slot.numpy(), jslot)
+    assert (C == 8) == (not bool(keep.all()))
+    rows = Ee * C + 1
+    want_dest = np.where(jkeep, jslot, Ee * C) \
+        + np.arange(BG)[:, None] * rows
+    assert np.array_equal(dest.numpy(), want_dest)
+    counts = np.stack([np.bincount(r, minlength=Ee) for r in eid.numpy()])
+    assert kept.dtype == torch.int32
+    assert np.array_equal(kept.numpy(), np.minimum(counts, C))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
+def test_dispatch_frac_equals_the_one_hot_mean(arch):
+    """The load-balance share ``frac`` that ``moe._dispatch`` builds from
+    the slot op's kept counts equals the mean over the slots of each kept
+    slot's one-hot on its true expert, the formula it replaced, bit for
+    bit on the CPU (mixtral: 2 sub-experts an expert; capacity drops in
+    both)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    cfg = get_smoke_config(arch)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+    m, split = cfg.moe, moe.expert_split(cfg)
+    g = torch.Generator().manual_seed(1)
+    xg = torch.randn((2, 1, 96, cfg.d_model), generator=g) \
+        + torch.randn((cfg.d_model,), generator=g)      # alike: skewed
+    router = torch.randn((cfg.d_model, m.n_experts), generator=g)
+    x_e, slot, keep, gates_e, frac, imp = moe._dispatch(
+        cfg, router, xg, torch.float32)
+    assert not bool(keep.all())
+    B, G, N = keep.shape
+    eid = (slot // moe.capacity(cfg, 96)) // split        # true expert
+    onehot = torch.nn.functional.one_hot(eid, m.n_experts)
+    want = (onehot * keep[..., None]).float().mean(2)
+    assert frac.dtype == torch.float32
+    assert torch.equal(frac, want)
