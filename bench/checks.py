@@ -1,5 +1,6 @@
 """How ``correct`` is decided: the program's outputs from the timed
-window against the plain reference (``bench.reference``).
+window against the plain reference (``bench.reference``: the model
+module the configuration names, ``ref`` below).
 
 Serving: a sample of the generates the window finished, drawn from the
 seed, with the longest among them. The reference runs once over each
@@ -31,8 +32,8 @@ import numpy as np
 import torch
 
 from bench import weights as W
-from bench.reference import model as ref
 from bench.reference import train as ref_train
+from bench.reference.common import Prec, gap_of
 
 ZERO_GRAD = 1e-3         # of the median leaf's reference gradient
 
@@ -49,9 +50,9 @@ def sample_units(units: List[dict], k: int, seed: int) -> List[dict]:
     return [units[longest]] + [units[rest[j]] for j in sorted(pick)]
 
 
-def _layer_weights(m, seed, device, dtype):
+def _layer_weights(spec, seed, device, dtype):
     leaves = {}
-    for leaf in W.spec(m):
+    for leaf in spec:
         if leaf.layers is not None:
             leaves.setdefault(leaf.path[0], []).append(leaf)
 
@@ -66,13 +67,15 @@ def _layer_weights(m, seed, device, dtype):
     return get
 
 
-def serve_readings(m: dict, seed: int, units: List[dict], device,
-                   dtype=torch.bfloat16, control: bool = False) -> Dict:
+def serve_readings(ref, leaves, m: dict, seed: int, units: List[dict],
+                   device, dtype=torch.bfloat16,
+                   control: bool = False) -> Dict:
     """{"program": {...}, and with ``control`` "control": {...}} readings
-    over ``units`` (each {"tokens" prompt (B, S0), "served" (B, n_new)})."""
+    over ``units`` (each {"tokens" prompt (B, S0), "served" (B, n_new)}),
+    the weights those of ``leaves``."""
     top = {leaf.path[0]: W.slice_as(seed, leaf, None, device, dtype)
-           for leaf in W.spec(m) if leaf.layers is None}
-    layer = _layer_weights(m, seed, device, dtype)
+           for leaf in leaves if leaf.layers is None}
+    layer = _layer_weights(leaves, seed, device, dtype)
     jobs = []
     for u in units:
         served = torch.as_tensor(u["served"], device=device).long()
@@ -81,13 +84,13 @@ def serve_readings(m: dict, seed: int, units: List[dict], device,
         jobs.append({"tokens": torch.cat([prompt, served[:, :-1]], 1),
                      "S0": S0, "score": list(range(S0 - 1, S0 - 1 + n)),
                      "served": served})
-    logits = ref.serve_logits(m, layer, top, jobs, ref.Prec(), device)
+    logits = ref.serve_logits(m, layer, top, jobs, Prec(), device)
 
     def reading(picked):
         """Gaps of the tokens ``picked`` at each scored position (a list
         of (B, n) per job): over all, the first token (the prefill's) and
         the decoded ones apart."""
-        g = [ref.gap_of(lg, p) for lg, p in zip(logits, picked)]
+        g = [gap_of(lg, p) for lg, p in zip(logits, picked)]
         every = torch.cat([x.reshape(-1) for x in g])
         out = {"logit_gap_max": float(every.max()),
                "logit_gap_mean": float(every.mean()),
@@ -103,8 +106,8 @@ def serve_readings(m: dict, seed: int, units: List[dict], device,
     if control:
         # the control, and as a witness the reference in bf16: the tokens
         # each puts first, read against the fp32 reference
-        for name, prec in (("control", ref.Prec(fp8=True)),
-                           ("bf16_reference", ref.Prec(bf16=True))):
+        for name, prec in (("control", Prec(fp8=True)),
+                           ("bf16_reference", Prec(bf16=True))):
             low = ref.serve_logits(m, layer, top, jobs, prec, device)
             out[name] = reading([lo.argmax(-1) for lo in low])
     return out
@@ -135,21 +138,22 @@ def train_numbers(prog: dict, want: dict) -> Dict[str, float]:
     }
 
 
-def train_readings(m: dict, opt: dict, seed: int, batches: List[dict],
-                   prog: dict, device, control: bool = False,
-                   faults=()) -> Dict:
+def train_readings(ref, leaves, m: dict, opt: dict, seed: int,
+                   batches: List[dict], prog: dict, device,
+                   control: bool = False, faults=()) -> Dict:
     """Readings of the program's first steps ``prog`` against the
     reference's; with ``control``, those of the reference in fp8 in its
     place; for each fault, those of the reference with it planted."""
-    want = ref_train.run_steps(m, opt, seed, batches, ref.Prec(), device)
+    want = ref_train.run_steps(ref, leaves, m, opt, seed, batches, Prec(),
+                               device)
     out = {"program": train_numbers(prog, want)}
     if control:
-        low = ref_train.run_steps(m, opt, seed, batches,
-                                  ref.Prec(fp8=True), device)
+        low = ref_train.run_steps(ref, leaves, m, opt, seed, batches,
+                                  Prec(fp8=True), device)
         out["control"] = train_numbers(low, want)
     for f in faults:
-        bad = ref_train.run_steps(m, opt, seed, batches, ref.Prec(), device,
-                                  fault=f)
+        bad = ref_train.run_steps(ref, leaves, m, opt, seed, batches,
+                                  Prec(), device, fault=f)
         out[f] = train_numbers(bad, want)
     return out
 

@@ -3,10 +3,12 @@ the check against the reference, and the result line.
 
 Everything a cell needs is found by name: its entry in ``BENCHMARK.json``
 names a configuration (whose ``file`` is given there) and a traffic mix
-(``traffic/<name>.json``); its limits are ``limits/<cell>.json``; each
-metric is computed by ``metrics/<metric>.py``'s ``read(ctx)``. The data
-folders are those beside ``BENCHMARK.json``'s ``paths``; a test may point
-the harness at copies of them (``data_root``).
+(``traffic/<name>.json``); the configuration's file may name its model
+module (``"reference"``: ``reference/<name>.py``, ``bench.reference``);
+its limits are ``limits/<cell>.json``; each metric is computed by
+``metrics/<metric>.py``'s ``read(ctx)``. The data folders are those
+beside ``BENCHMARK.json``'s ``paths``; a test may point the harness at
+copies of them (``data_root``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from bench import checks, traffic, tracing
+from bench import checks, reference, traffic, tracing
 from bench import weights as W
 from bench import work
 
@@ -43,6 +45,7 @@ HF_KEYS = {
     "intermediate_size": ("d_ff",), "rope_theta": ("rope_theta",),
     "rms_norm_eps": ("norm_eps",),
     "kv_lora_rank": ("mla", "kv_lora_rank"),
+    "q_lora_rank": ("mla", "q_lora_rank"),
     "qk_nope_head_dim": ("mla", "qk_nope_head_dim"),
     "qk_rope_head_dim": ("mla", "qk_rope_head_dim"),
     "v_head_dim": ("mla", "v_head_dim"),
@@ -52,7 +55,21 @@ HF_KEYS = {
     "n_shared_experts": ("moe", "n_shared"),
     "moe_intermediate_size": ("moe", "d_ff_expert"),
     "first_k_dense_replace": ("moe", "first_k_dense"),
+    "scoring_func": ("moe", "scoring_func"),
+    "topk_method": ("moe", "topk_method"),
+    "n_group": ("moe", "n_group"),
+    "topk_group": ("moe", "topk_group"),
+    "routed_scaling_factor": ("moe", "routed_scaling_factor"),
+    "norm_topk_prob": ("moe", "norm_topk_prob"),
+    "rope_scaling": ("rope_scaling",),
 }
+# fields of the program's ModelConfig that the harness sets itself, and
+# the program's switches of how it runs (kernels, tiling, sharding,
+# precision of its parts): refused in a model, which states the model only
+HARNESS_SET = ("arch_id", "param_dtype", "remat", "microbatches")
+PROGRAM_SET = ("scan_layers", "attn_q_chunk", "attn_schedule", "use_pallas",
+               "bf16_stacked_params", "sp_norm", "ssm_chunk", "ssm_bf16",
+               "moe_impl", "moe_fsdp_out", "grad_compression")
 
 
 def log(*a):
@@ -78,28 +95,43 @@ def model_of(config: dict) -> dict:
     return m
 
 
+def _build(cls, kw: dict, where: str):
+    """``cls(**kw)``, a key that is not a field refused by name."""
+    try:
+        return cls(**kw)
+    except TypeError as e:
+        raise ValueError(f"{where}: {e}") from None
+
+
 def port_config(m: dict, name: str, train: bool):
-    """The program's configuration object for the model description."""
+    """The program's configuration object for the model description: each
+    key of ``m``, ``m["moe"]`` and ``m["mla"]`` is the program's field of
+    that name; a key it lacks, or one the harness or the program sets, is
+    refused."""
     from repro_torch.configs.base import MLAConfig, MoEConfig, ModelConfig
-    moe = mla = None
-    if m.get("moe"):
-        e = m["moe"]
-        moe = MoEConfig(n_experts=e["n_experts"], n_shared=e.get("n_shared", 0),
-                        top_k=e["top_k"], d_ff_expert=e["d_ff_expert"],
-                        first_k_dense=e.get("first_k_dense", 0),
-                        capacity_factor=e["capacity_factor"],
-                        router_aux_weight=e["router_aux_weight"])
-    if m.get("mla"):
-        mla = MLAConfig(**m["mla"])
-    return ModelConfig(
-        arch_id=name, family=m["family"], n_layers=m["n_layers"],
-        d_model=m["d_model"], n_heads=m["n_heads"],
-        n_kv_heads=m["n_kv_heads"], d_ff=m["d_ff"],
-        vocab_size=m["vocab_size"], head_dim=m["head_dim"],
-        rope_theta=float(m["rope_theta"]), swa_window=m.get("swa_window", 0),
-        norm_eps=m["norm_eps"], mlp_kind="swiglu", moe=moe, mla=mla,
-        param_dtype="float32", compute_dtype=m["compute_dtype"],
-        remat=train, microbatches=1)
+    from repro_torch.models import moe as moe_mod
+    ours = sorted(set(m) & set(HARNESS_SET + PROGRAM_SET))
+    if ours:
+        raise ValueError(f"model {ours}: set by the harness or the program, "
+                         f"not the model")
+    kw, split = dict(m), 1
+    if kw.get("moe"):
+        moe = dict(kw["moe"])
+        # the harness's own key: how the program splits each expert
+        split = moe.pop("expert_split", 1)
+        kw["moe"] = _build(MoEConfig, moe, "model moe")
+    if kw.get("mla"):
+        kw["mla"] = _build(MLAConfig, kw["mla"], "model mla")
+    if "rope_theta" in kw:
+        kw["rope_theta"] = float(kw["rope_theta"])
+    # an ungated GELU MLP (granite-34b) states mlp_kind "gelu"
+    kw.setdefault("mlp_kind", "swiglu")
+    cfg = _build(ModelConfig, dict(kw, arch_id=name, param_dtype="float32",
+                                   remat=train, microbatches=1), "model")
+    if cfg.moe is not None and split != moe_mod.expert_split(cfg):
+        raise ValueError(f"model moe.expert_split = {split} but the program "
+                         f"splits each expert in {moe_mod.expert_split(cfg)}")
+    return cfg
 
 
 def check_layout(tree: dict, abstract: dict, path=()):
@@ -139,6 +171,9 @@ class Cell:
         self.config = json.loads(
             (spec_path.parent / self.config_entry["file"]).read_text())
         self.m = model_of(self.config)
+        self.ref = reference.load(self.root, self.config.get("reference"))
+        self.leaves = W.spec(self.m, self.ref)
+        self.work = work.bind(self.ref)
         self.traffic = json.loads(
             (self.root / "traffic" / f"{self.w['traffic']}.json").read_text())
         self.limits = json.loads(
@@ -189,7 +224,7 @@ def _serve(cell, seed, seconds, trace, dev, t_start, fault, calibrate):
     from repro_torch.serve import ServeLoop
     m, t = cell.m, cell.traffic
     pc = port_config(m, cell.w["config"], train=False)
-    tree = W.make_tree(m, seed, dev, pc.compute_dt())
+    tree = W.make_tree(cell.leaves, seed, dev, pc.compute_dt())
     check_layout(tree, lm.abstract_params(pc))
     ls = traffic.lengths(t)
     loop = ServeLoop(pc, tree, max_len=max(ls) + t["n_new"], device=dev)
@@ -240,8 +275,8 @@ def _serve(cell, seed, seconds, trace, dev, t_start, fault, calibrate):
     pick = checks.sample_units(units, t["check_units"], seed)
     for u in pick:
         u["tokens"] = traffic.unit(t, seed, u["index"], V)["tokens"]
-    read = checks.serve_readings(m, seed, pick, dev, pc.compute_dt(),
-                                 control=calibrate)
+    read = checks.serve_readings(cell.ref, cell.leaves, m, seed, pick,
+                                 dev, pc.compute_dt(), control=calibrate)
     log(f"check: {read['program']['tokens']} served tokens of {len(pick)} "
         f"of {len(units)} generates against the reference")
     return SimpleNamespace(kind="serve", units=units, setup_s=setup_s,
@@ -272,9 +307,9 @@ class Feed:
         return b
 
 
-def _leaf_norms(m, tree, scale=1.0):
+def _leaf_norms(leaves, tree, scale=1.0):
     return {leaf.name: float(W.get(tree, leaf.path).double().norm()) * scale
-            for leaf in W.spec(m)}
+            for leaf in leaves}
 
 
 def _train(cell, seed, seconds, trace, dev, t_start, fault, calibrate):
@@ -291,7 +326,7 @@ def _train(cell, seed, seconds, trace, dev, t_start, fault, calibrate):
         feed = Feed(RingLoader(TokenStore(path), batch=t["batch"],
                                seq=t["seq"], prefetch=4, seed=seed),
                     keep=t["reference_steps"])
-        tree = W.make_tree(m, seed, dev, torch.float32)
+        tree = W.make_tree(cell.leaves, seed, dev, torch.float32)
         check_layout(tree, lm.abstract_params(pc))
         # the window never reaches a checkpoint: one of this model would
         # be tens of GB, beyond what a run may write
@@ -317,11 +352,11 @@ def _train(cell, seed, seconds, trace, dev, t_start, fault, calibrate):
         for i in range(t["reference_steps"]):
             prog["losses"].append(chunk(1)["loss"])
             if i == 0:
-                prog["grad"] = _leaf_norms(m, loop.opt_state.m,
+                prog["grad"] = _leaf_norms(cell.leaves, loop.opt_state.m,
                                            1.0 / (1 - o["b1"]))
         with torch.no_grad():
             sq: Dict[str, float] = {}
-            for leaf in W.spec(m):
+            for leaf in cell.leaves:
                 p = W.get(loop.params, leaf.path)
                 for i in (range(leaf.layers) if leaf.layers is not None
                           else [None]):
@@ -361,8 +396,8 @@ def _train(cell, seed, seconds, trace, dev, t_start, fault, calibrate):
         del loop
         free()
         read = checks.train_readings(
-            m, o, seed, feed.kept, prog, dev, control=calibrate,
-            faults=("half_batch",) if calibrate else ())
+            cell.ref, cell.leaves, m, o, seed, feed.kept, prog, dev,
+            control=calibrate, faults=("half_batch",) if calibrate else ())
         numbers = dict(read["program"])
         if not finite:
             numbers["loss_gap"] = float("nan")
@@ -395,7 +430,8 @@ def run_cell(spec_path, workload: str, seed: int, seconds: float,
     correct, shown = checks.judge(r.numbers, cell.limits)
     ctx = SimpleNamespace(cell=cell.w, m=cell.m, traffic=cell.traffic,
                           kind=r.kind, units=r.units, setup_s=r.setup_s,
-                          window_s=r.window_s, trace=r.trace, work=work)
+                          window_s=r.window_s, trace=r.trace,
+                          work=cell.work)
     metrics = {}
     for spec in cell.metrics(trace):
         v = reader(cell.root, spec["name"])(ctx)

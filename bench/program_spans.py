@@ -264,7 +264,7 @@ def _serve_units(cell, seed, dev):
     from repro_torch.serve import ServeLoop
     m, t = cell.m, cell.traffic
     pc = harness.port_config(m, cell.w["config"], train=False)
-    tree = W.make_tree(m, seed, dev, pc.compute_dt())
+    tree = W.make_tree(cell.leaves, seed, dev, pc.compute_dt())
     harness.check_layout(tree, lm.abstract_params(pc))
     ls = traffic.lengths(t)
     loop = ServeLoop(pc, tree, max_len=max(ls) + t["n_new"], device=dev)
@@ -295,7 +295,7 @@ def _train_units(cell, seed, dev):
         total_steps=o["total"], ckpt_every=1 << 62,
         ckpt_dir=os.path.join(tmp, "ckpt"), log_every=1 << 62,
         peak_lr=o["peak_lr"]), iter(loader),
-        params=W.make_tree(m, seed, dev, torch.float32), device=dev)
+        params=W.make_tree(cell.leaves, seed, dev, torch.float32), device=dev)
     n, state = t["chunk_steps"], {"step": 0}
 
     def one(_):

@@ -1,85 +1,97 @@
-"""The reference forward of the benchmark's models, in fp32.
+"""The model module of the benchmark's configurations that name none
+(``reference/__init__.py``): DeepSeek-V2's and Mixtral's blocks as the
+program states them. It gives their leaves, the matrix parameters a
+token multiplies in a layer, and the fp32 reference forward and loss.
 
-It follows the configuration as the program states it (``assumed`` in
-the configuration's file): rms norms, rotate-half RoPE, causal attention
-(MLA decompressed: q/k 192, v 128; or GQA), SwiGLU, and MoE with top-k
-gates renormalised to sum to one, a capacity of
+The reference follows the configuration as the program states it
+(``assumed`` in the configuration's file): rms norms, rotate-half RoPE,
+causal attention (MLA decompressed: q/k 192, v 128; or GQA), SwiGLU, and
+MoE with top-k gates renormalised to sum to one, a capacity of
 ``capacity(tokens of the group)`` slots an expert in each routing group,
 slots taken in token order and those past it dropped, and shared experts
-always on. A routing group is a row's whole prompt, or its 16 equal parts
-when the length is a multiple of 16 and at least 1,024; at decode, the
-tokens of every row at one position together.
-
-``Prec`` is how products are taken: fp32, or, for the control, with each
-operand rounded to fp8 (e4m3, one scale a tensor); rounded to bf16, it
-stands in for the program's own precision as a witness.
+always on (routing groups and ``Prec``: ``reference/common.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
-from bench.weights import stacks
-
-GROUPS = 16          # a long prompt's routing groups
-GROUP_MIN = 1024     # the shortest prompt that is cut into them
+from bench.reference.common import (Prec, attend, capacity, layer_list,
+                                    prefill_groups, rms_norm, rope, swiglu,
+                                    unit_groups)
 
 
-class Prec:
-    def __init__(self, fp8: bool = False, bf16: bool = False):
-        self.fp8, self.bf16 = fp8, bf16
+def block_leaves(m: dict, moe_layer: bool) -> List[Tuple[Tuple[str, ...],
+                                                        tuple, bool, bool]]:
+    """One layer's leaves in the program's tree: (path within the layer,
+    shape, a norm scale of ones?, read in fp32 when served in bf16?)."""
+    d, H = m["d_model"], m["n_heads"]
+    out = [(("ln1",), (d,), True, True), (("ln2",), (d,), True, True)]
+    if m.get("mla"):
+        a = m["mla"]
+        qk = a["qk_nope_head_dim"] + a["qk_rope_head_dim"]
+        lora = a["kv_lora_rank"]
+        out += [(("attn", "wq"), (d, H * qk), False, False),
+                (("attn", "wdkv"), (d, lora + a["qk_rope_head_dim"]), False,
+                 False),
+                (("attn", "ckv_norm"), (lora,), True, True),
+                (("attn", "wuk"), (lora, H * a["qk_nope_head_dim"]), False,
+                 False),
+                (("attn", "wuv"), (lora, H * a["v_head_dim"]), False, False),
+                (("attn", "wo"), (H * a["v_head_dim"], d), False, False)]
+    else:
+        hd, KH = m["head_dim"], m["n_kv_heads"]
+        out += [(("attn", "wq"), (d, H * hd), False, False),
+                (("attn", "wk"), (d, KH * hd), False, False),
+                (("attn", "wv"), (d, KH * hd), False, False),
+                (("attn", "wo"), (H * hd, d), False, False)]
+    if moe_layer:
+        e = m["moe"]
+        split = e.get("expert_split", 1)
+        Ee, f = e["n_experts"] * split, e["d_ff_expert"] // split
+        out += [(("moe", "router"), (d, e["n_experts"]), False, True),
+                (("moe", "w1"), (Ee, d, f), False, False),
+                (("moe", "w3"), (Ee, d, f), False, False),
+                (("moe", "w2"), (Ee, f, d), False, False)]
+        if e.get("n_shared"):
+            fs = e["d_ff_expert"] * e["n_shared"]
+            out += [(("moe", "shared_w1"), (d, fs), False, False),
+                    (("moe", "shared_w3"), (d, fs), False, False),
+                    (("moe", "shared_w2"), (fs, d), False, False)]
+    else:
+        f = m["d_ff"]
+        out += [(("mlp", "w1"), (d, f), False, False),
+                (("mlp", "w3"), (d, f), False, False),
+                (("mlp", "w2"), (f, d), False, False)]
+    return out
 
-    def q(self, t: torch.Tensor) -> torch.Tensor:
-        if self.fp8:
-            s = 448.0 / t.detach().abs().amax().clamp_min(1e-30)
-            r = (t.detach() * s).to(torch.float8_e4m3fn).to(t.dtype) / s
-        elif self.bf16:
-            r = t.detach().to(torch.bfloat16).to(t.dtype)
-        else:
-            return t
-        return t + (r - t.detach()) if t.requires_grad else r
 
-    def mm(self, a, b):
-        return self.q(a) @ self.q(b)
-
-
-def rms_norm(x, w, eps):
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * w
-
-
-def rope(x, pos, theta):
-    """x (..., T, heads, d), pos (T,): rotate-half."""
-    d = x.shape[-1]
-    inv = torch.as_tensor(1.0 / (theta ** (np.arange(0, d, 2,
-                                                     dtype=np.float64) / d)),
-                          dtype=torch.float32, device=x.device)
-    ang = pos.float()[:, None] * inv
-    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
-
-
-def attend(q, k, v, scale, prec, chunk=1024):
-    """Causal attention; q (B, T, H, dq), k (B, T, KH, dq), v (B, T, KH,
-    dv); query head h reads KV head h // (H / KH)."""
-    B, T, H, _ = q.shape
-    G = H // k.shape[2]
-    kt = k.repeat_interleave(G, 2).permute(0, 2, 3, 1)
-    vt = v.repeat_interleave(G, 2).permute(0, 2, 1, 3)
-    keys = torch.arange(T, device=q.device)
-    out = []
-    for s0 in range(0, T, chunk):
-        qc = q[:, s0:s0 + chunk].permute(0, 2, 1, 3)
-        s = prec.mm(qc, kt) * scale
-        rows = torch.arange(s0, s0 + qc.shape[2], device=q.device)
-        s = s.masked_fill(keys[None] > rows[:, None], float("-inf"))
-        out.append(prec.mm(torch.softmax(s, -1), vt))
-    return torch.cat(out, 2).permute(0, 2, 1, 3)
+def layer_matmul_params(m: dict, moe_layer: bool) -> int:
+    """Parameters one token multiplies in one layer: the attention's
+    projections and, in an MoE layer, the router, the top-k routed experts
+    and the shared ones (else the dense MLP)."""
+    d, H = m["d_model"], m["n_heads"]
+    if m.get("mla"):
+        a = m["mla"]
+        qk = a["qk_nope_head_dim"] + a["qk_rope_head_dim"]
+        attn = (d * H * qk + d * (a["kv_lora_rank"] + a["qk_rope_head_dim"])
+                + a["kv_lora_rank"] * H * (a["qk_nope_head_dim"]
+                                           + a["v_head_dim"])
+                + H * a["v_head_dim"] * d)
+    else:
+        hd, KH = m["head_dim"], m["n_kv_heads"]
+        attn = 2 * d * H * hd + 2 * d * KH * hd
+    if moe_layer:
+        e = m["moe"]
+        ffn = (d * e["n_experts"]
+               + (e["top_k"] + e.get("n_shared", 0)) * 3 * d
+               * e["d_ff_expert"])
+    else:
+        ffn = 3 * d * m["d_ff"]
+    return attn + ffn
 
 
 def attention(m, p, x, pos, prec):
@@ -106,38 +118,6 @@ def attention(m, p, x, pos, prec):
     v = prec.mm(x, p["wv"]).view(B, T, KH, hd)
     y = attend(q, k, v, 1.0 / math.sqrt(hd), prec)
     return prec.mm(y.reshape(B, T, H * hd), p["wo"])
-
-
-def swiglu(x, w1, w3, w2, prec):
-    return prec.mm(F.silu(prec.mm(x, w1)) * prec.mm(x, w3), w2)
-
-
-def capacity(e: dict, n: int) -> int:
-    """Slots an expert has in a routing group of ``n`` tokens."""
-    c = int(n * e["top_k"] * e["capacity_factor"] / e["n_experts"])
-    return max(8, min(((c + 7) // 8) * 8, n * e["top_k"]))
-
-
-def prefill_groups(B: int, S: int, device):
-    """(group id, order within the group) of each token of a (B, S)
-    batch of prompts, as (B, S) tensors."""
-    G = GROUPS if S % GROUPS == 0 and S >= GROUP_MIN else 1
-    s = torch.arange(S, device=device)
-    gid = torch.arange(B, device=device)[:, None] * G + (s // (S // G))[None]
-    return gid, (s % (S // G))[None].expand(B, S)
-
-
-def unit_groups(B: int, S0: int, T: int, device):
-    """Routing groups of a generate's B rows of T tokens (a prompt of S0
-    and its T - S0 decoded tokens): the prompt's groups, then each decode
-    position's B tokens together, in row order."""
-    gid, okey = prefill_groups(B, S0, device)
-    n0 = int(gid.max()) + 1
-    j = torch.arange(T - S0, device=device)
-    gid = torch.cat([gid, (n0 + j)[None].expand(B, T - S0)], 1)
-    okey = torch.cat([okey, torch.arange(B, device=device)[:, None]
-                      .expand(B, T - S0)], 1)
-    return gid, okey
 
 
 def route(e: dict, router, x, gid, okey):
@@ -213,12 +193,6 @@ def block(m, p, h, pos, gid, okey, prec, moe_layer, with_aux=False):
     return h + swiglu(x, mp["w1"], mp["w3"], mp["w2"], prec), None
 
 
-def layer_list(m: dict):
-    """(stack name, index in the stack, MoE layer?) for every layer."""
-    return [(name, i, moe_layer) for name, n, moe_layer in stacks(m)
-            for i in range(n)]
-
-
 @torch.no_grad()
 def serve_logits(m: dict, layer_weights: Callable, top_weights: Dict,
                  units: List[dict], prec: Prec, device) -> List[torch.Tensor]:
@@ -268,11 +242,6 @@ def serve_logits(m: dict, layer_weights: Callable, top_weights: Dict,
         x = rms_norm(rows, top_weights["final_norm"], m["norm_eps"])
         out.append(prec.mm(x, top_weights["head"]))
     return out
-
-
-def gap_of(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
-    """How far below the reference's best each token's logit lies."""
-    return logits.amax(-1) - logits.gather(-1, token[..., None].long())[..., 0]
 
 
 def loss(m: dict, params: Dict, tokens, labels, prec: Prec,

@@ -13,7 +13,6 @@ from typing import Dict, List
 import torch
 
 from bench import weights as W
-from bench.reference import model as ref
 
 
 def lr_at(o: dict, step: int) -> float:
@@ -25,12 +24,12 @@ def lr_at(o: dict, step: int) -> float:
                            * (1 + math.cos(math.pi * t)))
 
 
-def _params(m, seed, device):
-    """(tree for ``ref.loss``, [(leaf, layer, tensor)] in a fixed
-    order)."""
+def _params(leaves, seed, device):
+    """(tree for a model module's ``loss``, [(leaf, layer, tensor)] in a
+    fixed order)."""
     tree: Dict = {}
     flat = []
-    for leaf in W.spec(m):
+    for leaf in leaves:
         for i in (range(leaf.layers) if leaf.layers is not None else [None]):
             t = W.draw(seed, leaf, i, device).requires_grad_(True)
             flat.append((leaf, i, t))
@@ -52,14 +51,15 @@ def _norms(flat, values) -> Dict[str, float]:
     return {k: math.sqrt(v) for k, v in sq.items()}
 
 
-def run_steps(m: dict, opt: dict, seed: int, batches: List[dict], prec,
-              device, fault=None) -> dict:
-    """The reference's steps over ``batches`` (numpy "tokens", "labels"):
+def run_steps(ref, leaves, m: dict, opt: dict, seed: int,
+              batches: List[dict], prec, device, fault=None) -> dict:
+    """The reference's steps over ``batches`` (numpy "tokens", "labels"),
+    the loss the model module ``ref``'s over the weights of ``leaves``:
     {"losses": [...], "grad": {leaf: norm of the first step's clipped
     gradient}, "change": {leaf: norm of the parameters' change after
     every step}}. ``fault`` plants one of the faults the check must catch
     ("half_batch": the loss of the first half of each batch's rows)."""
-    tree, flat = _params(m, seed, device)
+    tree, flat = _params(leaves, seed, device)
     mom = [torch.zeros_like(t) for _, _, t in flat]
     vel = [torch.zeros_like(t) for _, _, t in flat]
     losses, grad1 = [], None

@@ -4,7 +4,6 @@ the result line, the imports, the data-driven layout, and that the check
 fails the control and the faults it must catch."""
 
 import ast
-import hashlib
 import json
 import os
 import pathlib
@@ -108,15 +107,21 @@ def test_kernel_work_matches_hand_counts(fn, args, want):
 def test_model_flops_match_hand_counts():
     # a token multiplies attention 2*4*2*2 + 2*4*1*2 = 48 and router 16
     # plus two experts 2*3*4*3 = 72: 136 parameters
-    assert work.token_matmul_params(SMALL) == 136
+    assert work.token_matmul_params(ref, SMALL) == 136
     # 3 tokens: 2*3*136 + attention 2*2*(2+2)*6 pairs + head 2*4*10
-    assert work.prefill_flops(SMALL, 1, 3) == 816 + 96 + 80
+    assert work.prefill_flops(ref, SMALL, 1, 3) == 816 + 96 + 80
     # a token at position 2 attends 3 keys
-    assert work.decode_flops(SMALL, 1, 2) == 272 + 48 + 80
+    assert work.decode_flops(ref, SMALL, 1, 2) == 272 + 48 + 80
     # training: three forwards, the head at all 3 positions
-    assert work.train_step_flops(SMALL, 1, 3) == 3 * (816 + 96 + 240)
-    assert work.generate_flops(SMALL, 1, 3, 2) == \
-        work.prefill_flops(SMALL, 1, 3) + work.decode_flops(SMALL, 1, 3)
+    assert work.train_step_flops(ref, SMALL, 1, 3) == 3 * (816 + 96 + 240)
+    assert work.generate_flops(ref, SMALL, 1, 3, 2) == \
+        work.prefill_flops(ref, SMALL, 1, 3) + \
+        work.decode_flops(ref, SMALL, 1, 3)
+    # as a metric's reader sees it, bound to the model module
+    w = work.bind(ref)
+    assert w.prefill_flops(SMALL, 1, 3) == 816 + 96 + 80
+    assert w.flash_fwd_work is work.flash_fwd_work
+    assert w.PEAK_FLOPS_BF16 == work.PEAK_FLOPS_BF16
 
 
 def test_bound_takes_the_larger_term():
@@ -272,13 +277,8 @@ def test_a_run_loads_no_jax_module(tb):
 # driven by data
 # ---------------------------------------------------------------------------
 
-def _harness_digest():
-    return {p: hashlib.sha256(p.read_bytes()).hexdigest()
-            for p in BENCH.glob("*.py")}
-
-
 def test_new_config_traffic_and_metric_are_found_by_name(tmp_path):
-    before = _harness_digest()
+    before = tiny.harness_digest()
     spec_path = tiny.write(tmp_path)
     data = tmp_path / "tinybench"
     (data / "configs" / "tiny-new.json").write_text(json.dumps(
@@ -313,7 +313,7 @@ def test_new_config_traffic_and_metric_are_found_by_name(tmp_path):
     out = harness.run_cell(spec_path, "new-cell", 5, 0.2, False,
                            device="cpu", data_root=data)
     assert set(out["metrics"]) == {"decode_tokens_per_s", "setup_s"}
-    assert _harness_digest() == before
+    assert tiny.harness_digest() == before
 
 
 def test_every_cell_has_its_files():

@@ -2,6 +2,7 @@
 of its own: a configuration, traffic mixes and limits of the same kinds
 as the real cells', and copies of the real metric readers."""
 
+import hashlib
 import json
 import pathlib
 import shutil
@@ -90,3 +91,11 @@ def write(root: pathlib.Path, compute="bfloat16") -> pathlib.Path:
     path = root / "BENCHMARK.json"
     path.write_text(json.dumps(spec))
     return path
+
+
+def harness_digest() -> dict:
+    """The harness's code: every file a new cell, configuration or model
+    module must leave as it is."""
+    return {p: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(BENCH.glob("*.py")) + sorted(
+                BENCH.glob("reference/*.py"))}

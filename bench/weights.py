@@ -3,12 +3,14 @@ the program's whole tree and the reference's one layer at a time are the
 same numbers.
 
 The layout is the program's parameter tree (``spec``): stacked leaves of
-shape (layers, ...) under ``dense_layers`` and ``layers``, the rest
-unstacked. Each (leaf, layer) slice is N(0, 1 / fan_in) (fan_in the
-slice's second-to-last axis), drawn in fp32 on the device from its own
-``torch.Generator`` seeded by a hash of (seed, leaf, layer); norm scales
-are ones. Served weights are the bf16 rounding of those draws (norm
-scales and the router stay fp32, as the program reads them); trained
+shape (layers, ...) under ``dense_layers`` and ``layers``, each layer's
+as the configuration's model module lays it out (``block_leaves``,
+``bench/reference``), the rest unstacked. Each (leaf, layer) slice is
+N(0, 1 / fan_in) (fan_in the slice's second-to-last axis), drawn in fp32
+on the device from its own ``torch.Generator`` seeded by a hash of
+(seed, leaf, layer); norm scales are ones. Served weights are the bf16
+rounding of those draws (the leaves the module marks fp32, such as norm
+scales and the router, stay fp32, as the program reads them); trained
 weights are the fp32 draws.
 """
 
@@ -20,9 +22,6 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-# leaves the program reads in fp32 even when it serves bf16 matrices
-FP32_LEAVES = ("ln1", "ln2", "final_norm", "ckv_norm", "router")
-
 
 @dataclass(frozen=True)
 class Leaf:
@@ -30,6 +29,7 @@ class Leaf:
     shape: Tuple[int, ...]         # one layer's slice (or the whole leaf)
     layers: Optional[int] = None   # stacked over this many layers
     ones: bool = False             # a norm scale
+    fp32: bool = False             # read in fp32 when served in bf16
 
     @property
     def name(self) -> str:
@@ -38,46 +38,6 @@ class Leaf:
     @property
     def stacked_ndim(self) -> int:
         return len(self.shape) + (1 if self.layers is not None else 0)
-
-
-def _block(m: dict, moe_layer: bool) -> List[Tuple[Tuple[str, ...], tuple,
-                                                   bool]]:
-    d, H = m["d_model"], m["n_heads"]
-    out = [(("ln1",), (d,), True), (("ln2",), (d,), True)]
-    if m.get("mla"):
-        a = m["mla"]
-        qk = a["qk_nope_head_dim"] + a["qk_rope_head_dim"]
-        lora = a["kv_lora_rank"]
-        out += [(("attn", "wq"), (d, H * qk), False),
-                (("attn", "wdkv"), (d, lora + a["qk_rope_head_dim"]), False),
-                (("attn", "ckv_norm"), (lora,), True),
-                (("attn", "wuk"), (lora, H * a["qk_nope_head_dim"]), False),
-                (("attn", "wuv"), (lora, H * a["v_head_dim"]), False),
-                (("attn", "wo"), (H * a["v_head_dim"], d), False)]
-    else:
-        hd, KH = m["head_dim"], m["n_kv_heads"]
-        out += [(("attn", "wq"), (d, H * hd), False),
-                (("attn", "wk"), (d, KH * hd), False),
-                (("attn", "wv"), (d, KH * hd), False),
-                (("attn", "wo"), (H * hd, d), False)]
-    if moe_layer:
-        e = m["moe"]
-        split = e.get("expert_split", 1)
-        Ee, f = e["n_experts"] * split, e["d_ff_expert"] // split
-        out += [(("moe", "router"), (d, e["n_experts"]), False),
-                (("moe", "w1"), (Ee, d, f), False),
-                (("moe", "w3"), (Ee, d, f), False),
-                (("moe", "w2"), (Ee, f, d), False)]
-        if e.get("n_shared"):
-            fs = e["d_ff_expert"] * e["n_shared"]
-            out += [(("moe", "shared_w1"), (d, fs), False),
-                    (("moe", "shared_w3"), (d, fs), False),
-                    (("moe", "shared_w2"), (fs, d), False)]
-    else:
-        f = m["d_ff"]
-        out += [(("mlp", "w1"), (d, f), False), (("mlp", "w3"), (d, f), False),
-                (("mlp", "w2"), (f, d), False)]
-    return out
 
 
 def stacks(m: dict) -> List[Tuple[str, int, bool]]:
@@ -89,14 +49,16 @@ def stacks(m: dict) -> List[Tuple[str, int, bool]]:
     return [("layers", m["n_layers"], False)]
 
 
-def spec(m: dict) -> List[Leaf]:
-    """Every leaf of the program's tree, for the model description ``m``."""
+def spec(m: dict, ref) -> List[Leaf]:
+    """Every leaf of the program's tree, for the model description ``m``
+    whose layers the model module ``ref`` lays out."""
     d, V = m["d_model"], m["vocab_size"]
-    out = [Leaf(("embed",), (V, d)), Leaf(("final_norm",), (d,), ones=True),
+    out = [Leaf(("embed",), (V, d)),
+           Leaf(("final_norm",), (d,), ones=True, fp32=True),
            Leaf(("head",), (d, V))]
     for name, n, moe_layer in stacks(m):
-        out += [Leaf((name,) + p, shape, n, ones)
-                for p, shape, ones in _block(m, moe_layer)]
+        out += [Leaf((name,) + p, tuple(shape), n, ones, fp32)
+                for p, shape, ones, fp32 in ref.block_leaves(m, moe_layer)]
     return out
 
 
@@ -117,7 +79,7 @@ def draw(seed: int, leaf: Leaf, layer: Optional[int], device) -> torch.Tensor:
 
 
 def served_dtype(leaf: Leaf, dtype: torch.dtype) -> torch.dtype:
-    return torch.float32 if leaf.path[-1] in FP32_LEAVES else dtype
+    return torch.float32 if leaf.fp32 else dtype
 
 
 def slice_as(seed: int, leaf: Leaf, layer: Optional[int], device,
@@ -128,11 +90,13 @@ def slice_as(seed: int, leaf: Leaf, layer: Optional[int], device,
     return w.to(served_dtype(leaf, dtype)).float()
 
 
-def make_tree(m: dict, seed: int, device, dtype: torch.dtype) -> dict:
-    """The program's whole parameter tree: matrices in ``dtype``, fp32
-    leaves in fp32; stacked leaves filled a layer at a time."""
+def make_tree(leaves: List[Leaf], seed: int, device,
+              dtype: torch.dtype) -> dict:
+    """The program's whole parameter tree of ``leaves`` (``spec``):
+    matrices in ``dtype``, fp32 leaves in fp32; stacked leaves filled a
+    layer at a time."""
     tree: Dict = {}
-    for leaf in spec(m):
+    for leaf in leaves:
         dt = served_dtype(leaf, dtype)
         if leaf.layers is None:
             t = draw(seed, leaf, None, device).to(dt)

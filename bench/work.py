@@ -8,9 +8,10 @@ The kernel formulas are frozen copies of the program's
 program moves the yardstick. A multiply-add counts 2 operations; each
 input byte is counted once and each output byte once.
 
-The model operations (``model_flops``) count what the model needs from
-the configuration's shapes: the matrix products of the active parameters
-(the routed experts a token is sent to, never the capacity padding), the
+The model operations count what the model needs from the
+configuration's shapes: the matrix products of the active parameters
+(a layer's from its model module's ``layer_matmul_params``: the routed
+experts a token is sent to, never the capacity padding), the
 causal attention over the pairs the mask allows, and the LM head only at
 the positions whose logits are read. Training counts the forward three
 times (forward, and the backward's two products); recomputation under
@@ -18,6 +19,15 @@ remat is not counted.
 """
 
 from __future__ import annotations
+
+import functools
+from types import SimpleNamespace
+
+from bench.weights import stacks
+
+# the counts that take the model module first (``bind``)
+MODEL_FLOPS = ("token_matmul_params", "forward_flops", "prefill_flops",
+               "decode_flops", "generate_flops", "train_step_flops")
 
 # NVIDIA H100 SXM data sheet, dense, no sparsity, at the 700 W limit
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s
@@ -86,39 +96,11 @@ def attn_dims(m: dict) -> tuple:
     return m["head_dim"], m["head_dim"]
 
 
-def layer_matmul_params(m: dict, moe_layer: bool) -> int:
-    """Parameters one token multiplies in one layer: the attention's
-    projections and, in an MoE layer, the router, the top-k routed experts
-    and the shared ones (else the dense MLP)."""
-    d, H = m["d_model"], m["n_heads"]
-    if m.get("mla"):
-        a = m["mla"]
-        qk = a["qk_nope_head_dim"] + a["qk_rope_head_dim"]
-        attn = (d * H * qk + d * (a["kv_lora_rank"] + a["qk_rope_head_dim"])
-                + a["kv_lora_rank"] * H * (a["qk_nope_head_dim"]
-                                           + a["v_head_dim"])
-                + H * a["v_head_dim"] * d)
-    else:
-        hd, KH = m["head_dim"], m["n_kv_heads"]
-        attn = 2 * d * H * hd + 2 * d * KH * hd
-    if moe_layer:
-        e = m["moe"]
-        ffn = (d * e["n_experts"]
-               + (e["top_k"] + e.get("n_shared", 0)) * 3 * d
-               * e["d_ff_expert"])
-    else:
-        ffn = 3 * d * m["d_ff"]
-    return attn + ffn
-
-
-def token_matmul_params(m: dict) -> int:
-    """Parameters a token multiplies through every layer (not the head)."""
-    fk = m["moe"].get("first_k_dense", 0) if m.get("moe") else 0
-    n_moe = m["n_layers"] - fk if m.get("moe") else 0
-    return (fk * layer_matmul_params(m, False)
-            + n_moe * layer_matmul_params(m, True)
-            + (0 if m.get("moe") else
-               m["n_layers"] * layer_matmul_params(m, False)))
+def token_matmul_params(ref, m: dict) -> int:
+    """Parameters a token multiplies through every layer (not the head),
+    each layer's from the model module ``ref``."""
+    return sum(n * ref.layer_matmul_params(m, moe_layer)
+               for _, n, moe_layer in stacks(m))
 
 
 def attention_flops(m: dict, pairs: int) -> int:
@@ -127,35 +109,48 @@ def attention_flops(m: dict, pairs: int) -> int:
     return 2 * m["n_layers"] * m["n_heads"] * (qk + v) * pairs
 
 
-def forward_flops(m: dict, tokens: int, pairs: int, head_rows: int) -> int:
+def forward_flops(ref, m: dict, tokens: int, pairs: int,
+                  head_rows: int) -> int:
     """One forward over ``tokens`` positions attending ``pairs`` pairs, the
     head at ``head_rows`` positions."""
-    return (2 * tokens * token_matmul_params(m) + attention_flops(m, pairs)
+    return (2 * tokens * token_matmul_params(ref, m)
+            + attention_flops(m, pairs)
             + 2 * head_rows * m["d_model"] * m["vocab_size"])
 
 
-def prefill_flops(m: dict, batch: int, prompt: int) -> int:
+def prefill_flops(ref, m: dict, batch: int, prompt: int) -> int:
     """A batch of prompts of one length, the head read at the last."""
-    return forward_flops(m, batch * prompt,
+    return forward_flops(ref, m, batch * prompt,
                          batch * attended_pairs(prompt, prompt, True, 0),
                          batch)
 
 
-def decode_flops(m: dict, batch: int, pos: int) -> int:
+def decode_flops(ref, m: dict, batch: int, pos: int) -> int:
     """One decode step of ``batch`` tokens at position ``pos`` (each
     attends pos + 1 keys)."""
-    return forward_flops(m, batch, batch * (pos + 1), batch)
+    return forward_flops(ref, m, batch, batch * (pos + 1), batch)
 
 
-def generate_flops(m: dict, batch: int, prompt: int, n_new: int) -> int:
+def generate_flops(ref, m: dict, batch: int, prompt: int,
+                   n_new: int) -> int:
     """A whole greedy generate: the prefill, then n_new - 1 decode steps."""
-    return prefill_flops(m, batch, prompt) + sum(
-        decode_flops(m, batch, prompt + j) for j in range(n_new - 1))
+    return prefill_flops(ref, m, batch, prompt) + sum(
+        decode_flops(ref, m, batch, prompt + j) for j in range(n_new - 1))
 
 
-def train_step_flops(m: dict, batch: int, seq: int) -> int:
+def train_step_flops(ref, m: dict, batch: int, seq: int) -> int:
     """One training step: three times the forward, the head at every
     position."""
-    return 3 * forward_flops(m, batch * seq,
+    return 3 * forward_flops(ref, m, batch * seq,
                              batch * attended_pairs(seq, seq, True, 0),
                              batch * seq)
+
+
+def bind(ref) -> SimpleNamespace:
+    """This module as a metric's reader sees it (``ctx.work``), its model
+    FLOP counts given the model module ``ref``."""
+    ns = SimpleNamespace(**{k: v for k, v in globals().items()
+                            if not k.startswith("_")})
+    for k in MODEL_FLOPS:
+        setattr(ns, k, functools.partial(globals()[k], ref))
+    return ns
