@@ -1,7 +1,8 @@
 """CPU tests of what a configuration hands the program and the check: its
 model keys, each a field of the program's configuration or refused; its
 own model module (``reference/<name>.py``: leaves, FLOPs, forward) found
-by name; and the three configurations' leaves and FLOPs as pinned."""
+by name; and the three configurations' leaves, FLOPs and program
+configuration as pinned."""
 
 import copy
 import dataclasses
@@ -224,8 +225,9 @@ def test_a_model_module_the_program_disagrees_with_is_refused(tmp_path):
 # the accepted configurations: leaves and FLOPs as the parent counted them
 # ---------------------------------------------------------------------------
 
-# sha256 of the program's configuration (``dataclasses.asdict`` as JSON)
-# served and trained, as the parent's ``port_config`` built it
+# sha256 of the program's configuration (``dataclasses.asdict`` as JSON,
+# over the fields below) served and trained, as ``port_config`` built it
+# when the configurations were accepted
 PINNED_CONFIG = {
     "deepseek-v2-lite-16b": (
         "54e43332054a7a492d2350c2823fbb62c59613eacfffb38ed1203ea303901079",
@@ -238,16 +240,107 @@ PINNED_CONFIG = {
         "e37cf51d536e04b94af9fbc655bcc1e3aa18f8fcf56699be3fe018b0f548f3cf"),
 }
 
+# the fields of the program's configuration classes when the digests were
+# pinned; a field added since must hold its declared default in every
+# accepted configuration, so a new model's field leaves them as they ran
+PINNED_FIELDS = {
+    "ModelConfig": (
+        "arch_id", "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+        "d_ff", "vocab_size", "head_dim", "rope_theta", "swa_window",
+        "tie_embeddings", "norm_eps", "mlp_kind", "moe", "mla", "ssm",
+        "attn_every", "shared_attn", "n_codebooks", "mrope_sections",
+        "param_dtype", "compute_dtype", "remat", "scan_layers",
+        "attn_q_chunk", "attn_schedule", "microbatches", "use_pallas",
+        "bf16_stacked_params", "sp_norm", "ssm_chunk", "ssm_bf16",
+        "moe_impl", "moe_fsdp_out", "grad_compression"),
+    "MoEConfig": (
+        "n_experts", "n_shared", "top_k", "d_ff_expert", "first_k_dense",
+        "capacity_factor", "router_aux_weight"),
+    "MLAConfig": (
+        "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+        "v_head_dim"),
+}
 
-@pytest.mark.parametrize("config", sorted(PINNED_CONFIG))
-def test_the_accepted_configurations_keep_their_program_config(config):
+
+def _pinned_view(obj, path, moved):
+    """``obj`` as ``dataclasses.asdict`` gives it, with only the pinned
+    fields of each configuration class; every other field, at any depth,
+    whose value is not its declared default is named in ``moved``."""
+    if not dataclasses.is_dataclass(obj):
+        return copy.deepcopy(obj)
+    pinned = PINNED_FIELDS[type(obj).__name__]
+    view = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if f.name in pinned:
+            view[f.name] = _pinned_view(v, path + (f.name,), moved)
+            continue
+        default = f.default if f.default_factory is dataclasses.MISSING \
+            else f.default_factory()
+        if default is dataclasses.MISSING or v != default:
+            moved.append(".".join(path + (f.name,)))
+    return view
+
+
+def config_pin(cfg):
+    """(the sha256 of the pinned fields, the other fields away from their
+    defaults)."""
+    moved = []
+    view = _pinned_view(cfg, (), moved)
+    return (hashlib.sha256(json.dumps(view, sort_keys=True).encode())
+            .hexdigest(), moved)
+
+
+def _accepted_config(config, train):
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     entry = next(c for c in spec["configs"] if c["name"] == config)
     m = harness.model_of(json.loads((ROOT / entry["file"]).read_text()))
-    got = tuple(hashlib.sha256(json.dumps(dataclasses.asdict(
-        harness.port_config(m, config, train)), sort_keys=True).encode())
-        .hexdigest() for train in (False, True))
-    assert got == PINNED_CONFIG[config]
+    return harness.port_config(m, config, train)
+
+
+@pytest.mark.parametrize("config", sorted(PINNED_CONFIG))
+def test_the_accepted_configurations_keep_their_program_config(config):
+    got = tuple(config_pin(_accepted_config(config, train))
+                for train in (False, True))
+    assert got == tuple((d, []) for d in PINNED_CONFIG[config])
+
+
+def _with_new_moe_field(cfg, **value):
+    """``cfg`` whose ``MoEConfig`` has a field more, ``n_routed`` (default
+    0), as a later model's field would be added."""
+    from repro_torch.configs.base import MoEConfig
+    cls = dataclasses.make_dataclass(
+        "MoEConfig", [("n_routed", int, dataclasses.field(default=0))],
+        bases=(MoEConfig,), frozen=True)
+    return dataclasses.replace(cfg, moe=cls(**dataclasses.asdict(cfg.moe),
+                                            **value))
+
+
+def test_a_new_field_at_its_default_keeps_the_pin():
+    config = "deepseek-v2-lite-16b"
+    cfg = _with_new_moe_field(_accepted_config(config, False))
+    assert cfg.moe.n_routed == 0
+    assert hashlib.sha256(json.dumps(dataclasses.asdict(cfg), sort_keys=True)
+                          .encode()).hexdigest() != PINNED_CONFIG[config][0]
+    assert config_pin(cfg) == (PINNED_CONFIG[config][0], [])
+
+
+def test_a_new_field_away_from_its_default_fails_the_pin():
+    config = "deepseek-v2-lite-16b"
+    cfg = _with_new_moe_field(_accepted_config(config, False), n_routed=8)
+    assert config_pin(cfg) == (PINNED_CONFIG[config][0], ["moe.n_routed"])
+
+
+@pytest.mark.parametrize("change", [
+    {"norm_eps": 1e-3}, {"moe": {"top_k": 5}}, {"mla": {"kv_lora_rank": 256}},
+])
+def test_an_accepted_configuration_changed_fails_the_pin(change):
+    config = "deepseek-v2-lite-16b-train5"
+    cfg = _accepted_config(config, True)
+    kw = {k: dataclasses.replace(getattr(cfg, k), **v)
+          if isinstance(v, dict) else v for k, v in change.items()}
+    digest, moved = config_pin(dataclasses.replace(cfg, **kw))
+    assert digest != PINNED_CONFIG[config][1] and moved == []
 
 
 # (leaves, sha256 of [[name, shape, layers, ones, fp32], ...], prefill

@@ -2,12 +2,17 @@
 traced run's existing readings as they were, the reductions against hand
 counts, and the recorder pass over the tiny cells."""
 
+import pathlib
+from types import SimpleNamespace
+
 import pytest
 
 import tiny
+from bench import harness, tracing
 from bench import program_spans as ps
-from bench import tracing
 from repro_torch.observe import spans
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
 
 # one generate: a unit range around a prefill span (a MoE dispatch range
 # and its kernel, the arg-max) and two decode spans; the program's spans
@@ -156,3 +161,99 @@ def test_the_recorder_pass_reads_the_tiny_cells(tb32, cell):
     for k, v in m.items():
         assert isinstance(v, float) and v >= 0, k
     assert out["idle_by_span_s"]
+
+
+# ---------------------------------------------------------------------------
+# every program span is a range of the traced run's reduction
+# ---------------------------------------------------------------------------
+
+# a training unit (a step: the loader's copy, a MoE dispatch, the flash
+# backward, the update, a kernel after it, one kernel of the update
+# launched from another thread) and a serving unit (a prefill kernel, the
+# arg-max, a decode step with a MoE experts range)
+STEP_CPU = [(0, 480, tracing.UNIT, 0, 1),
+            (5, 480, "train_step", 0, 1),
+            (6, 20, "train_data", 0, 1),
+            (8, 9, "cudaMemcpyAsync", 1, 1),
+            (30, 60, "moe_dispatch", 0, 1),
+            (32, 33, "cudaLaunchKernel", 2, 1),
+            (80, 90, "repro_torch::flash_bwd", 0, 1),
+            (82, 83, "cudaLaunchKernel", 3, 1),
+            (300, 400, "optim_adamw", 0, 1),
+            (305, 306, "cudaLaunchKernel", 4, 1),
+            (340, 341, "cudaLaunchKernel", 5, 1),
+            (350, 351, "cudaLaunchKernel", 6, 2),
+            (450, 451, "cudaLaunchKernel", 7, 1),
+            (500, 1000, tracing.UNIT, 0, 1),
+            (502, 990, "serve_generate", 0, 1),
+            (505, 600, "serve_prefill", 0, 1),
+            (510, 511, "cudaLaunchKernel", 10, 1),
+            (590, 595, tracing.PICK, 0, 1),
+            (610, 700, "serve_decode", 0, 1),
+            (620, 621, "cudaLaunchKernel", 8, 1),
+            (660, 690, "moe_experts", 0, 1),
+            (665, 666, "cudaLaunchKernel", 9, 1)]
+STEP_DEV = [(10, 14, "Memcpy HtoD", 1), (40, 70, "scan", 2),
+            (100, 200, "flash_bwd", 3), (310, 330, "adam_add", 4),
+            (345, 380, "adam_sqrt", 5), (390, 395, "other", 6),
+            (460, 470, "after", 7), (520, 560, "prefill_k", 10),
+            (630, 650, "k", 8), (670, 680, "experts", 9)]
+
+
+def test_the_readings_of_a_trace_with_every_span_prefix_are_pinned():
+    d = tracing.reduce(STEP_CPU, STEP_DEV, 1e-6)
+    # what the reduction read before it took every prefix, to the bit
+    assert (d.busy_s, d.window_s) == (274 * 1e-9, 1e-6)
+    assert [d.range_s("moe_dispatch"), d.range_s("moe_experts"),
+            d.range_s("moe_experts", "decode"),
+            d.range_s("moe_dispatch", "decode")] == \
+        [30 * 1e-9, 10 * 1e-9, 10 * 1e-9, None]
+    assert d.op_s("repro_torch::flash_bwd") == 100 * 1e-9
+    assert d.op_s("repro_torch::flash_fwd") == 0.0
+    assert d.decode_launches() == 2
+    assert d.breakdown == {
+        "device_ops": [[n, t * 1e-9] for n, t in [
+            ("flash_bwd", 100), ("prefill_k", 40), ("adam_sqrt", 35),
+            ("scan", 30), ("adam_add", 20), ("k", 20), ("after", 10),
+            ("experts", 10), ("other", 5), ("Memcpy HtoD", 4)]],
+        "idle_gaps": [[n, t * 1e-9] for n, t in [
+            ("train_step", 110), ("serve_prefill", 70), ("optim_adamw", 65),
+            ("train_step", 50), ("train_step", 30), ("train_data", 26),
+            ("serve_decode", 20), ("optim_adamw", 15),
+            ("optim_adamw", 10)]]}
+    # the program's other spans: the kernels launched inside each, on its
+    # thread (the update's kernel from thread 2 is not the span's)
+    assert d.range_s("optim_adamw") == (20 + 35) * 1e-9
+    assert d.range_s("train_data") == 4 * 1e-9
+    assert d.range_s("train_step") == (4 + 30 + 100 + 20 + 35 + 10) * 1e-9
+    assert d.range_s("serve_prefill") == 40 * 1e-9
+    assert d.range_s("serve_decode") == (20 + 10) * 1e-9
+    assert d.range_s("serve_decode", "decode") == (20 + 10) * 1e-9
+    assert d.range_s("serve_prefill", "decode") is None
+    # as the recorder pass's reduction reads them
+    for name in ("optim_adamw", "train_step", "serve_decode"):
+        assert d.range_s(name) == ps.kernel_s_under(STEP_CPU, STEP_DEV, name)
+
+
+def test_a_span_under_a_new_prefix_is_a_range(monkeypatch):
+    cpu = STEP_CPU + [(302, 330, "mla_qlora", 0, 1)]
+    assert tracing.reduce(cpu, STEP_DEV, 1e-6).range_s("mla_qlora") is None
+    monkeypatch.setattr(spans, "PREFIXES", spans.PREFIXES + ("mla_",))
+    d = tracing.reduce(cpu, STEP_DEV, 1e-6)
+    assert d.range_s("mla_qlora") == 20 * 1e-9
+    assert d.busy_s == 274 * 1e-9
+
+
+def test_optimizer_ms_reads_the_update_a_step():
+    read = harness.reader(ROOT / "bench", "optimizer_ms.train")
+    d = tracing.reduce(STEP_CPU, STEP_DEV, 1e-6)
+    units = [{"steps": 4}, {"steps": 4}]
+    ctx = SimpleNamespace(trace=d, kind="train", units=units)
+    assert read(ctx) == 1e3 * (20 + 35) * 1e-9 / 8
+    # nothing to read: no trace, a serving cell, no update in the trace
+    assert read(SimpleNamespace(trace=None, kind="train",
+                                units=units)) is None
+    assert read(SimpleNamespace(trace=d, kind="serve", units=units)) is None
+    bare = [e for e in STEP_CPU if e[2] != "optim_adamw"]
+    assert read(SimpleNamespace(trace=tracing.reduce(bare, STEP_DEV, 1e-6),
+                                kind="train", units=units)) is None

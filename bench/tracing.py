@@ -10,7 +10,8 @@ read from it.
   profiler's correlation), and so to every host range that operator ran
   in, on its thread: ``range_s(name)`` is the device time of the kernels
   launched inside the ``record_function`` range ``name`` (the program's
-  ``moe_dispatch``, ``moe_experts``, ...), ``op_s(op)`` of those launched
+  spans, of every prefix in ``repro_torch.observe.spans.PREFIXES``:
+  ``moe_dispatch``, ``optim_adamw``, ...), ``op_s(op)`` of those launched
   inside the operator ``op`` (``repro_torch::flash_fwd``, ...);
 * the decode phase of a generate (the harness's ``bench.unit`` range
   around each call): what is launched after its first ``aten::argmax``,
@@ -118,9 +119,13 @@ def reduce(cpu, dev, window_s: float) -> SimpleNamespace:
     dev = [d for d in dev if d[2] not in marks]
     dev.sort()
     launch = {c: (a, tid) for a, _, _, c, tid in cpu if c}
+    # the program's spans of every prefix it names, read at run time, so a
+    # span under a new prefix is a range without an edit here
+    from repro_torch.observe.spans import PREFIXES
+    ranges = ("moe_", "repro_torch::") + tuple(PREFIXES)
     spans: Dict[str, _Spans] = {}
     for a, b, n, _, tid in cpu:
-        if n == UNIT or n.startswith(("moe_", "repro_torch::")):
+        if n == UNIT or n.startswith(ranges):
             spans.setdefault(n, _Spans()).add(a, b, tid)
     for s in spans.values():
         s.done()
