@@ -7,17 +7,20 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``:
 
 Phases (any failure raises, and the script exits nonzero):
 
-1. the card's name, count and power limit; build the six CUDA kernel
+1. the card's name, count and power limit; build the seven CUDA kernel
    sources (flash attention forward and backward, paged attention, the
    Mamba2 SSD chunk step and its backward, the MoE dispatch's slot
-   positions) from ``src/repro_torch/csrc``
-   (one ``nvcc`` per
-   source, in parallel) and print the compiler's register / shared-memory
+   positions, AdamW's gradient norm and update) from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel) and print the compiler's register / shared-memory
    / spill report (the flash forward's MLA instance, q/k 192 and v 128,
    among them), with the flash backward's CTA shapes at each head dim;
 2. each kernel against its plain PyTorch version on CUDA tensors: the
    MoE slot kernel bit for bit at the benchmark cells' dispatch calls
    (``moe_slot_shapes``; uniform draws and every slot on one expert), the
+   AdamW update kernel bit for bit given the plain version's scale, lr
+   and bias corrections (fp32 and bf16, odd sizes, views off the vector
+   boundary; then deepseek-v2-lite's 29 training leaves, leaf by leaf)
+   and its norm within 1e-6 of the plain global norm, the
    shape sweeps of ``tests/test_kernels.py``, a zero-length decode row, a
    permuted page table (bit-identical output, also at both serving shapes
    and at a page count that is not a multiple of the split), the paged
@@ -94,9 +97,10 @@ Phases (any failure raises, and the script exits nonzero):
    and the ring's labels: 56 and 28 flash launches) and
    ``musicgen-large`` (on (2, 4096, 4) tokens reshaped from ring reads:
    96 and 48) and ``mixtral-8x22b`` (1 of its 56 layers, one microbatch:
-   2 and 1); the counters must equal what ``train_launches`` derives
-   from each config. For stablelm, qwen2-vl and musicgen (2 layers),
-   mixtral (1 layer; the plain step routes as the kernel step did) and
+   2 and 1), and each step's AdamW (a sum of squares and an update a
+   table of 64 fp32 leaves, and one finish); the counters must equal
+   what ``train_launches`` derives from each config. For stablelm,
+   qwen2-vl and musicgen (2 layers), mixtral (1 layer; the plain step routes as the kernel step did) and
    zamba2 (one group: 6 Mamba2 layers and the tied block), one step's
    loss and gradients at full width are held against the same step with
    attention and the SSD through autograd of their plain versions, and
@@ -124,8 +128,9 @@ Phases (any failure raises, and the script exits nonzero):
    tokens, with equal paged and SSD launches;
 4. device times (CUDA events over launches queued behind a held stream,
    after warm-up) of each kernel (the MoE slot kernel alone at the cells'
-   dispatch calls), its plain version, its bound and, where
-   one PyTorch call computes the same function, that call as a yardstick
+   dispatch calls; AdamW's two passes at deepseek-v2-lite's 29 training
+   leaves, beside ``torch._fused_adamw_``), its plain version, its bound
+   and, where one PyTorch call computes the same function, that call as a yardstick
    the port never calls, at the serving shapes (paged at the first and
    last decode lengths, 33 and 34 pages, with its cluster shape, also at
    qwen2-vl's and mixtral's G = 6; flash with its CTA shape, also at GQA
@@ -151,7 +156,8 @@ Phases (any failure raises, and the script exits nonzero):
 5. where the time goes: ``torch.profiler`` over one prefill and eight
    decode steps of each model (of the three large dense configs,
    granite-34b only), and over one train step of each training
-   run (forward and backward, then the optimizer), device busy share,
+   run (forward and backward; the optimizer by CUDA events), device
+   busy share,
    kernel time by kind, the SSD backward's kernels one by one and the MoE
    layers' time by stage (router, dispatch, experts, combine, shared);
 6. the dry run (``launch/dryrun.py``) in subprocesses started together,
@@ -210,6 +216,10 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data import (RingLoader, TokenStore,        # noqa: E402
                               make_synthetic_corpus)
 from repro_torch.kernels import _build                        # noqa: E402
+from repro_torch.kernels.adamw import kernel as adamw_kernel  # noqa: E402
+from repro_torch.kernels.adamw.ref import (adamw_norm_ref,    # noqa: E402
+                                           adamw_sumsq_ref,
+                                           adamw_update_ref, grad_norm_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as flash_ops        # noqa
 from repro_torch.kernels.flash_attention.ref import (        # noqa: E402
@@ -274,7 +284,10 @@ KERNELS = {"flash_attention_fwd": flash_kernel.flash_attention_fwd,
            "paged_attention": paged_kernel.paged_attention,
            "ssd_chunk_call": ssd_kernel.ssd_chunk_call,
            "ssd_chunk_bwd": ssd_kernel.ssd_chunk_bwd,
-           "moe_slots": slots_kernel.moe_slots}
+           "moe_slots": slots_kernel.moe_slots,
+           "adamw_sumsq": adamw_kernel.adamw_sumsq,
+           "adamw_norm": adamw_kernel.adamw_norm,
+           "adamw_update_": adamw_kernel.adamw_update_}
 # the flash backward against the plain block-recompute backward: the same
 # fp32 arithmetic from the same inputs, so TOLS (bf16: one rounding of the
 # outputs); the lse output is fp32 in both (measured <= 9.5e-7)
@@ -1114,9 +1127,84 @@ def check_moe_slots(rng, dev):
                 f"{BG * N}")
 
 
+ADAMW_CONSTS = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def adamw_train_shapes():
+    """The leaf shapes of deepseek-v2-lite's training configuration
+    (``train_config``: 29 fp32 leaves, 2.84 B elements, the benchmark's
+    ``dsv2lite-train-4k``)."""
+    return [tuple(a.shape) for a in tree_leaves(lm.abstract_params(
+        train_config("deepseek-v2-lite-16b")))]
+
+
+def check_adamw(dev):
+    """The AdamW update kernel bit for bit its plain version given the same
+    scale, lr and bias corrections (fp32 and bf16 p and g, leaves of 1 to
+    3 dims, sizes no multiple of 4, a view off the vector boundary), and
+    the norm within 1e-6 of the plain global norm; then at the training
+    configuration's own leaves: the norm over the whole set, and the
+    update leaf by leaf against clones, bit for bit."""
+    gen = torch.Generator(dev).manual_seed(0)
+    shapes = [(3,), (4097,), (33, 65), (2, 3, 4099), (64, 2048)]
+    t = torch.tensor(3.0, device=dev)
+    lr, bc1, bc2 = (torch.tensor(3e-3, device=dev), 1 - torch.pow(0.9, t),
+                    1 - torch.pow(0.95, t))
+
+    def update_both(p, g, m, v, scale):
+        ref = [[x.clone() for x in xs] for xs in (p, m, v)]
+        adamw_kernel.adamw_update_(p, g, m, v, scale, lr, bc1, bc2,
+                                   **ADAMW_CONSTS)
+        adamw_update_ref(ref[0], g, ref[1], ref[2], scale, lr, bc1, bc2,
+                         **ADAMW_CONSTS)
+        return all(torch.equal(a, b) for xs, ys in zip((p, m, v), ref)
+                   for a, b in zip(xs, ys))
+
+    def norm_err(g):
+        gn, scale = adamw_kernel.adamw_norm(adamw_kernel.adamw_sumsq(g), 1.0)
+        return abs(float(gn) / float(grad_norm_ref(g)) - 1), scale
+
+    for dt in (torch.float32, torch.bfloat16):
+        for off in (0, 1):
+            def leaf(shape, dtype, k=1.0):
+                n = int(np.prod(shape))
+                return (k * torch.randn(n + off, generator=gen, device=dev)) \
+                    .to(dtype)[off:].view(shape)
+            p = [leaf(s, dt) for s in shapes]
+            g = [leaf(s, dt, 3.0) for s in shapes]
+            m = [leaf(s, torch.float32, 0.1) for s in shapes]
+            v = [leaf(s, torch.float32, 0.1).square() for s in shapes]
+            rel, scale = norm_err(g)
+            same = update_both(p, g, m, v, scale)
+            if not same or rel > 1e-6:
+                raise AssertionError(f"adamw {dt} offset {off}: update "
+                                     f"bit-identical {same}, norm rel err "
+                                     f"{rel:.2e}")
+            log(f"  adamw {dt} (offset {off}): update bit-identical, norm "
+                f"rel err {rel:.2e}")
+    shapes = adamw_train_shapes()
+    g = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    rel, scale = norm_err(g)
+    same = []
+    for s, gi in zip(shapes, g):
+        p, m = (torch.randn(s, generator=gen, device=dev) for _ in range(2))
+        same.append(update_both([p], [gi], [m], [m.square()], scale))
+        del p, m
+    n = sum(x.numel() for x in g)
+    del g
+    free_card()
+    if not all(same) or rel > 1e-6:
+        raise AssertionError(f"adamw at the training leaves: update "
+                             f"bit-identical {same}, norm rel err {rel:.2e}")
+    log(f"  adamw at deepseek-v2-lite's training leaves ({len(shapes)} fp32 "
+        f"leaves, {n} elements): update bit-identical leaf by leaf, norm "
+        f"rel err {rel:.2e}")
+
+
 def phase_kernels_vs_plain(dev):
     rng = np.random.default_rng(0)
     check_moe_slots(rng, dev)
+    check_adamw(dev)
     for B, S, H, KH, hd, win in FLASH_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             check_flash(rng, dev, B, S, H, KH, hd, dt, win=win)
@@ -1372,34 +1460,44 @@ def expected_launches(cfg):
     PROMPT tokens, then NEW - 1 decode steps (a step routes its BATCH
     tokens as one group)."""
     L, steps = cfg.n_layers, NEW - 1
-    slots = slot_launches(cfg, PROMPT) + steps * slot_launches(cfg, BATCH)
+    out = {n: 0 for n in KERNELS}
+    out["moe_slots"] = slot_launches(cfg, PROMPT) \
+        + steps * slot_launches(cfg, BATCH)
     if cfg.family in ATTN_ONLY:
-        return {"flash_attention_fwd": L, "flash_attention_bwd": 0,
-                "paged_attention": 0 if cfg.mla else L * steps,
-                "ssd_chunk_call": 0, "ssd_chunk_bwd": 0, "moe_slots": slots}
+        out.update(flash_attention_fwd=L,
+                   paged_attention=0 if cfg.mla else L * steps)
+        return out
     G = L // cfg.attn_every if cfg.family == "hybrid" else 0
-    return {"flash_attention_fwd": G, "flash_attention_bwd": 0,
-            "paged_attention": G * steps, "ssd_chunk_call": L * (1 + steps),
-            "ssd_chunk_bwd": 0, "moe_slots": slots}
+    out.update(flash_attention_fwd=G, paged_attention=G * steps,
+               ssd_chunk_call=L * (1 + steps))
+    return out
 
 
-def train_launches(cfg, steps):
+def train_launches(cfg, steps, optimizer=True):
     """What ``steps`` train steps launch: each microbatch runs every layer's
     forward once, and again in the backward when the layer is
     rematerialised, and its backward once; attention is each dense layer,
     or the tied block after every ``attn_every`` Mamba2 layers; the slot
-    kernel runs in each MoE layer's forward."""
+    kernel runs in each MoE layer's forward; with the ``optimizer``, each
+    step's AdamW sums the squares of the fp32 gradients and updates the
+    leaves once a table of ``table_leaves()`` leaves, and finishes the
+    norm once."""
     mb, fwd = max(cfg.microbatches, 1), 2 if cfg.remat else 1
     L = cfg.n_layers
     attn_calls = {"dense": L, "vlm": L, "audio": L, "moe": L,
                   "hybrid": L // max(cfg.attn_every, 1), "ssm": 0}[cfg.family]
     ssd_calls = 0 if cfg.family in ATTN_ONLY else L
     n = steps * mb
+    tables = -(-len(tree_leaves(lm.abstract_params(cfg)))
+               // adamw_kernel.table_leaves())
     return {"flash_attention_fwd": fwd * attn_calls * n,
             "flash_attention_bwd": attn_calls * n, "paged_attention": 0,
             "ssd_chunk_call": fwd * ssd_calls * n,
             "ssd_chunk_bwd": ssd_calls * n,
-            "moe_slots": fwd * slot_launches(cfg, TRAIN_S) * n}
+            "moe_slots": fwd * slot_launches(cfg, TRAIN_S) * n,
+            "adamw_sumsq": tables * steps * optimizer,
+            "adamw_norm": steps * optimizer,
+            "adamw_update_": tables * steps * optimizer}
 
 
 def phase_ring_cache(dev, window=None, steps=33):
@@ -1945,8 +2043,8 @@ def phase_train(dev, corpus, ckpt_dir, arch):
 
 def phase_train_times(dev, arch, cfg, loop, corpus):
     """The train step's device and host time after the run's warm-up,
-    tokens/s, and where its time goes (torch.profiler over one step:
-    forward + backward, then the optimizer)."""
+    tokens/s, and where its time goes (torch.profiler over one step's
+    forward + backward, then the optimizer by CUDA events)."""
     batch = card_batch(cfg, corpus, dev)
     reps = 3
     torch.cuda.synchronize()
@@ -1979,10 +2077,20 @@ def phase_train_times(dev, arch, cfg, loop, corpus):
     log(f"where the time goes [train {arch}] (torch.profiler, one step):")
     wall, kern, host = _profile(fwd_bwd)
     _report("forward + backward", wall, kern, host)
-    wall_o, kern_o, host_o = _profile(optimizer)
-    _report("optimizer (AdamW)", wall_o, kern_o, host_o)
+    # the optimizer's few launches by CUDA events: a profiler window
+    # opened right after the forward's and backward's tens of thousands of
+    # kernels came back without them (mamba2, zamba2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    optimizer()
+    e1.record()
+    torch.cuda.synchronize()
+    wall_o = (time.perf_counter() - t0) * 1e3
+    busy_o = e0.elapsed_time(e1)
+    log(f"  optimizer (AdamW): wall {wall_o:.3f} ms, {busy_o:.3f} ms by "
+        f"CUDA events")
     busy = sum(us for us, _ in kern.values()) / 1e3
-    busy_o = sum(us for us, _ in kern_o.values()) / 1e3
     share = 100 * (busy + busy_o) / (wall + wall_o)
     log(f"  train step: wall {wall + wall_o:.3f} ms, device busy "
         f"{busy + busy_o:.3f} ms ({share:.1f}%), optimizer {busy_o:.3f} ms "
@@ -2113,7 +2221,7 @@ def phase_train_grads(dev, corpus, arch):
         f"{len(flips)} of {n_routed} tokens, all near-ties (largest "
         f"relative gap {max((g for _, _, g in flips), default=0.0):.1e} <= "
         f"{gap_tol:.1e})")
-    want = train_launches(cfg, 1)
+    want = train_launches(cfg, 1, optimizer=False)
     if launches != want:
         raise AssertionError(f"{arch} {cfg.n_layers}-layer step launches "
                              f"{launches} != {want}")
@@ -2918,12 +3026,63 @@ def time_ssd_bwd(rng, dev, B, S, nh, hp, ns, cl, what):
     return ms, plain_ms, None, bnd
 
 
+def time_adamw(dev):
+    """Device ms of one AdamW step's two passes (the norm with its finish,
+    then the update) at the training configuration of deepseek-v2-lite
+    (``train_config``: 29 fp32 leaves, 2.84 B elements, the benchmark's
+    ``dsv2lite-train-4k``), beside the plain version (the norm and the
+    update the optimizer ran before the kernels), ``torch._fused_adamw_``
+    over the same leaves as a yardstick (the port never calls it; it
+    decays every leaf and neither clips nor reads a norm) and the bound of
+    32 B an element: (ms, plain_ms, library_ms, bound), and each pass's
+    ms."""
+    shapes = adamw_train_shapes()
+    gen = torch.Generator(dev).manual_seed(0)
+    p, g, m = ([torch.randn(s, generator=gen, device=dev) for s in shapes]
+               for _ in range(3))
+    v = [x.square() for x in m]
+    n = sum(x.numel() for x in p)
+    t = torch.tensor(3.0, device=dev)
+    lr, bc1, bc2 = (torch.tensor(3e-4, device=dev), 1 - torch.pow(0.9, t),
+                    1 - torch.pow(0.95, t))
+    scale = adamw_kernel.adamw_norm(adamw_kernel.adamw_sumsq(g), 1.0)[1]
+    norm_ms = cuda_ms(lambda i: adamw_kernel.adamw_norm(
+        adamw_kernel.adamw_sumsq(g), 1.0), 1, 20)
+    update_ms = cuda_ms(lambda i: adamw_kernel.adamw_update_(
+        p, g, m, v, scale, lr, bc1, bc2, **ADAMW_CONSTS), 1, 10)
+
+    def plain(i):
+        _, sc = adamw_norm_ref(adamw_sumsq_ref(g), 1.0)
+        adamw_update_ref(p, g, m, v, sc, lr, bc1, bc2, **ADAMW_CONSTS)
+    plain_ms = cuda_ms(plain, 1, 3, warmup=1)
+    steps = [torch.tensor(3.0, device=dev) for _ in p]
+    lib_ms = cuda_ms(lambda i: torch._fused_adamw_(
+        p, g, m, v, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False), 1, 10)
+    nbytes = work.adamw_sumsq_work(n)[0] + work.adamw_update_work(n)[0]
+    bnd = bound(nbytes, 0, torch.float32)
+    ms = norm_ms + update_ms
+    log(f"  adamw at deepseek-v2-lite's training leaves ({len(p)} leaves, "
+        f"{n} fp32 elements, {nbytes / 1e9:.1f} GB): norm {norm_ms:.3f} ms "
+        f"+ update {update_ms:.3f} ms = {ms:.3f} ms ({100 * bnd[0] / ms:.1f}%"
+        f" of the bound {bnd[0]:.3f} ms, {bnd[1]}; "
+        f"{nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms, "
+        f"torch._fused_adamw_ {lib_ms:.3f} ms; launches a step: sum of "
+        f"squares {-(-len(p) // adamw_kernel.table_leaves())}, finish 1, "
+        f"update {-(-len(p) // adamw_kernel.table_leaves())}")
+    del p, g, m, v
+    free_card()
+    return (ms, plain_ms, lib_ms, bnd), {"norm_ms": norm_ms,
+                                         "update_ms": update_ms}
+
+
 def phase_kernel_times(dev):
     rng = np.random.default_rng(1)
     log("kernel times at the serving and training shapes (device ms a "
         "call: CUDA events over back-to-back calls queued behind a held "
         "stream):")
     out = {"moe_slots": time_moe_slots(rng, dev)}
+    out["adamw"] = time_adamw(dev)
     out["flash_attention_fwd"] = time_flash(rng, dev, 32, 32, 64)
     time_flash(rng, dev, 32, 32, 80)                  # zamba2-2.7b
     out["flash_attention_fwd train"] = time_flash(
@@ -3589,6 +3748,19 @@ def main() -> int:
                                     bound_ms=bnd[0], bound_by=bnd[1])
                         for label, (ms, plain_ms, _, bnd)
                         in times["moe_slots"].items()}})
+    (ms, plain_ms, lib_ms, (bound_ms, bound_by)), passes = times["adamw"]
+    by_path = {f"{a} {k}": launches[a][k] for a in paths
+               for k in ("adamw_sumsq", "adamw_norm", "adamw_update_")
+               if launches[a][k]}
+    log(f"adamw launches by path (counters): {by_path}")
+    kernels.append({"name": "adamw", "route": "cuda",
+                    "source": "src/repro_torch/csrc/adamw.cu",
+                    "replaces": "src/repro/optim/adamw.py:56",
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "bit_identical": True, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, **passes})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "serve": serve_times,
                       "train": train_times, "pager": pager,

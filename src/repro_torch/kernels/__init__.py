@@ -31,20 +31,24 @@ def reject_dtensor(*tensors) -> None:
 _LIB = torch.library.Library("repro_torch", "DEF")
 
 
-def kernel_op(name: str, route, fake, flops=None):
+def kernel_op(name: str, route, fake, flops=None, mutates_args=()):
     """Register ``route`` as the torch op ``repro_torch::<name>``
     (``torch.ops.repro_torch.<name>``, its schema inferred from ``route``'s
-    annotations): its CPU and CUDA implementation, ``route``, runs the
-    plain version on a CPU tensor and the hand-written kernel's wrapper on
-    a CUDA tensor; ``fake``, the output shapes, dtypes and strides alone,
+    annotations, the arguments named in ``mutates_args`` declared written
+    in place): its CPU and CUDA implementation, ``route``, runs the plain
+    version on a CPU tensor and the hand-written kernel's wrapper on a
+    CUDA tensor; ``fake``, the output shapes, dtypes and strides alone,
     which ``FakeTensorMode`` runs in place of either on a fake tensor of
     any device (a trace takes the card's route and launches nothing); and
     ``flops``, ``FlopCounterMode``'s formula (of shapes, from
     ``roofline.work``). Returns a function that calls the op, except on a
-    ``meta`` tensor, which it hands to ``route`` itself: the kernel's
-    wrapper then refuses it, as it refuses any tensor off the card."""
+    ``meta`` tensor (the first argument, or the first tensor of a first
+    argument that is a list), which it hands to ``route`` itself: the
+    kernel's wrapper then refuses it, as it refuses any tensor off the
+    card."""
     from torch.utils.flop_counter import register_flop_formula
-    _LIB.define(name + torch.library.infer_schema(route, mutates_args=()))
+    _LIB.define(name + torch.library.infer_schema(
+        route, mutates_args=mutates_args))
     for key in ("CPU", "CUDA"):
         _LIB.impl(name, route, key)
     torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
@@ -53,7 +57,8 @@ def kernel_op(name: str, route, fake, flops=None):
         register_flop_formula(packet)(flops)
 
     def call(*args):
-        if args[0].device.type == "meta":
+        first = args[0][0] if isinstance(args[0], list) else args[0]
+        if first.device.type == "meta":
             return route(*args)
         return packet(*args)
     return call

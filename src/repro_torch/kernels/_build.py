@@ -28,7 +28,7 @@ from typing import Dict, Iterable
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_fwd", "flash_bwd", "paged_attn", "ssd_chunk", "ssd_bwd",
-           "moe_slots")
+           "moe_slots", "adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -148,6 +148,26 @@ def moe_slots_work(BG, N, Ee):
     return BG * N * (8 + 8 + 1 + 8) + BG * Ee * 4, 0
 
 
+def adamw_sumsq_work(n, g_esz=4):
+    """The norm pass: each of ``n`` gradient elements read once (4 B in
+    fp32, 2 in bf16); the partials and the two scalars are noise.
+    Elementwise: no operations counted."""
+    return n * g_esz, 0
+
+
+def adamw_norm_work(n, esz=8):
+    """The finish: ``n`` partials read (fp64 on the card), gnorm and the
+    clipping factor written. Elementwise: no operations counted."""
+    return n * esz + 8, 0
+
+
+def adamw_update_work(n, p_esz=4, g_esz=4):
+    """The update pass: p, g, m and v read, p, m and v written, m and v in
+    fp32: 28 B an element in fp32, 2 B less for each of p's two moves and
+    g's read in bf16. Elementwise: no operations counted."""
+    return n * (2 * p_esz + g_esz + 16), 0
+
+
 def _shape(t):
     return tuple(t.shape) if hasattr(t, "shape") else tuple(t)
 
@@ -193,9 +213,18 @@ def op_work(name: str, args) -> tuple:
     if name == "moe_slots":
         BG, N = _shape(args[0])
         return moe_slots_work(BG, N, args[1])
+    if name == "adamw_sumsq":
+        return sum(adamw_sumsq_work(g.numel(), _esz(g))[0]
+                   for g in args[0]), 0
+    if name == "adamw_norm":
+        return adamw_norm_work(args[0].numel(), _esz(args[0]))
+    if name == "adamw_update_":
+        return sum(adamw_update_work(p.numel(), _esz(p), _esz(g))[0]
+                   for p, g in zip(args[0], args[1])), 0
     raise KeyError(name)
 
 
-__all__ = ["PEAK_FLOPS", "TF32_FLOPS", "attended_pairs", "bound_ms",
+__all__ = ["PEAK_FLOPS", "TF32_FLOPS", "adamw_norm_work",
+           "adamw_sumsq_work", "adamw_update_work", "attended_pairs", "bound_ms",
            "flash_bwd_work", "flash_fwd_work", "moe_slots_work", "op_work",
            "paged_work", "ssd_bwd_mma_work", "ssd_bwd_work", "ssd_work"]

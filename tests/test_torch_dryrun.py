@@ -121,7 +121,8 @@ def test_dryrun_traces_smoke_cells(traced, arch, kind, mesh):
         == sum(v["count"] for v in r["collectives"].values())
     mem = r["memory"]
     assert mem["peak_est_bytes"] > mem["params_bytes"] + mem["inputs_bytes"]
-    want_ops = {"train": {"flash_fwd_lse", "flash_bwd"},
+    want_ops = {"train": {"flash_fwd_lse", "flash_bwd", "adamw_sumsq",
+                          "adamw_norm", "adamw_update_"},
                 "prefill": {"flash_fwd"},
                 "decode": {"paged_attention_lse"}}[kind]
     if arch == "zamba2-2.7b":
@@ -133,6 +134,45 @@ def test_dryrun_traces_smoke_cells(traced, arch, kind, mesh):
     assert t["t_bound_s"] == max(t["t_compute_s"], t["t_memory_s"],
                                  t["t_collective_s"]) > 0
     assert r["mesh_device"] == "cpu" and r["useful_flops_frac"] > 0
+
+
+def test_dryrun_counts_the_adamw_ops_at_their_work():
+    """A train step traced on plain fake tensors (one device, no mesh)
+    counts the optimizer as the three AdamW ops, once each, at
+    ``roofline.work``'s bytes: 4 B an fp32 gradient element for the sum
+    of squares, its partials for the finish (on CPU tensors each leaf's
+    fp32 sum), 28 B an element for the update. (The mesh cells above take
+    the same ops on their local shards.)"""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.roofline import work
+    from repro_torch.roofline.counters import StepCounter
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config("stablelm-1.6b")
+    with FakeTensorMode():
+        params = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype),
+                          lm.abstract_params(cfg))
+        toks = torch.zeros((2, S), dtype=torch.int32)
+        counter = StepCounter()
+        with counter:
+            make_train_step(cfg)(params, adamw_init(params),
+                                 {"tokens": toks, "labels": toks})
+    n = sum(p.numel() for p in tree_leaves(params))
+    ops = counter.kernel_ops()
+    assert {"flash_fwd_lse", "flash_bwd"} < set(ops)
+    assert ops["adamw_sumsq"] == {"calls": 1, "flops": 0,
+                                  "bytes": work.adamw_sumsq_work(n)[0]}
+    assert ops["adamw_norm"] == {
+        "calls": 1, "flops": 0,
+        "bytes": work.adamw_norm_work(len(tree_leaves(params)), 4)[0]}
+    assert ops["adamw_update_"] == {"calls": 1, "flops": 0,
+                                    "bytes": work.adamw_update_work(n)[0]}
+    assert work.adamw_update_work(n)[0] == 28 * n
 
 
 def _jax_dots(arch, kind):

@@ -610,6 +610,239 @@ def test_moe_slots_kernel_counts_its_launches(cuda):
         slots_kernel.moe_slots(eid, 1 << 20, 8)
 
 
+# ---------------------------------------------------------------------------
+# AdamW: the norm and update kernels against the plain version
+# ---------------------------------------------------------------------------
+
+# sizes no multiple of 4, one and several chunks of 4,096 elements, 0-d,
+# 1-d (no decay) and 2-3-d (decayed) leaves, an empty one
+ADAMW_SHAPES = [(1,), (3,), (), (4097,), (33, 65), (2, 3, 4099),
+                (3 * 4096 + 5,), (0, 5), (64, 256)]
+
+
+def _adamw_leaves(dev, shapes, p_dtype, g_dtype, seed, offset=0):
+    """(p, g, m, v) lists: p and g of their dtypes, m and v fp32 (v > 0).
+    With ``offset`` every tensor is a contiguous view that starts
+    ``offset`` elements into its storage (off the 16-B vector
+    boundary)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(shape, dtype, fn):
+        n = int(np.prod(shape))
+        buf = torch.from_numpy(fn(n + offset).astype(np.float32)).to(dev,
+                                                                      dtype)
+        return buf[offset:].view(shape)
+    out = ([], [], [], [])
+    for shape in shapes:
+        out[0].append(leaf(shape, p_dtype, rng.standard_normal))
+        out[1].append(leaf(shape, g_dtype,
+                           lambda n: 3 * rng.standard_normal(n)))
+        out[2].append(leaf(shape, torch.float32,
+                           lambda n: 0.1 * rng.standard_normal(n)))
+        out[3].append(leaf(shape, torch.float32,
+                           lambda n: 0.01 * rng.random(n)))
+    return out
+
+
+def _adamw_scalars(dev, step=3, scale=0.37, lr=3e-3):
+    t = torch.tensor(float(step), device=dev)
+    return (torch.tensor(scale, device=dev), torch.tensor(lr, device=dev),
+            1 - torch.pow(0.9, t), 1 - torch.pow(0.95, t))
+
+
+ADAMW_CONSTS = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_adamw_update_kernel_matches_plain_bit_for_bit(cuda, p_dtype,
+                                                       g_dtype, offset):
+    """Given the same scale, lr, bc1 and bc2, the update kernel writes the
+    plain version's p, m and v on the card, bit for bit: fp32 and bf16 p
+    and g, sizes no multiple of 4, views off the vector boundary (the
+    scalar path), decay on two or more dims only, an empty leaf."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.adamw.ref import adamw_update_ref
+    p, g, m, v = _adamw_leaves(cuda, ADAMW_SHAPES, p_dtype, g_dtype, 5,
+                               offset)
+    ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+    scalars = _adamw_scalars(cuda)
+    adamw_ops.adamw_update_(p, g, m, v, *scalars, **ADAMW_CONSTS)
+    adamw_update_ref(ref[0], g, ref[1], ref[2], *scalars, **ADAMW_CONSTS)
+    torch.cuda.synchronize()
+    for name, got, want in zip("pmv", (p, m, v), ref):
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, i)
+
+
+def test_adamw_sumsq_kernel_matches_global_norm(cuda):
+    """gnorm within 1e-6 of the plain global norm (and of the fp64 norm)
+    over fp32 and bf16 leaves, odd sizes, views off the vector boundary
+    and a leaf of 3 M elements; scale is the plain formula of that gnorm,
+    bit for bit, with clipping on and off; two calls give the same bits;
+    the partials of two sets of leaves added elementwise (two ranks'
+    shards) finish to the norm of both."""
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    from repro_torch.kernels.adamw.ref import grad_norm_ref
+    shapes = ADAMW_SHAPES + [(3, 1_000_003)]
+    g32 = _adamw_leaves(cuda, shapes, torch.float32, torch.float32, 6)[1]
+    g16 = _adamw_leaves(cuda, shapes, torch.float32, torch.bfloat16, 7,
+                        offset=1)[1]
+    grads = g32 + g16
+    want = float(grad_norm_ref(grads))
+    exact = float(torch.sqrt(sum(torch.sum(x.double() ** 2) for x in grads)))
+    for clip in (1.0, 1e9):
+        gn, scale = adamw_kernel.adamw_norm(adamw_kernel.adamw_sumsq(grads),
+                                            clip)
+        gn2, scale2 = adamw_kernel.adamw_norm(
+            adamw_kernel.adamw_sumsq(grads), clip)
+        assert abs(float(gn) / want - 1) <= 1e-6
+        assert abs(float(gn) / exact - 1) <= 1e-6
+        assert torch.equal(gn, gn2) and torch.equal(scale, scale2)
+        assert torch.equal(scale, torch.clamp(
+            clip / torch.clamp(gn, min=1e-9), max=1.0))
+        assert (float(scale) < 1.0) == (clip == 1.0)
+    two = adamw_kernel.adamw_sumsq(g32) + adamw_kernel.adamw_sumsq(g16)
+    assert two.shape == (adamw_kernel.NORM_BLOCKS,)
+    assert abs(float(adamw_kernel.adamw_norm(two, 1.0)[0]) / exact - 1) \
+        <= 1e-6
+
+
+def test_adamw_kernels_take_more_leaves_than_a_table(cuda):
+    """More leaves than one launch's table, of two dtype pairs: the sum of
+    squares launches once a table a pair into one set of partials, the
+    finish once, the update once a table a pair, and every leaf is
+    updated as the plain version updates it."""
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    from repro_torch.kernels.adamw.ref import adamw_update_ref, grad_norm_ref
+    T = adamw_kernel.table_leaves()
+    shapes = [(7 + i,) if i % 2 else (3, 5 + i) for i in range(T + 5)]
+    a = _adamw_leaves(cuda, shapes, torch.float32, torch.float32, 8)
+    b = _adamw_leaves(cuda, shapes[:3], torch.bfloat16, torch.bfloat16, 9)
+    p, g, m, v = (x + y for x, y in zip(a, b))
+    ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+    n0 = (adamw_kernel.adamw_sumsq.launches, adamw_kernel.adamw_norm.launches,
+          adamw_kernel.adamw_update_.launches)
+    gn, scale = adamw_kernel.adamw_norm(adamw_kernel.adamw_sumsq(g), 1.0)
+    assert adamw_kernel.adamw_sumsq.launches - n0[0] == 2 + 1
+    assert adamw_kernel.adamw_norm.launches - n0[1] == 1
+    _, lr, bc1, bc2 = _adamw_scalars(cuda)
+    adamw_kernel.adamw_update_(p, g, m, v, scale, lr, bc1, bc2,
+                               **ADAMW_CONSTS)
+    assert adamw_kernel.adamw_update_.launches - n0[2] == 2 + 1
+    assert abs(float(gn) / float(grad_norm_ref(g)) - 1) <= 1e-6
+    adamw_update_ref(ref[0], g, ref[1], ref[2], scale, lr, bc1, bc2,
+                     **ADAMW_CONSTS)
+    for got, want in zip((p, m, v), ref):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def _adamw_plain(grads, state, params, lr):
+    """One AdamW step through the plain version (``kernels/adamw/ref.py``)
+    on card tensors: what the kernels replace."""
+    from repro_torch.kernels.adamw.ref import (adamw_norm_ref,
+                                               adamw_sumsq_ref,
+                                               adamw_update_ref)
+    from repro_torch.tree import tree_leaves
+    step = state.step + 1
+    t = step.to(torch.float32)
+    gl = tree_leaves(grads)
+    gnorm, scale = adamw_norm_ref(adamw_sumsq_ref(gl), 1.0)
+    adamw_update_ref(tree_leaves(params), gl, tree_leaves(state.m),
+                     tree_leaves(state.v), scale, lr, 1 - torch.pow(0.9, t),
+                     1 - torch.pow(0.95, t), **ADAMW_CONSTS)
+    return params, type(state)(step, state.m, state.v), gnorm
+
+
+def test_adamw_three_steps_against_the_plain_path(cuda):
+    """Three ``adamw_update`` steps on the smoke deepseek-v2-lite's leaves
+    (clipping on): parameters and moments within 1e-6 relative L2 a leaf
+    of the plain path's (the two norms sum in other orders, so the scales
+    differ in the last bits), norms within 1e-6; the same tensors come
+    back, the step goes up by one a step; every element takes the kernels
+    (``adamw_fused_elems`` equals ``adamw_elems``) and the launches are one
+    sum of squares, one finish and one update a step."""
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    from repro_torch.observe import spans
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    params = lm.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                            device=cuda)
+    plain = tree_map(lambda t: t.clone(), params)
+    st, sp = adamw_init(params), adamw_init(plain)
+    n_leaves = len(tree_leaves(params))
+    assert n_leaves <= adamw_kernel.table_leaves()
+    gen = torch.Generator(cuda).manual_seed(1)
+    n = sum(t.numel() for t in tree_leaves(params))
+    counts = (adamw_kernel.adamw_sumsq, adamw_kernel.adamw_norm,
+              adamw_kernel.adamw_update_)
+    for i in range(3):
+        grads = tree_map(lambda t: torch.randn(
+            t.shape, generator=gen, device=cuda), params)
+        lr = cosine_schedule(st.step, peak_lr=1e-2, warmup=2, total=10)
+        n0 = [fn.launches for fn in counts]
+        spans.enable()
+        try:
+            out, st, gn = adamw_update(grads, st, params, lr=lr)
+            _, counters = spans.take()
+        finally:
+            spans.disable()
+        assert counters == {"adamw_elems": n, "adamw_fused_elems": n}
+        assert [fn.launches - k for fn, k in zip(counts, n0)] == [1, 1, 1]
+        assert out is params and int(st.step) == i + 1
+        plain, sp, gp = _adamw_plain(grads, sp, plain, lr)
+        assert float(gn) > 1.0 and abs(float(gn) / float(gp) - 1) <= 1e-6
+    for a, b in ((params, plain), (st.m, sp.m), (st.v, sp.v)):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            assert float((x - y).norm() / y.norm()) <= 1e-6
+
+
+def test_adamw_kernels_refuse_what_they_do_not_take(cuda):
+    """A dtype other than fp32 or bf16 raises ``TypeError``; a tensor off
+    the card, of another size or (for what is written in place) not
+    contiguous raises ``ValueError``."""
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    p, g, m, v = _adamw_leaves(cuda, [(4, 6)], torch.float32, torch.float32,
+                               10)
+    s = _adamw_scalars(cuda)
+
+    def upd(p=p, g=g, m=m, v=v):
+        adamw_kernel.adamw_update_(p, g, m, v, *s, **ADAMW_CONSTS)
+    with pytest.raises(TypeError):
+        upd(p=[p[0].half()])
+    with pytest.raises(TypeError):
+        upd(m=[m[0].bfloat16()])
+    with pytest.raises(TypeError):
+        adamw_kernel.adamw_sumsq([g[0].double()])
+    with pytest.raises(TypeError):
+        adamw_kernel.adamw_norm(torch.zeros(4, device=cuda), 1.0)
+    with pytest.raises(ValueError):
+        upd(m=[m[0].cpu()])
+    with pytest.raises(ValueError):
+        upd(p=[p[0].t()])
+    with pytest.raises(ValueError):
+        upd(g=[g[0][:3]])
+    upd(g=[g[0].t().contiguous().t()])         # a strided gradient is read
+
+
+@pytest.mark.parametrize("name", ["adamw_sumsq", "adamw_norm",
+                                  "adamw_update_"])
+def test_adamw_ops_pass_opcheck_on_card(cuda, name):
+    """The AdamW ops pass ``torch.library.opcheck`` on CUDA tensors: the
+    update's declared mutations, the fake versions, AOT dispatch."""
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
+    p, g, m, v = _adamw_leaves(cuda, [(5, 3), (7,)], torch.float32,
+                               torch.float32, 11)
+    args = {"adamw_sumsq": (g,),
+            "adamw_norm": (adamw_kernel.adamw_sumsq(g), 1.0),
+            "adamw_update_": (p, g, m, v, *_adamw_scalars(cuda), 0.9, 0.95,
+                              1e-8, 0.1)}
+    torch.library.opcheck(getattr(torch.ops.repro_torch, name), args[name])
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-lite-16b"])
 def test_dispatch_frac_on_card_within_an_ulp(cuda, arch):
     """``moe._dispatch`` on the card: frac, from the slot kernel's kept

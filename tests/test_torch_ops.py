@@ -3,8 +3,11 @@
 trace) each gives its kernel's output shapes, launches nothing and runs
 no plain version; ``FlopCounterMode`` counts each by its formula in
 ``roofline.work`` (the MoE slot op, integers only, has none); those
-formulas give ``PERF.md``'s bound column; the paged op's lse; and the MoE
-slot op's plain version against the JAX package's formula."""
+formulas give ``PERF.md``'s bound column; the paged op's lse; the MoE
+slot op's plain version against the JAX package's formula; and the AdamW
+ops: opcheck, a fake update that writes nothing and declares the
+parameters and both moments mutated, fake norm partials of the card's
+shape, and their bytes."""
 
 import dataclasses
 
@@ -14,6 +17,8 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch.kernels.adamw import kernel as adamw_kernel
+from repro_torch.kernels.adamw import ops as adamw_ops
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.moe_slots import kernel as slots_kernel
@@ -137,6 +142,115 @@ def test_work_formulas_give_the_bound_column():
             "paged": (0.0053, "bytes"), "ssd": (0.0225, "bytes"),
             "ssd bwd": (0.0581, "bytes"), "moe slots": (0.0007, "bytes")}
     assert {k: (round(ms, 4), by) for k, (ms, by) in got.items()} == want
+
+
+def _adamw_args(dev="cpu", dtype=torch.float32):
+    """One small call of each AdamW op: leaves of 2, 1 and 3 dims (sizes
+    no multiple of 4), moments not zero, and the four scalars."""
+    g = torch.Generator().manual_seed(0)
+    shapes = ((5, 3), (7,), (2, 3, 5))
+    p, gr = ([torch.randn(s, generator=g).to(dev, dtype) for s in shapes]
+             for _ in range(2))
+    m = [torch.randn(s, generator=g).to(dev) for s in shapes]
+    v = [torch.rand(s, generator=g).to(dev) for s in shapes]
+    sc, lr, bc1, bc2 = (torch.tensor(x, device=dev)
+                        for x in (0.5, 0.01, 0.19, 0.0975))
+    return {"adamw_sumsq": (gr,),
+            "adamw_norm": (torch.rand(4, generator=g).to(dev), 1.0),
+            "adamw_update_": (p, gr, m, v, sc, lr, bc1, bc2, 0.9, 0.95,
+                              1e-8, 0.1)}
+
+
+@pytest.mark.parametrize("name", ["adamw_sumsq", "adamw_norm",
+                                  "adamw_update_"])
+def test_adamw_ops_pass_opcheck_on_cpu(name):
+    """Schema (the update's declared mutations against what its plain
+    version writes), fake version and dispatch under AOT tracing."""
+    torch.library.opcheck(getattr(torch.ops.repro_torch, name),
+                          _adamw_args()[name])
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_adamw_fake_update_writes_nothing_and_declares_its_writes(
+        device, monkeypatch):
+    """The update's schema marks params, m and v written and nothing else;
+    on fake tensors (of the CPU, or of a card this machine need not have)
+    the update returns nothing, the sum of squares its partials (each
+    leaf's fp32 sum on the CPU, the card's ``NORM_BLOCKS`` fp64) and the
+    norm two 0-d fp32 tensors, with no launch and no plain version run."""
+    from repro_torch.kernels.adamw import ops as ops_mod
+    schema = torch.ops.repro_torch.adamw_update_.default._schema
+    written = {a.name for a in schema.arguments
+               if a.alias_info is not None and a.alias_info.is_write}
+    assert written == {"params", "m", "v"} and not schema.returns
+    blocks = adamw_kernel.NORM_BLOCKS
+    for fn in ("adamw_sumsq_ref", "adamw_norm_ref", "adamw_update_ref"):
+        monkeypatch.setattr(ops_mod, fn, None)     # a call would raise
+    monkeypatch.setattr(ops_mod, "_kernel", type("K", (), {
+        "NORM_BLOCKS": blocks}))
+    before = (adamw_kernel.adamw_sumsq.launches,
+              adamw_kernel.adamw_norm.launches,
+              adamw_kernel.adamw_update_.launches)
+    args = _adamw_args()
+    with FakeTensorMode(allow_non_fake_inputs=False) as mode:
+        def fake(a):
+            if isinstance(a, list):
+                return [fake(t) for t in a]
+            if not isinstance(a, torch.Tensor):
+                return a
+            if device == "cuda":
+                return torch.empty_strided(a.shape, a.stride(),
+                                           dtype=a.dtype, device="cuda")
+            return mode.from_tensor(a, static_shapes=True)
+        upd = [fake(a) for a in args["adamw_update_"]]
+        assert torch.ops.repro_torch.adamw_update_(*upd) is None
+        partial = torch.ops.repro_torch.adamw_sumsq(
+            *[fake(a) for a in args["adamw_sumsq"]])
+        n, scale = torch.ops.repro_torch.adamw_norm(partial, 1.0)
+    assert (adamw_kernel.adamw_sumsq.launches,
+            adamw_kernel.adamw_norm.launches,
+            adamw_kernel.adamw_update_.launches) == before
+    assert (partial.shape, partial.dtype) == (
+        ((3,), torch.float32) if device == "cpu"
+        else ((blocks,), torch.float64))
+    assert [(t.shape, t.dtype, t.device.type) for t in (n, scale)] == \
+        [(torch.Size([]), torch.float32, device)] * 2
+
+
+@pytest.mark.parametrize("dtype,per_elem", [(torch.float32, (4, 28)),
+                                            (torch.bfloat16, (2, 22))])
+def test_adamw_work_charges_bytes(dtype, per_elem):
+    """The norm reads each gradient element once; the update reads p, g,
+    m and v and writes p, m and v (m and v fp32): 4 and 28 B an fp32
+    element, 2 and 22 B with bf16 p and g; the finish its partials and
+    two fp32 outputs; no operations."""
+    args = _adamw_args(dtype=dtype)
+    n = sum(t.numel() for t in args["adamw_sumsq"][0])
+    assert work.op_work("adamw_sumsq", args["adamw_sumsq"]) == \
+        (per_elem[0] * n, 0)
+    assert work.op_work("adamw_norm", args["adamw_norm"]) == (4 * 4 + 8, 0)
+    assert work.adamw_norm_work(adamw_kernel.NORM_BLOCKS) == \
+        (8 * adamw_kernel.NORM_BLOCKS + 8, 0)
+    assert work.op_work("adamw_update_", args["adamw_update_"]) == \
+        (per_elem[1] * n, 0)
+    assert work.bound_ms(*work.adamw_update_work(2_839_831_040), 1)[1] == \
+        "bytes"
+
+
+def test_adamw_ops_take_a_list_and_refuse_an_empty_one():
+    """The public functions take any iterable of leaves; an empty one has
+    no device to run on and raises."""
+    args = _adamw_args()
+    n, _ = adamw_ops.adamw_norm(
+        adamw_ops.adamw_sumsq(iter(args["adamw_sumsq"][0])), 1.0)
+    assert torch.equal(n, torch.sqrt(sum(torch.sum(torch.square(g))
+                                         for g in args["adamw_sumsq"][0])))
+    with pytest.raises(ValueError, match="at least one"):
+        adamw_ops.adamw_sumsq([])
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="at least one"):
+        adamw_ops.adamw_update_([], [], [], [], one, one, one, one, b1=0.9,
+                                b2=0.95, eps=1e-8, weight_decay=0.1)
 
 
 def test_work_copies_the_ssd_backward_pieces():

@@ -169,6 +169,158 @@ def test_adamw_matches_jax_with_decay_and_clipping():
         _assert_tree_close(tst.v, jst.v, 1e-6, f"v step {i}")
 
 
+def _adamw_before(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
+                  weight_decay=0.1, clip_norm=1.0):
+    """``optim/adamw.py``'s update as it read before the ops, word for
+    word: the arithmetic the CPU route must keep, bit for bit."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                           for x in tree_leaves(grads)))
+    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step = state.step + 1
+    t = step.to(torch.float32)
+    bc1 = 1 - torch.pow(b1, t)
+    bc2 = 1 - torch.pow(b2, t)
+    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m),
+                          tree_leaves(state.v), tree_leaves(params)):
+        g = g.float() * scale
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * torch.square(g))
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        decay = weight_decay if p.ndim >= 2 else 0.0
+        pf = p.float()
+        p.copy_(pf - lr * (u + decay * pf))
+    return params, type(state)(step, state.m, state.v), gnorm
+
+
+def _adamw_tree(seed):
+    """Leaves of 2 and 3 dims (decayed), of one dim and a 0-d one (not), a
+    size no multiple of 4 and an empty one."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"w": (5, 3), "stack": (2, 3, 7), "b": (7,), "s": (),
+              "empty": (0, 4)}
+    return {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("clip", [1.0, 1e9])
+def test_adamw_cpu_route_is_the_arithmetic_before_the_ops(clip):
+    """Through the ops' CPU route, three steps give the bits of the update
+    as it was (decay on leaves of two or more dims only; the gradients
+    clipped at 1.0, or never at 1e9), the norm too, at a float and at a
+    0-d tensor learning rate."""
+    p, q = _adamw_tree(0), _adamw_tree(0)
+    st, sq = adamw_init(p), adamw_init(q)
+    for i in range(3):
+        grads = {k: v * 3 for k, v in _adamw_tree(i + 1).items()}
+        lr = 0.05 if i % 2 else cosine_schedule(st.step, peak_lr=0.05,
+                                                warmup=2, total=10)
+        p, st, n = adamw_update(grads, st, p, lr=lr, clip_norm=clip)
+        q, sq, nq = _adamw_before(grads, sq, q, lr=lr, clip_norm=clip)
+        assert torch.equal(n, nq), i
+        for tree_a, tree_b in ((p, q), (st.m, sq.m), (st.v, sq.v)):
+            assert all(torch.equal(tree_a[k], tree_b[k]) for k in tree_a), i
+    assert float(nq) > 1.0           # so a clip of 1.0 scales the grads
+
+
+def test_adamw_update_keeps_its_in_place_contract():
+    """The same tensor objects come back, updated in place, and the step
+    goes up by one (int32, 0-d)."""
+    p = _adamw_tree(0)
+    st = adamw_init(p)
+    ids = {k: id(v) for k, v in p.items()}
+    m_ids = {k: id(v) for k, v in st.m.items()}
+    before = {k: v.clone() for k, v in p.items()}
+    p2, st2, _ = adamw_update(_adamw_tree(1), st, p, lr=0.1)
+    assert p2 is p and {k: id(v) for k, v in p2.items()} == ids
+    assert st2.m is st.m and {k: id(v) for k, v in st2.m.items()} == m_ids
+    assert st2.v is st.v
+    assert int(st2.step) == 1 and st2.step.dtype == torch.int32 \
+        and st2.step.shape == ()
+    assert not torch.equal(p["w"], before["w"])
+    assert p["empty"].shape == (0, 4)
+
+
+def test_adamw_zero_size_leaf_alone_and_beside_others():
+    """A leaf of no elements adds nothing to the norm and is left as it
+    is; a tree of nothing else gives a zero norm and no NaN."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    e = [torch.zeros((0, 3))]
+    n, scale = adamw_ops.adamw_norm(adamw_ops.adamw_sumsq(e), 1.0)
+    assert float(n) == 0.0 and float(scale) == 1.0
+    p = {"empty": torch.zeros((0, 3)), "b": torch.ones(3)}
+    st = adamw_init(p)
+    _, st, n = adamw_update({"empty": torch.zeros((0, 3)),
+                             "b": torch.full((3,), 2.0)}, st, p, lr=0.1)
+    assert float(n) == pytest.approx(12 ** 0.5)
+    assert torch.isfinite(p["b"]).all() and p["empty"].numel() == 0
+
+
+def test_adamw_counts_its_elements():
+    """With the recorder on, ``adamw_elems`` counts every element updated
+    and ``adamw_fused_elems`` those the kernels updated: none on the
+    CPU."""
+    from repro_torch.observe import spans
+    p = _adamw_tree(0)
+    spans.enable()
+    try:
+        adamw_update(_adamw_tree(1), adamw_init(p), p, lr=0.1)
+        _, counters = spans.take()
+    finally:
+        spans.disable()
+    assert counters == {"adamw_elems": 15 + 42 + 7 + 1,
+                        "adamw_fused_elems": 0}
+
+
+def test_adamw_ops_refuse_meta_and_dtensors(tmp_path):
+    """The ops refuse a ``meta`` tensor (the kernel's wrapper, no plain
+    fallback) and a DTensor (``TypeError``); DTensor leaves (the mesh path)
+    update through the ops on their local shards, as the same plain
+    tensors do, bit for bit, over a one-rank gloo mesh, the norm too."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import partitioning as part
+    p = _adamw_tree(0)
+    meta = [v.to("meta") for v in p.values()]
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_ops.adamw_sumsq(meta)
+    s = torch.ones((), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_ops.adamw_norm(torch.ones(3, device="meta"), 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_ops.adamw_update_(meta, meta, meta, meta, s, s, s, s, b1=0.9,
+                                b2=0.95, eps=1e-8, weight_decay=0.1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh()
+        d = {k: part.replicate(v.clone(), mesh) for k, v in p.items()}
+        grads = _adamw_tree(1)
+        dg = {k: part.replicate(v.clone(), mesh) for k, v in grads.items()}
+        with pytest.raises(TypeError, match="DTensor"):
+            adamw_ops.adamw_sumsq(list(dg.values()))
+        one = torch.ones(())
+        with pytest.raises(TypeError, match="DTensor"):
+            adamw_ops.adamw_norm(part.replicate(one, mesh), 1.0)
+        with pytest.raises(TypeError, match="DTensor"):
+            adamw_ops.adamw_update_(list(d.values()), list(dg.values()),
+                                    list(d.values()), list(d.values()), one,
+                                    one, one, one, b1=0.9, b2=0.95, eps=1e-8,
+                                    weight_decay=0.1)
+        lr = torch.tensor(0.05)
+        d, dst, dn = adamw_update(dg, adamw_init(d), d, lr=lr)
+        p, st, n = adamw_update(grads, adamw_init(p), p, lr=lr)
+        assert isinstance(d["w"], DTensor) and isinstance(dst.m["w"],
+                                                          DTensor)
+        assert torch.equal(dn, n)
+        for k in p:
+            assert torch.equal(d[k].full_tensor(), p[k]), k
+            assert torch.equal(dst.m[k].full_tensor(), st.m[k]), k
+            assert torch.equal(dst.v[k].full_tensor(), st.v[k]), k
+    finally:
+        dist.destroy_process_group()
+
+
 def test_cosine_schedule_shape():
     """Twin of test_substrate.py::test_cosine_schedule_shape, and the same
     values as the JAX schedule."""
